@@ -1,0 +1,26 @@
+"""Device selection for the entry points: CUDA unless the caller asks for
+the CPU, and never a silent fall back from one to the other."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(name="cuda"):
+    """``torch.device`` for ``name`` ('cuda', 'cuda:N' or 'cpu').  Raises
+    when CUDA is asked for and no card is visible."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is visible; pass -device cpu to run on the CPU")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {name!r}")
+    return device
+
+
+def disable_tf32():
+    """Keep float32 matmuls and convolutions in full float32 on the card
+    (cuDNN convolutions default to TF32).  The port is float32 only and is
+    held to the JAX reference at float32 tolerances."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
