@@ -7,17 +7,24 @@ an explicit ``device``, explicit ``torch.Generator``s.  It imports neither JAX
 nor anything of the JAX package; what it needs from the JAX-free host modules
 (Kaldi I/O, data loading, constants) it keeps as its own copies.
 
-Ported so far (the stage-5 decode path of the attention-transformer recipe):
+Ported so far (stages 3-5 of the attention-transformer recipe: initialize,
+train + combine, decode):
 
-- ``utils``   constants, logging, a small msgpack codec for flax checkpoints.
+- ``utils``   constants, logging, metrics logging, a small msgpack codec for
+              flax checkpoints.
 - ``io``      Kaldi ark/scp reading (plain, text and CM/CM2/CM3 compressed).
 - ``data``    vocab/text handling and the bucketed batch loader.
-- ``models``  the transformer with the ``tdnn`` and ``banded`` encoders.
-- ``ops``     banded attention: a hand-written CUDA kernel for Hopper beside
-              its plain PyTorch version.
+- ``models``  the transformer with the ``tdnn`` and ``banded`` encoders,
+              inference and training (dropout) branches.
+- ``ops``     banded attention: hand-written CUDA kernels for Hopper (the
+              inference kernel; the trainable forward and its two backward
+              kernels) beside their plain PyTorch versions.
 - ``decode``  the KV-cached beam search and the n-best writer.
-- ``train``   checkpoint reading and writing (the flax on-disk layout).
-- ``recipes`` the ``initialize_model`` and ``decode`` entry points.
+- ``train``   loss, Adam with the hyperbolic LR schedule, train state and
+              steps, the epoch driver and checkpoint averaging, checkpoints
+              in the flax on-disk layout (optimizer state port-native).
+- ``recipes`` the ``initialize_model``, ``train``, ``combine`` and
+              ``decode`` entry points.
 
 Entry points run on ``cuda`` unless the caller asks for ``cpu``; without a
 card they raise rather than fall back.

@@ -13,6 +13,8 @@ Iterate ``(keys, src, src_mask, tgt, tgt_mask, valid)`` numpy batches:
 
 from __future__ import annotations
 
+import collections
+from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple
 
 import numpy as np
@@ -113,6 +115,10 @@ class BatchLoader:
     num_buckets: >1 groups utterances into length buckets, each padded to
                 its own length; batches are drawn within buckets.
     seed:       epoch shuffling seed (the epoch index is mixed in).
+    num_workers: >1 assembles batches on a thread pool with an ordered,
+                bounded handoff (2x workers in flight): the same batches in
+                the same order as one worker, with the ark reads and numpy
+                padding overlapping.
     """
 
     def __init__(
@@ -127,6 +133,7 @@ class BatchLoader:
         shuffle=True,
         num_buckets=1,
         pad_multiple=8,
+        num_workers=1,
     ):
         if mode not in ("drop", "all"):
             raise ValueError("mode of BatchLoader can only be [all] or [drop]")
@@ -140,6 +147,7 @@ class BatchLoader:
         self.pre_load = pre_load
         self.seed = seed
         self.shuffle = shuffle
+        self.num_workers = max(1, int(num_workers))
         self.epoch = 0
 
         if self.pre_load:
@@ -225,8 +233,23 @@ class BatchLoader:
         if self.shuffle:
             rng.shuffle(batches)
 
-        for idx, n_valid, pad in batches:
-            yield self._make_batch(idx, n_valid, pad)
+        if self.num_workers > 1:
+            yield from self._iter_parallel(batches)
+        else:
+            for idx, n_valid, pad in batches:
+                yield self._make_batch(idx, n_valid, pad)
+
+    def _iter_parallel(self, batches):
+        """Assemble batches on a thread pool, yielding them in order with
+        at most 2x workers in flight."""
+        with ThreadPoolExecutor(max_workers=self.num_workers) as ex:
+            pending = collections.deque()
+            for desc in batches:
+                pending.append(ex.submit(self._make_batch, *desc))
+                if len(pending) >= 2 * self.num_workers:
+                    yield pending.popleft().result()
+            while pending:
+                yield pending.popleft().result()
 
     def _make_batch(self, idx, n_valid, src_pad=None):
         feats = [

@@ -1,5 +1,5 @@
 """Shared model building blocks: positional tables, attention masks, frame
-folding, masked softmax, layer norm, splicing, init.
+folding, masked softmax, layer norm, splicing, dropout, init.
 
 Each function keeps a numerical quirk of the reference model family that
 the JAX package pins (``pytorch_kaldi_asr_tpu.models.common``); missing any
@@ -10,7 +10,9 @@ of them moves WER without an error:
 - fully masked softmax rows are exact zeros, not NaN;
 - layer norm divides by the UNBIASED std with ``eps`` added to the std,
   and is the identity when the sequence axis has length 1 (``skip_len1``);
-- frame folding subsamples the mask at ``[fold-1::fold]``.
+- frame folding subsamples the mask at ``[fold-1::fold]``;
+- dropout draws an 8-bit threshold per element: keep probability q/256 with
+  ``q = round((1 - rate) * 256)``, kept values scaled by exactly 256/q.
 
 Only the float32 path is ported: the port computes in float32 throughout.
 """
@@ -86,7 +88,10 @@ def layer_norm(z, gamma, beta, eps=1e-3, skip_len1=True):
     n = z.shape[-1]
     mu = z.mean(dim=-1, keepdim=True)
     var = ((z - mu) ** 2).sum(dim=-1, keepdim=True) / (n - 1)
-    sigma = torch.sqrt(var)
+    # safe sqrt: the same value, but a constant row (var == 0) gets a zero
+    # gradient instead of inf * 0 = NaN
+    safe = var > 0
+    sigma = torch.where(safe, torch.sqrt(torch.where(safe, var, 1.0)), 0.0)
     return (z - mu) / (sigma + eps) * gamma + beta
 
 
@@ -121,6 +126,39 @@ def spliced_linear(x, w, b, context):
     if b is not None:
         out = out + b
     return out
+
+
+class DropoutRngs:
+    """The randomness of one training step.  ``mask`` is a
+    ``torch.Generator`` on the model's device that draws the dropout masks,
+    site after site in the model's order; ``seeds`` is a CPU generator that
+    draws the banded-attention kernels' dropout seeds as Python ints, so
+    taking one never waits on the card."""
+
+    def __init__(self, mask, seeds):
+        self.mask = mask
+        self.seeds = seeds
+
+    def seed(self):
+        """A kernel seed in [0, 2**31 - 2], as the JAX package draws it."""
+        return int(torch.randint(0, 2**31 - 1, (), generator=self.seeds))
+
+
+def dropout(x, rate, generator, train):
+    """Inverted dropout, the JAX package's 8-bit threshold draw: each element
+    is kept with probability q/256, ``q = round((1 - rate) * 256)``, and
+    scaled by 256/q, so the estimate stays unbiased.  The draws come from
+    ``generator``, which lives on ``x``'s device.  Identity when not
+    training, when ``rate == 0``, without a generator, or when q >= 256."""
+    if not train or rate == 0.0 or generator is None:
+        return x
+    q = round((1.0 - rate) * 256)
+    if q >= 256:
+        return x
+    q = max(q, 1)
+    bits = torch.randint(0, 256, x.shape, generator=generator,
+                         device=x.device, dtype=torch.uint8)
+    return torch.where(bits < q, x * (256.0 / q), 0.0)
 
 
 def xavier_normal(generator, shape, fan_in, fan_out):

@@ -17,7 +17,11 @@ package by tests/test_torch_models.py):
 - decoder: word+position embeddings → [self-attn, cross-attn, FFN]×N →
   vocab projection (no bias), with enc_dec_projection en_d_model→de_d_model.
 
-This slice is inference only: no dropout, no training branch.
+Training (``train=True``) adds dropout at the JAX package's sites, in its
+order, drawn from the ``DropoutRngs`` of models/common.py passed as
+``rngs``; with ``rngs=None`` every dropout is the identity.
+The draws differ from ``jax.random``'s, so the packages are compared with
+dropout off.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch
 from pytorch_kaldi_asr_tpu_torch.models import common
 from pytorch_kaldi_asr_tpu_torch.models.common import (
     banded_attn_mask,
+    dropout,
     fold_seq_and_mask,
     layer_norm,
     masked_softmax,
@@ -226,9 +231,16 @@ def tree_map(fn, tree):
 # ---------------------------------------------------------------------------
 
 
-def multi_head_attention(p, q, k, v, blocked, cfg):
+def _drop(x, rate, rngs, train):
+    """Dropout at one site, drawing from ``rngs.mask``."""
+    return dropout(x, rate, None if rngs is None else rngs.mask, train)
+
+
+def multi_head_attention(p, q, k, v, blocked, cfg, rate=0.0, rngs=None,
+                         train=False):
     """Post-LN multi-head attention.  ``blocked`` is [B, Lq, Lk] bool.
-    Scale divisor is sqrt(d_model), not sqrt(d_k)."""
+    Scale divisor is sqrt(d_model), not sqrt(d_k).  Training drops the
+    attention probabilities and the projected output."""
     residual = q
     scale = q.shape[-1]
     qs = torch.einsum("bld,hdk->bhlk", q, p["w_qs"])
@@ -237,58 +249,69 @@ def multi_head_attention(p, q, k, v, blocked, cfg):
     logits = torch.einsum("bhqk,bhlk->bhql", qs, ks) / np.sqrt(
         np.float32(scale))
     attn = masked_softmax(logits, blocked[:, None, :, :])
+    attn = _drop(attn, rate, rngs, train)
     out = torch.einsum("bhql,bhlv->bhqv", attn, vs)
     b, h, lq, dv = out.shape
     out = out.transpose(1, 2).reshape(b, lq, h * dv)
     out = out @ p["proj"]["w"] + p["proj"]["b"]
+    out = _drop(out, rate, rngs, train)
     return layer_norm(out + residual, p["ln"]["gamma"], p["ln"]["beta"],
                       skip_len1=cfg.ln_skip_len1)
 
 
-def feed_forward(p, x, cfg):
-    """Position-wise FFN with ReLU and post-LN residual."""
+def feed_forward(p, x, cfg, rate=0.0, rngs=None, train=False):
+    """Position-wise FFN with ReLU and post-LN residual; training drops the
+    FFN's output."""
     h = torch.relu(x @ p["w1"]["w"] + p["w1"]["b"])
     out = h @ p["w2"]["w"] + p["w2"]["b"]
+    out = _drop(out, rate, rngs, train)
     return layer_norm(out + x, p["ln"]["gamma"], p["ln"]["beta"],
                       skip_len1=cfg.ln_skip_len1)
 
 
 def encode(params, cfg: TransformerConfig, src_seq, src_mask, *,
-           pos_offset=0):
+           pos_offset=0, train=False, rngs=None):
     """Fold the input, then run the configured encoder family.  Expects
     UNfolded input [B, S, D]; returns (enc_output, folded src_mask).
 
     ``tdnn``: splice → frozen LDA → projection → TDNN stack → +positions
     (position indices shifted by ``pos_offset``, saturating at the table
-    end)."""
+    end), with dropout after the projection, each TDNN layer and the
+    positions when training."""
     src_seq, src_mask = fold_seq_and_mask(src_seq, src_mask, cfg.src_fold)
     if cfg.encoder_type != "tdnn":
         from pytorch_kaldi_asr_tpu_torch.models.encoders import encoder_apply
 
         return encoder_apply(cfg.encoder_type)(
-            params["encoder"], cfg, src_seq, src_mask)
+            params["encoder"], cfg, src_seq, src_mask, train=train,
+            rngs=rngs)
 
     p = params["encoder"]
+    rate = cfg.en_dropout
     x = common.spliced_linear(src_seq, p["lda"]["w"], p["lda"]["b"],
                               cfg.lda_context)
     x = x @ p["src_proj"]["w"]
+    x = _drop(x, rate, rngs, train)
     for ctx, layer in zip(cfg.tdnn_contexts, p["tdnn"]):
         x = torch.relu(common.spliced_linear(x, layer["w"], layer["b"], ctx))
+        x = _drop(x, rate, rngs, train)
 
     pos_table = position_encoding_table(cfg.encoder_max_len, cfg.en_d_model,
                                         device=x.device)
     pos_idx = torch.clamp(
         pos_offset + torch.arange(x.shape[1], device=x.device), 0,
         cfg.encoder_max_len - 1)
-    return x + pos_table[pos_idx][None, :, :], src_mask
+    x = x + pos_table[pos_idx][None, :, :]
+    return _drop(x, rate, rngs, train), src_mask
 
 
 def decode_logits(params, cfg: TransformerConfig, tgt_seq, tgt_mask,
-                  src_mask, enc_output):
+                  src_mask, enc_output, *, train=False, rngs=None):
     """Teacher-forced decoder: returns [B, T, vocab] logits."""
     p = params["decoder"]
     t = tgt_seq.shape[1]
     device = enc_output.device
+    rate = cfg.de_dropout
 
     pos_table = position_encoding_table(cfg.decoder_max_len, cfg.de_d_model,
                                         device=device)
@@ -300,18 +323,24 @@ def decode_logits(params, cfg: TransformerConfig, tgt_seq, tgt_mask,
         device=device)[None, :, :]
     cross_blocked = padding_attn_mask(tgt_mask, src_mask)
 
+    x = _drop(x, rate, rngs, train)
     for layer in p["layers"]:
-        x = multi_head_attention(layer["slf"], x, x, x, slf_blocked, cfg)
+        x = multi_head_attention(layer["slf"], x, x, x, slf_blocked, cfg,
+                                 rate, rngs, train)
         x = multi_head_attention(layer["enc"], x, enc, enc, cross_blocked,
-                                 cfg)
-        x = feed_forward(layer["ffn"], x, cfg)
+                                 cfg, rate, rngs, train)
+        x = feed_forward(layer["ffn"], x, cfg, rate, rngs, train)
+    x = _drop(x, rate, rngs, train)
     return x @ p["word_proj"]["w"]
 
 
 def transformer_forward(params, cfg: TransformerConfig, src_seq, src_mask,
-                        tgt_seq, tgt_mask):
+                        tgt_seq, tgt_mask, *, train=False, rngs=None):
     """Full teacher-forced forward: fold → encode → decode; returns
-    [B, T, vocab] logits."""
-    enc_output, folded_src_mask = encode(params, cfg, src_seq, src_mask)
+    [B, T, vocab] logits.  ``train=True`` runs the training branch (the
+    banded encoder's differentiable attention, and dropout when ``rngs`` is
+    given)."""
+    enc_output, folded_src_mask = encode(params, cfg, src_seq, src_mask,
+                                         train=train, rngs=rngs)
     return decode_logits(params, cfg, tgt_seq, tgt_mask, folded_src_mask,
-                         enc_output)
+                         enc_output, train=train, rngs=rngs)

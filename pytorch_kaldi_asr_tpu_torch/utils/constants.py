@@ -19,3 +19,8 @@ EOS_WORD = "</s>"
 # (reference: run.sh:52-53); tooling that must round-trip vocab files needs
 # to know its spelling.
 DISAMBIG_WORD = "#0"
+
+# Exit code of a training run that stopped on the preemption signal after
+# checkpointing: "resubmit me" (EX_TEMPFAIL), the JAX package's
+# parallel/launch.py PREEMPT_EXIT_CODE.
+PREEMPT_EXIT_CODE = 75

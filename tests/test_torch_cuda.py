@@ -77,6 +77,101 @@ def test_kernel_refuses_what_it_cannot_take(cuda_device):
                             start=-4, end=0, scale=1.0)
 
 
+GRAD_ATOL = 1e-4  # float32 gradients summed over the band in another order
+
+
+def _grads_of(fn, q, k, v, dout):
+    q, k, v = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    out = fn(q, k, v)
+    out.backward(dout)
+    return out.detach(), q.grad, k.grad, v.grad
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.35])
+@pytest.mark.parametrize("s,d,dv,start,end", [
+    (512, 64, 64, -100, 0),   # the training slice's kernel shape
+    (256, 32, 32, -64, 32),
+    (200, 16, 8, -10, 0),     # S not a multiple of the tile, dv != d
+    (64, 128, 128, -300, 0),  # the largest head dims (dynamic shared memory)
+])
+def test_trainable_kernels_match_plain_version(cuda_device, rate, s, d, dv,
+                                               start, end):
+    """K2a (out, lse), K2b (dq) and K2c (dk, dv) against autograd of the
+    plain version, each launched exactly once per forward + backward; rows
+    with no valid key get exact-zero outputs and gradients."""
+    lengths = [s, s // 2, 1, 0]
+    q, k, v, valid = _inputs(cuda_device, 4, s, d, dv, lengths, seed=s + d)
+    dout = torch.randn(v.shape, generator=torch.Generator().manual_seed(1)
+                       ).to(cuda_device)
+    kw = dict(start=start, end=end, scale=0.125, dropout_rate=rate)
+    counts = [f.launches for f in (ba.banded_attention_fwd,
+                                   ba.banded_attention_dq,
+                                   ba.banded_attention_dkv)]
+    got = _grads_of(lambda q, k, v: ba.banded_attention_trainable(
+        q, k, v, valid, 1234, **kw), q, k, v, dout)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (ba.banded_attention_fwd,
+                                 ba.banded_attention_dq,
+                                 ba.banded_attention_dkv)] == \
+        [c + 1 for c in counts]
+    want = _grads_of(lambda q, k, v: ba.banded_attention_trainable_reference(
+        q, k, v, valid, 1234, start, end, 0.125, rate)[0], q, k, v, dout)
+    for g, w, tol in zip(got, want, (ATOL, GRAD_ATOL, GRAD_ATOL, GRAD_ATOL)):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), atol=tol)
+    empty = torch.arange(s, device=cuda_device)[None, :] + start >= \
+        torch.as_tensor(lengths, device=cuda_device)[:, None]
+    assert (got[0][empty] == 0).all() and (got[1][empty] == 0).all()
+    # lse straight from K2a, padded to the tile as the wrapper does
+    s_pad = -(-s // ba.BLOCK) * ba.BLOCK
+    padded = ba._check_and_pad(q, k, v, valid, start, end)
+    _, lse = ba.banded_attention_fwd(*padded, 1234, **kw)
+    _, lse_ref = ba.banded_attention_trainable_reference(
+        *padded, 1234, start, end, 0.125, rate)
+    assert lse.shape == (4, s_pad)
+    finite = torch.isfinite(lse_ref)
+    assert torch.equal(torch.isfinite(lse), finite)
+    np.testing.assert_allclose(lse[finite].cpu().numpy(),
+                               lse_ref[finite].cpu().numpy(), atol=ATOL)
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """One train step of the banded-encoder model, dropout off: the card
+    (K2a/K2b/K2c, each launched once per encoder layer) against the CPU
+    (their plain versions)."""
+    from pytorch_kaldi_asr_tpu_torch.train import create_train_state, train_step
+    from pytorch_kaldi_asr_tpu_torch.train.optim import trainable_leaves
+
+    cfg = TransformerConfig(
+        src_dim=40, vocab_size=52, encoder_max_len=128, decoder_max_len=20,
+        encoder_sub_sequence=(-100, 0), decoder_sub_sequence=(-10, 0),
+        en_layers=2, de_layers=2, n_head=2, en_d_model=64, de_d_model=32,
+        d_k=16, d_v=16, en_dropout=0.0, de_dropout=0.0, encoder_type="banded")
+    params = init_transformer(torch.Generator().manual_seed(0), cfg)
+    g = torch.Generator().manual_seed(2)
+    src = torch.randn((3, 120, 40), generator=g)
+    mask = torch.ones((3, 120), dtype=torch.uint8)
+    mask[2, 70:] = 0
+    tgt = torch.tensor([[2, 5, 9, 3, 0], [2, 7, 3, 0, 0], [2, 4, 4, 6, 3]])
+    batch = (src, mask, tgt, (tgt != 0).to(torch.uint8))
+    kernels = (ba.banded_attention_fwd, ba.banded_attention_dq,
+               ba.banded_attention_dkv)
+    results = {}
+    for device in ("cpu", cuda_device):
+        before = [f.launches for f in kernels]
+        # a copy per device: the step updates its parameters in place
+        state = create_train_state(tree_map(
+            lambda x: x.detach().to(device, copy=True), params))
+        m = train_step(state, cfg, *(x.to(device) for x in batch))
+        launched = [f.launches - b for f, b in zip(kernels, before)]
+        results[str(device)] = (float(m["loss"]), [
+            p.grad.cpu() for p in trainable_leaves(state.params)], launched)
+    (loss_c, grads_c, n_c), (loss_g, grads_g, n_g) = results.values()
+    assert n_c == [0, 0, 0] and n_g == [cfg.en_layers] * 3
+    assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c)
+    for a, b in zip(grads_g, grads_c):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
 def test_beam_search_on_the_card_matches_the_cpu(cuda_device):
     cfg = TransformerConfig(
         src_dim=40, vocab_size=52, encoder_max_len=128, decoder_max_len=20,

@@ -4,8 +4,10 @@
   package's decode CLI and the port's (``-device cpu``) write decode.txt
   files with the same keys and words line by line, scores within 1e-4.
 - With the imports of jax, flax, optax, msgpack and the JAX package blocked,
-  every port module and chip_smoke.py import, and the port's own
-  initialize_model + decode run end to end on the CPU.
+  every port module (the training slice's train/, recipes.train and
+  recipes.combine included) and chip_smoke.py import, and the port's own
+  initialize_model + decode run end to end on the CPU
+  (tests/test_torch_train_slice.py runs train and combine so).
 - The entry points refuse what they cannot do: no card without
   ``-device cpu``, and the options not ported yet.
 """
@@ -92,6 +94,9 @@ _NO_JAX = textwrap.dedent("""
                                                    pkg.__name__ + ".")]
     for name in names:
         importlib.import_module(name)
+    for name in ("train.loop", "train.state", "train.optim", "train.loss",
+                 "recipes.train", "recipes.combine", "utils.metrics"):
+        assert pkg.__name__ + "." + name in names, name
     importlib.import_module("chip_smoke")
 
     from pytorch_kaldi_asr_tpu_torch.io.kaldi_io import ArkWriter
@@ -131,7 +136,7 @@ def test_port_runs_with_jax_blocked(tmp_path):
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     last = proc.stdout.strip().splitlines()[-1].split()
-    assert last[0] == "modules" and int(last[1]) >= 20
+    assert last[0] == "modules" and int(last[1]) >= 33
     assert last[2:] == ["lines", "6"]
 
 
