@@ -7,31 +7,51 @@ CUDA card: ``python3 chip_smoke.py`` from the root of a checkout.
 2. Builds every CUDA kernel of the port from ``ops/csrc`` (one nvcc per
    source, all started together) and prints what ptxas reports.
 3. Kernel phase: holds each kernel against its plain PyTorch version on the
-   card at the slices' shapes and at edge cases (band shapes, padded tails,
-   fully masked rows exactly 0, dv != d, S not a multiple of the tile), then
-   times the kernel, the plain version and the PyTorch library call that
-   computes the same function, with CUDA events after warm-up.  K1 is the
-   inference kernel; K2a/K2b/K2c (forward with lse, dq, dk/dv) are held
-   against autograd of the plain trainable version at dropout 0 and 0.35.
-4. Decode slice (stage 5): writes a seeded TIMIT-shaped data dir (16
-   utterances of 40-dim features, 150-500 frames, a 52-entry phone
-   vocabulary), runs the port's ``initialize_model`` at the recipe's widths
-   with ``-encoder_type banded`` and its ``decode`` on the card with the
-   recipe's stage-5 flags, checks the 16 x 10 n-best lines and that K1 was
-   launched by the decode, decodes the first batch again on the CPU and
-   compares, and prints the decode wall time and real-time factor.
-5. Training slice (stages 3-4): seeded train/dev/test dirs of 300/40/40
-   utterances, ``initialize_model`` at the recipe's widths (dropout 0.35),
-   the port's ``train`` CLI with the recipe's stage-4 flags for 2 epochs
-   and then its ``combine`` CLI, on the card.  Checks finite losses, the
-   two ``metrics.jsonl`` records, the checkpoint names, and that K2a, K2b
-   and K2c each ran exactly en_layers x train steps times.  Then one train
-   step from model.init with dropout off, on the card and on the CPU: the
-   loss and every gradient leaf must agree.  Prints the train step's time,
-   frames per second and the K2 kernels' share of it.
-6. Prints the ``kernels`` JSON line, the card line, and as the last line
+   card at the paths' shapes and at edge cases, then times the kernel, the
+   plain version and the PyTorch library call that computes the same
+   function, with CUDA events after warm-up.  K1 is the inference kernel;
+   K2a/K2b/K2c (forward with lse, dq, dk/dv) are held against autograd of
+   the plain trainable version at dropout 0 and 0.35, at the TIMIT shape
+   and at the conformer's (S 1600, band (-256, 256)); K3 (fused dropout)
+   forward and backward must match its plain version bit for bit (0 mask
+   mismatches) at the conformer's [51200, 1024] and [51200, 256] for both
+   thresholds at rates 0.1 and 0.35, and at edge cases.
+4. TIMIT decode (stage 5): a seeded TIMIT-shaped data dir (16 utterances of
+   40-dim features, 150-500 frames, a 52-entry phone vocabulary), the
+   port's ``initialize_model`` at the recipe's widths with ``-encoder_type
+   banded`` and its ``decode`` on the card with the recipe's stage-5 flags;
+   checks the n-best lines and the K1 launches, decodes the first batch
+   again on the CPU and compares, and prints the wall time and RTF.
+5. TIMIT training (stages 3-4): train/dev/test dirs of 300/40/40
+   utterances, the ``train`` CLI with the recipe's stage-4 flags for 2
+   epochs, then the ``combine`` CLI.  Checks finite losses, the
+   ``metrics.jsonl`` records, the checkpoint names, K2a/K2b/K2c at exactly
+   en_layers x steps and K3 at exactly (dropout sites) x steps each way.
+   Then one train step from model.init at the recipe's dropout, on the card
+   and on the CPU (the masks are the same on both): loss and every
+   gradient leaf must agree (``card_vs_cpu_step``; an ill-conditioned leaf
+   is judged against a float64 CPU step).  Prints the step time and a
+   profile.
+6. and 7. The same for the conformer-librispeech recipe's model (8 + 4
+   layers, d_model 256, 4 heads, band (-256, 256), 5000 words, dropout
+   0.1) on LibriSpeech-shaped data (lognormal(7.0, 0.55) frames clipped to
+   [150, 1600]): the decode of 16 utterances with the recipe's stage-5
+   flags; then ``generate_archive`` (512 per archive) and ``train
+   -train_archive_dir`` on 128/16/16 utterances at batch 32 for 2 epochs,
+   ``combine``, the exact launch counts, and card against CPU on a batch of
+   4 utterances with dropout on.
+8. Prints the ``kernels`` JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.  Any failure raises: the script then
    exits non-zero without the last line.
+
+``python3 chip_smoke.py --train-step TREE`` runs only the TIMIT train step
+of the port in the checkout ``TREE`` (for instance a parent commit unpacked
+with ``git archive`` under ``build/``) and prints one ``TRAIN_STEP`` JSON
+line: five timings of 20 steps and a profile with every kernel's launches
+and the host's busiest operations per step; where the port has K3, also
+the same step with the model's dropout drawn by the port's former draw
+(``former_draw``), alternated with K3 in one process.  Run parent, change,
+change, parent in one session on one card to compare two commits.
 
 Everything it writes goes under ``build/chip_smoke/`` in the checkout.
 """
@@ -51,8 +71,8 @@ WORK = REPO / "build" / "chip_smoke"
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores
 
-# the recipe's model (recipes/attention-transformer-timit/run.sh) with the
-# banded encoder, and its stage-5 decode flags
+# the TIMIT recipe's model (recipes/attention-transformer-timit/run.sh)
+# with the banded encoder
 RECIPE_MODEL = [
     "-encoder_max_len", "500", "-decoder_max_len", "100", "-src_fold", "1",
     "-encoder_sub_sequence", "(-100,0)", "-decoder_sub_sequence", "(-10,0)",
@@ -60,21 +80,57 @@ RECIPE_MODEL = [
     "-en_d_model", "256", "-de_d_model", "128", "-d_k", "64", "-d_v", "64",
     "-en_dropout", "0.35", "-de_dropout", "0.35", "-encoder_type", "banded",
 ]
-BATCH, BEAM, NBEST, MAX_TOKENS = 8, 25, 10, 100
-N_UTTS, FEAT_DIM, MIN_FRAMES, MAX_FRAMES = 16, 40, 150, 500
-N_PHONES = 48  # + 4 control words = 52 vocabulary entries
-SEED = 0
-
-# the training slice: stage-4 flags of the recipe, 2 epochs
-TRAIN_UTTS = {"train": 300, "dev": 40, "test": 40}
-TRAIN_BATCH, TRAIN_EPOCHS, DROPOUT = 100, 2, 0.35
+# the conformer-librispeech recipe's model (recipes/conformer-librispeech/
+# run.sh:26-48, 88-110) with a float32 residual stream
+CONFORMER_MODEL = [
+    "-encoder_max_len", "1600", "-decoder_max_len", "100", "-src_fold", "1",
+    "-encoder_sub_sequence", "(-256,256)", "-decoder_sub_sequence",
+    "(-20,0)", "-en_layers", "8", "-de_layers", "4", "-n_head", "4",
+    "-en_d_model", "256", "-de_d_model", "256", "-d_k", "64", "-d_v", "64",
+    "-en_dropout", "0.1", "-de_dropout", "0.1", "-encoder_type", "conformer",
+    "-conformer_stream_dtype", "float32",
+]
+FEAT_DIM, SEED = 40, 0
+TIMIT = {
+    "name": "timit", "model": RECIPE_MODEL, "frames": (150, 500),
+    "words": [f"ph{i:02d}" for i in range(48)],  # + 4 control words = 52
+    "decode": {"utts": 16, "batch": 8, "beam": 25, "nbest": 10,
+               "buckets": 4, "max_tokens": 100},
+    # stage-4 flags of run.sh:153-175; 3 steps per epoch
+    "train": {"utts": {"train": 300, "dev": 40, "test": 40}, "batch": 100,
+              "epochs": 2, "size_archive": None, "cpu_rows": None},
+}
+LIBRISPEECH = {
+    "name": "librispeech", "model": CONFORMER_MODEL, "frames": (150, 1600),
+    "lognormal": (7.0, 0.55),  # tools/make_librispeech_shaped.py:179-180
+    "words": [f"w{i:04d}" for i in range(5000)],
+    "decode": {"utts": 16, "batch": 8, "beam": 8, "nbest": 8, "buckets": 4,
+               "max_tokens": 100},
+    # run.sh:113-139 at batch 32; 4 steps per epoch.  The CPU side of the
+    # card-vs-CPU step takes 4 utterances: the plain attention at 32 x 1600
+    # would need about 40 GB
+    "train": {"utts": {"train": 128, "dev": 16, "test": 16}, "batch": 32,
+              "epochs": 2, "size_archive": 512, "cpu_rows": 4},
+}
+DROPOUT = 0.35  # the K2 checks' attention dropout (the TIMIT recipe's)
 
 KERNEL_ATOL = 2e-5  # float32, summation order differs from the plain version
 GRAD_ATOL = 1e-4  # float32 gradients, summed over the band in another order
 STEP_LOSS_RTOL = 1e-5  # one train step, card vs CPU
 STEP_GRAD_RTOL = 1e-4  # of the largest |gradient| of each leaf
+# a leaf over STEP_GRAD_RTOL passes if the card is no further from a float64
+# CPU step than this many times the CPU's own float32 result; the sound runs
+# on the H100 read at most 1.00004 (TIMIT ffn.w1 of layer 2; src_proj.w 0.70)
+FLOAT64_RATIO = 1.25
 CPU_SCORE_ATOL = 1e-4  # card vs CPU n-best scores
 WORD_GAP = 1e-3  # words must agree where scores are this far apart
+
+# kernel names in a torch.profiler trace (all in anonymous namespaces)
+PROFILE_NAMES = {
+    "K1": "::banded_attention_kernel<", "K2a": "::fwd_kernel<",
+    "K2b": "::dq_kernel<", "K2c": "::dkv_kernel<",
+    "K3": "::fused_dropout_kernel",
+}
 
 
 def card_line():
@@ -85,8 +141,48 @@ def card_line():
     return out.strip().splitlines()[0]
 
 
+def launch_counts():
+    """Every kernel wrapper's launch count, by name."""
+    from pytorch_kaldi_asr_tpu_torch.ops import banded_attention as ba
+    from pytorch_kaldi_asr_tpu_torch.ops import fused_dropout as fd
+
+    counts = {fn.__name__: fn.launches for fn in (
+        ba.banded_attention, ba.banded_attention_fwd, ba.banded_attention_dq,
+        ba.banded_attention_dkv)}
+    counts.update({f"fused_dropout_{k}": v
+                   for k, v in fd.fused_dropout.launches.items()})
+    return counts
+
+
+def reset_launch_counts():
+    from pytorch_kaldi_asr_tpu_torch.ops import banded_attention as ba
+    from pytorch_kaldi_asr_tpu_torch.ops import fused_dropout as fd
+
+    for fn in (ba.banded_attention, ba.banded_attention_fwd,
+               ba.banded_attention_dq, ba.banded_attention_dkv):
+        fn.launches = 0
+    fd.fused_dropout.launches.update(forward=0, backward=0)
+
+
+def dropout_sites(cfg):
+    """K3 launches of one train step, each way, counted from the model code
+    (models/transformer.py, models/encoders.py): the encoder's input
+    dropout; per banded layer the attention block's output and the FFN's
+    (and one after the final positions), per conformer layer two in each
+    half-step FFN, one after the MHSA and one after the conv module; the
+    decoder's embedding and output dropouts, and per layer the self- and
+    cross-attention probabilities and outputs and the FFN's output."""
+    if cfg.encoder_type == "banded":
+        encoder = 1 + 2 * cfg.en_layers + 1
+    elif cfg.encoder_type == "conformer":
+        encoder = 1 + 6 * cfg.en_layers
+    else:
+        raise ValueError(f"no site count for {cfg.encoder_type}")
+    return encoder + 2 + 5 * cfg.de_layers
+
+
 # ---------------------------------------------------------------------------
-# kernel phase
+# kernel phase: K1, K2a-c
 # ---------------------------------------------------------------------------
 
 
@@ -99,23 +195,36 @@ def _attention_inputs(torch, bh, s, d, dv, lengths, seed):
     return q.cuda(), k.cuda(), v.cuda(), valid.to(torch.int32).cuda()
 
 
-def _slice_lengths(torch, n_utts, heads, s, seed):
-    """Key-valid lengths of a decode batch: utterances of 150..s frames,
-    each repeated per head (b-major, as the encoder folds heads)."""
-    g = torch.Generator().manual_seed(seed)
-    lens = torch.randint(MIN_FRAMES, s + 1, (n_utts,), generator=g)
-    return lens.repeat_interleave(heads)
+def _lengths(torch, corpus, n_utts, heads, s, seed):
+    """Key-valid lengths of ``n_utts`` utterances of ``corpus``'s length
+    distribution cut at ``s``, each repeated per head (b-major, as the
+    encoder folds heads)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lens = [min(_utterance_frames(rng, corpus), s) for _ in range(n_utts)]
+    return torch.as_tensor(lens).repeat_interleave(heads)
+
+
+# (bh, s, d, band, corpus, utterances, heads) of K1 and K2 at each path
+ATTN_SHAPES = {
+    "timit_decode": (16, 504, 64, (-100, 0), TIMIT, 8, 2),
+    "conformer_decode": (32, 1600, 64, (-256, 256), LIBRISPEECH, 8, 4),
+    "conformer_train": (128, 1600, 64, (-256, 256), LIBRISPEECH, 32, 4),
+}
 
 
 def check_banded_attention(torch, ba):
     """Kernel vs plain version on the card; returns the max abs error."""
     scale = 1.0 / math.sqrt(256.0)
     # (bh, s, d, dv, lengths, start, end, scale, name)
-    cases = [
-        (16, 504, 64, 64, _slice_lengths(torch, 8, 2, 504, 1), -100, 0,
-         scale, "slice shape"),
-    ]
-    for start, end in [(-100, 0), (-10, 0), (-64, 32), (-300, 0)]:
+    cases = []
+    for name in ("timit_decode", "conformer_decode"):
+        bh, s, d, (start, end), corpus, n, heads = ATTN_SHAPES[name]
+        cases.append((bh, s, d, d, _lengths(torch, corpus, n, heads, s, 1),
+                      start, end, scale, f"{name} shape"))
+    for start, end in [(-100, 0), (-10, 0), (-64, 32), (-300, 0),
+                       (-256, 256)]:
         cases.append((4, 256, 32, 32, [256] * 4, start, end, scale,
                       f"band ({start},{end})"))
     cases += [
@@ -141,7 +250,7 @@ def check_banded_attention(torch, ba):
         if bool((got[empty] != 0).any()):
             raise AssertionError(f"banded_attention {name}: masked rows not 0")
         print(f"banded_attention {name}: bh={bh} S={s} d={d} dv={dv} "
-              f"max_abs_err={err:.3e}")
+              f"band=({start},{end}) max_abs_err={err:.3e}")
         if not err <= KERNEL_ATOL:
             raise AssertionError(f"banded_attention {name}: error {err} > "
                                  f"{KERNEL_ATOL}")
@@ -164,49 +273,48 @@ def time_ms(torch, fn, iters=100, warmup=10):
     return start.elapsed_time(end) / iters
 
 
-def time_banded_attention(torch, ba):
-    """Kernel, plain and library times at the slice's shape: one decode
-    batch of 8 utterances x 2 heads, S = 504 frames padded by the wrapper to
-    the 64-frame tile, d = dv = 64, band (-100, 0)."""
+def _bound(n_bytes, flops):
+    """(bound_ms, bound_by) on the H100's published peaks."""
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def _allowed(torch, s, start, end, valid):
+    pos = torch.arange(s, device="cuda")
+    rel = pos[None, :] - pos[:, None]
+    return ((rel >= start) & (rel <= end))[None] & (valid[:, None, :] > 0)
+
+
+def time_banded_attention(torch, ba, shape):
+    """K1, its plain version and the library call at one decode batch of
+    ``shape`` (ATTN_SHAPES), S padded by the wrapper to the 64-frame tile."""
     import torch.nn.functional as F
 
-    bh, s, d = 16, 504, 64
-    start, end, scale = -100, 0, 1.0 / math.sqrt(256.0)
+    bh, s, d, (start, end), corpus, n, heads = ATTN_SHAPES[shape]
+    scale = 1.0 / math.sqrt(256.0)
     s_pad = -(-s // ba.BLOCK) * ba.BLOCK
     q, k, v, valid = _attention_inputs(
-        torch, bh, s_pad, d, d, _slice_lengths(torch, 8, 2, s, 1), seed=7)
-
-    pos = torch.arange(s_pad, device="cuda")
-    rel = pos[None, :] - pos[:, None]
-    allowed = ((rel >= start) & (rel <= end))[None] & (valid[:, None, :] > 0)
+        torch, bh, s_pad, d, d, _lengths(torch, corpus, n, heads, s, 1),
+        seed=7)
+    allowed = _allowed(torch, s_pad, start, end, valid)
     pairs = int(allowed.sum())
     n_bytes = 4 * (q.numel() + k.numel() + v.numel() + v.numel()
                    + valid.numel())
-    flops = pairs * (2 * d + 2 * d)
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / F32_FLOPS_PER_S * 1e3
-
+    bound_ms, bound_by = _bound(n_bytes, pairs * (2 * d + 2 * d))
+    plain_iters = 100 if s_pad <= 512 else 10
     kernel_ms = time_ms(torch, lambda: ba._launch(q, k, v, valid, start, end,
                                                   scale))
     plain_ms = time_ms(torch, lambda: ba.banded_attention_reference(
-        q, k, v, valid, start, end, scale))
+        q, k, v, valid, start, end, scale), iters=plain_iters, warmup=2)
     library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=allowed, scale=scale))
-    wrapper_ms = time_ms(torch, lambda: ba.banded_attention(
-        q[:, :s], k[:, :s], v[:, :s], valid[:, :s], start=start, end=end,
-        scale=scale))
-    print(f"banded_attention timing: BH={bh} S={s} (kernel S={s_pad}) d={d} "
-          f"in-band pairs={pairs} bytes={n_bytes} flops={flops} "
-          f"kernel_ms={kernel_ms:.6f} wrapper_ms={wrapper_ms:.6f} "
-          f"plain_ms={plain_ms:.6f} sdpa_ms={library_ms:.6f} "
-          f"bytes_bound_ms={bytes_ms:.6f} ops_bound_ms={ops_ms:.6f}")
-    return {
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": library_ms,
-    }
+    print(f"banded_attention timing ({shape}): BH={bh} S={s} (kernel "
+          f"S={s_pad}) d={d} band=({start},{end}) in-band pairs={pairs} "
+          f"bytes={n_bytes} kernel_ms={kernel_ms:.6f} plain_ms={plain_ms:.6f} "
+          f"sdpa_ms={library_ms:.6f} bound_ms={bound_ms:.6f} ({bound_by})")
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
 
 
 def _grads(fn, q, k, v, dout):
@@ -222,9 +330,13 @@ def check_trainable_attention(torch, ba):
     trainable version on the card, at dropout 0 and 0.35.  Returns the max
     abs error per kernel: K2a out and lse, K2b dq, K2c dk and dv."""
     scale = 1.0 / math.sqrt(256.0)
+    bh, s, d, (start, end), corpus, n, heads = ATTN_SHAPES["conformer_train"]
     cases = [
-        (200, 504, 64, 64, _slice_lengths(torch, 100, 2, 504, 2), -100, 0,
-         scale, "slice shape"),
+        (200, 504, 64, 64, _lengths(torch, TIMIT, 100, 2, 504, 2), -100, 0,
+         scale, "timit_train shape"),
+        # the conformer's band at S 1600, 8 of its 32 utterances
+        (bh // 4, s, d, d, _lengths(torch, corpus, n // 4, heads, s, 2),
+         start, end, scale, "conformer_train shape (8 utterances)"),
         (4, 256, 32, 32, [256] * 4, -10, 0, scale, "band (-10,0)"),
         (4, 256, 32, 32, [256] * 4, -64, 32, scale, "band (-64,32)"),
         (2, 256, 16, 16, [128, 128], -10, 0, 0.1, "padded tail"),
@@ -273,38 +385,42 @@ def check_trainable_attention(torch, ba):
             worst["fwd"] = max(worst["fwd"], errs[0], errs[4])
             worst["dq"] = max(worst["dq"], errs[1])
             worst["dkv"] = max(worst["dkv"], errs[2], errs[3])
+            del got, want
     return worst
 
 
-def _bound(n_bytes, flops):
-    """(bound_ms, bound_by) on the H100's published peaks."""
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / F32_FLOPS_PER_S * 1e3
-    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+# (bh, s, d, band, lengths, rate) of the K2 timings
+TRAIN_TIMING_SHAPES = {
+    # the TIMIT training slice: batch 100 x 2 heads, utterances of 412-504
+    # frames (no empty query row, so SDPA's softmax is defined everywhere)
+    "timit_train": (200, 512, 64, (-100, 0), "timit", DROPOUT),
+    # the conformer's train batch: 32 x 4 heads, archives padded to 1600
+    "conformer_train": (128, 1600, 64, (-256, 256), "librispeech", 0.1),
+}
 
 
-def time_trainable_attention(torch, ba):
-    """K2a, K2b and K2c, their plain versions and the library call at the
-    training slice's shape: batch 100 x 2 heads, S 504 padded to 512, d =
-    dv = 64, band (-100, 0), the recipe's dropout 0.35.  Utterances of
-    412-504 frames, so no query row is empty and SDPA's softmax is defined;
-    SDPA (forward; backward for dq and dk/dv together) runs at dropout 0."""
+def time_trainable_attention(torch, ba, shape):
+    """K2a, K2b and K2c, their plain versions and the library call at
+    ``shape`` (TRAIN_TIMING_SHAPES).  SDPA (forward; backward for dq and
+    dk/dv together) runs at dropout 0 with the same boolean band mask."""
     import torch.nn.functional as F
 
-    bh, s, d = 200, 512, 64
-    start, end, scale, seed = -100, 0, 1.0 / math.sqrt(256.0), 99
+    bh, s, d, (start, end), lengths, rate = TRAIN_TIMING_SHAPES[shape]
+    scale, seed = 1.0 / math.sqrt(256.0), 99
     g = torch.Generator().manual_seed(5)
-    lengths = torch.randint(412, 505, (100,), generator=g).repeat_interleave(2)
+    if lengths == "timit":
+        lengths = torch.randint(412, 505, (bh // 2,),
+                                generator=g).repeat_interleave(2)
+    else:
+        lengths = _lengths(torch, LIBRISPEECH, bh // 4, 4, s, 5)
     q, k, v, valid = _attention_inputs(torch, bh, s, d, d, lengths, seed=8)
     dout = torch.randn((bh, s, d), generator=g).cuda()
-    kw = dict(start=start, end=end, scale=scale, dropout_rate=DROPOUT)
+    kw = dict(start=start, end=end, scale=scale, dropout_rate=rate)
     out, lse = ba.banded_attention_fwd(q, k, v, valid, seed, **kw)
     delta = (dout * out).sum(-1)
     bwd_args = (q, k, v, valid, dout, lse, delta, seed)
 
-    pos = torch.arange(s, device="cuda")
-    rel = pos[None, :] - pos[:, None]
-    allowed = ((rel >= start) & (rel <= end))[None] & (valid[:, None, :] > 0)
+    allowed = _allowed(torch, s, start, end, valid)
     pairs = int(allowed.sum())
     vec = 4 * bh * s * d  # bytes of one [BH, S, 64] float32 tensor
     row = 4 * bh * s  # bytes of one [BH, S] int32/float32 tensor
@@ -315,45 +431,45 @@ def time_trainable_attention(torch, ba):
     }
     kernel_ms = {
         "fwd": time_ms(torch, lambda: ba.banded_attention_fwd(
-            q, k, v, valid, seed, **kw)),
-        "dq": time_ms(torch, lambda: ba.banded_attention_dq(*bwd_args, **kw)),
+            q, k, v, valid, seed, **kw), iters=20, warmup=3),
+        "dq": time_ms(torch, lambda: ba.banded_attention_dq(*bwd_args, **kw),
+                      iters=20, warmup=3),
         "dkv": time_ms(torch, lambda: ba.banded_attention_dkv(*bwd_args,
-                                                              **kw)),
+                                                              **kw),
+                       iters=20, warmup=3),
     }
-    band = (start, end, scale, DROPOUT)
+    band = (start, end, scale, rate)
+    plain = dict(iters=3, warmup=1)
     with torch.no_grad():
         plain_ms = {
             "fwd": time_ms(torch, lambda: ba.banded_attention_trainable_reference(
-                q, k, v, valid, seed, *band), iters=10, warmup=2),
+                q, k, v, valid, seed, *band), **plain),
             "dq": time_ms(torch, lambda: ba.banded_attention_dq_reference(
-                *bwd_args, *band), iters=10, warmup=2),
+                *bwd_args, *band), **plain),
             "dkv": time_ms(torch, lambda: ba.banded_attention_dkv_reference(
-                *bwd_args, *band), iters=10, warmup=2),
+                *bwd_args, *band), **plain),
         }
     sdpa_fwd_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=allowed, scale=scale))
+        q, k, v, attn_mask=allowed, scale=scale), iters=20, warmup=3)
     qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
     sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=allowed,
                                               scale=scale)
     sdpa_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
-        sdpa_out, (qg, kg, vg), dout, retain_graph=True))
+        sdpa_out, (qg, kg, vg), dout, retain_graph=True), iters=20, warmup=3)
+    del sdpa_out, qg, kg, vg
     library_ms = {"fwd": sdpa_fwd_ms, "dq": sdpa_bwd_ms, "dkv": sdpa_bwd_ms}
 
     # forward + backward as the model runs it: the autograd function (K2a,
-    # delta, K2b, K2c) against autograd of the plain version
-    def fwd_bwd(fn):
-        qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
-        return lambda: torch.autograd.grad(fn(qg, kg, vg), (qg, kg, vg), dout)
-
-    path_ms = time_ms(torch, fwd_bwd(lambda q, k, v: ba.banded_attention_trainable(
-        q, k, v, valid, seed, **kw)))
-    plain_path_ms = time_ms(torch, fwd_bwd(
-        lambda q, k, v: ba.banded_attention_trainable_reference(
-            q, k, v, valid, seed, *band)[0]), iters=10, warmup=2)
-    print(f"trainable attention timing: BH={bh} S={s} d={d} rate={DROPOUT} "
-          f"in-band pairs={pairs} kernel_ms={kernel_ms} plain_ms={plain_ms} "
+    # delta, K2b, K2c)
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    path_ms = time_ms(torch, lambda: torch.autograd.grad(
+        ba.banded_attention_trainable(qg, kg, vg, valid, seed, **kw),
+        (qg, kg, vg), dout), iters=20, warmup=3)
+    print(f"trainable attention timing ({shape}): BH={bh} S={s} d={d} "
+          f"band=({start},{end}) rate={rate} in-band pairs={pairs} "
+          f"kernel_ms={kernel_ms} plain_ms={plain_ms} "
           f"sdpa_fwd_ms={sdpa_fwd_ms:.6f} sdpa_bwd_ms={sdpa_bwd_ms:.6f} "
-          f"fwd+bwd: kernels_ms={path_ms:.6f} plain_ms={plain_path_ms:.6f} "
+          f"fwd+bwd: kernels_ms={path_ms:.6f} "
           f"sdpa_ms={sdpa_fwd_ms + sdpa_bwd_ms:.6f} bounds={bounds}")
     return {name: {"ms": kernel_ms[name], "plain_ms": plain_ms[name],
                    "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
@@ -362,34 +478,207 @@ def time_trainable_attention(torch, ba):
 
 
 # ---------------------------------------------------------------------------
-# slice phase
+# kernel phase: K3
+# ---------------------------------------------------------------------------
+
+K3_SHAPES = ((51200, 1024), (51200, 256))  # the conformer's sites at 32 x 1600
+
+
+def _k3_thresholds(fd, rate):
+    """{name: (threshold, scale)} of the kernel's two users at ``rate``."""
+    q = round((1.0 - rate) * 256)
+    return {"8-bit": ((256 - q) << 24, 256.0 / q),
+            "exact": (fd.fused_dropout_threshold(rate), 1.0 / (1.0 - rate))}
+
+
+def check_fused_dropout(torch, fd):
+    """K3 forward and backward against its plain version on the card: the
+    same mask (0 mismatches), outputs and gradients bit-equal, at the
+    conformer's shapes for both thresholds at rates 0.1 and 0.35, and at
+    edge cases.  Returns the max abs error (0 when all is bit-equal)."""
+    import numpy as np
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    cases = [(shape, rate, which, "contiguous")
+             for shape in K3_SHAPES for rate in (0.1, 0.35)
+             for which in ("8-bit", "exact")]
+    cases += [((4097, 3), 0.35, "exact", "size % 4 != 0"),
+              ((1024, 256), 0.1, "8-bit", "non-contiguous"),
+              ((1, 1024), 0.35, "exact", "one row"),
+              ((51200, 256), 0.0, "exact", "rate 0")]
+    for shape, rate, which, name in cases:
+        threshold, scale = _k3_thresholds(fd, rate)[which]
+        scale32 = float(np.float32(scale))
+        x = torch.randn(shape, generator=g, device="cuda")
+        if name == "non-contiguous":
+            x = x.t()
+        x.requires_grad_()
+        dout = torch.randn(x.shape, generator=g, device="cuda")
+        seed = 20240 + int(rate * 100)
+        y = fd.masked_dropout(x, seed, threshold, scale)
+        y.backward(dout)
+        want = fd.fused_dropout_reference(x.detach(), seed, threshold,
+                                          scale32)
+        want_grad = fd.fused_dropout_reference(dout, seed, threshold,
+                                               scale32)
+        torch.cuda.synchronize()
+        mismatches = int(((y != 0) != (want != 0)).sum())
+        kept = float((y != 0).float().mean())
+        print(f"fused_dropout {name} {list(shape)} rate={rate} {which}: "
+              f"mask mismatches={mismatches} keep={kept:.6f} "
+              f"out bit-equal={torch.equal(y, want)} "
+              f"grad bit-equal={torch.equal(x.grad, want_grad)}")
+        if mismatches or not torch.equal(y, want) \
+                or not torch.equal(x.grad, want_grad):
+            raise AssertionError(f"fused_dropout {name} {shape} {rate} "
+                                 f"{which}: kernel and plain version differ")
+    if fd.fused_dropout(x, 0.0, 1, True) is not x:
+        raise AssertionError("fused_dropout at rate 0 is not the identity")
+    return 0.0
+
+
+def former_draw(torch, x, q, generator):
+    """The port's dropout before K3: a uint8 draw per element from a
+    generator on the card, kept below ``q``, scaled by 256/q.  Five
+    launches forward (draw, compare, multiply, a fill for the scalar 0,
+    where) and three backward (fill, where, multiply)."""
+    bits = torch.randint(0, 256, x.shape, generator=generator,
+                         device=x.device, dtype=torch.uint8)
+    return torch.where(bits < q, x * (256.0 / q), 0.0)
+
+
+def k3_host_us(torch, fd, rate=0.1, shape=(64, 256), n=2000):
+    """Host microseconds per call at a shape small enough that the card
+    keeps up (wall time of ``n`` calls, one synchronize at the end): K3
+    through ``masked_dropout`` forward and forward + backward, its parts
+    (``dropout_mask_pass``; a device guard with a Stream object, which the
+    wrapper takes only off the current device; the bare ctypes launch), and
+    the former 8-bit draw forward and forward + backward."""
+    x = torch.randn(shape, device="cuda", requires_grad=True)
+    dout = torch.ones(shape, device="cuda")
+    xd, out = x.detach(), torch.empty(shape, device="cuda")
+    threshold, scale = _k3_thresholds(fd, rate)["8-bit"]
+    q = round((1.0 - rate) * 256)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    launch = fd._kernel_fn()
+    k0, k1 = fd._key(7)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def guard_and_stream():
+        with torch.cuda.device(xd.device):
+            return torch.cuda.current_stream().cuda_stream
+
+    cases = {
+        "k3_forward": lambda: fd.masked_dropout(x, 7, threshold, scale),
+        "k3_forward_backward": lambda: torch.autograd.grad(
+            fd.masked_dropout(x, 7, threshold, scale), x, dout),
+        "dropout_mask_pass": lambda: fd.dropout_mask_pass(
+            xd, 7, threshold, scale),
+        "device_guard_and_stream": guard_and_stream,
+        "bare_launch": lambda: launch(xd.data_ptr(), out.data_ptr(),
+                                      xd.numel(), k0, k1, threshold, scale,
+                                      stream),
+        "former_draw_forward": lambda: former_draw(torch, x, q, gen),
+        "former_draw_forward_backward": lambda: torch.autograd.grad(
+            former_draw(torch, x, q, gen), x, dout),
+    }
+    us = {}
+    for name, fn in cases.items():
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        us[name] = (time.perf_counter() - t0) / n * 1e6
+    print(f"fused_dropout host cost per call, {list(shape)}: "
+          + json.dumps(us))
+    return us
+
+
+def time_fused_dropout(torch, fd, shape=K3_SHAPES[0], rate=0.1):
+    """K3 (the model's 8-bit threshold), its plain version, ``F.dropout``
+    (the same bytes, another generator) and the port's former 8-bit draw
+    (``former_draw``, five launches) at ``shape``."""
+    import torch.nn.functional as F
+
+    x = torch.randn(shape, generator=torch.Generator(device="cuda")
+                    .manual_seed(1), device="cuda")
+    threshold, scale = _k3_thresholds(fd, rate)["8-bit"]
+    q = round((1.0 - rate) * 256)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    kernel_ms = time_ms(torch, lambda: fd.dropout_mask_pass(
+        x, 7, threshold, scale))
+    plain_ms = time_ms(torch, lambda: fd.fused_dropout_reference(
+        x, 7, threshold, scale), iters=10, warmup=2)
+    library_ms = time_ms(torch, lambda: F.dropout(x, rate, training=True))
+    former_ms = time_ms(torch, lambda: former_draw(torch, x, q, gen))
+    bound_ms, bound_by = _bound(8 * x.numel(), x.numel())
+    print(f"fused_dropout timing: {list(shape)} rate={rate} (8-bit) "
+          f"kernel_ms={kernel_ms:.6f} plain_ms={plain_ms:.6f} "
+          f"F.dropout_ms={library_ms:.6f} former_draw_ms={former_ms:.6f} "
+          f"bound_ms={bound_ms:.6f} ({bound_by}) "
+          f"achieved_GB/s={8 * x.numel() / kernel_ms / 1e6:.1f}")
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "former_draw_ms": former_ms,
+            "host_us": k3_host_us(torch, fd, rate)}
+
+
+# ---------------------------------------------------------------------------
+# the paths: decode and training of each recipe's model
 # ---------------------------------------------------------------------------
 
 
-def write_data_dir(data_dir, kaldi_io, torch, n_utts=N_UTTS, seed=SEED):
-    """Seeded TIMIT-shaped data: feats.ark/scp, text, vocab.txt.  Returns
+def _utterance_frames(rng, corpus):
+    lo, hi = corpus["frames"]
+    if "lognormal" in corpus:
+        mean, sigma = corpus["lognormal"]
+        return int(min(max(math.exp(rng.normal(mean, sigma)), lo), hi))
+    return int(rng.integers(lo, hi + 1))
+
+
+def write_data_dir(data_dir, kaldi_io, torch, corpus, n_utts, seed=SEED):
+    """A seeded data dir of ``corpus``'s shape: feats.ark/scp, text and
+    vocab.txt (4 control words + the corpus's words).  TIMIT keeps the
+    generator of earlier runs (torch), so its data stay the same.  Returns
     the number of frames."""
+    import numpy as np
+
     data_dir.mkdir(parents=True)
-    g = torch.Generator().manual_seed(seed)
-    phones = [f"ph{i:02d}" for i in range(N_PHONES)]
-    vocab = ["<blank>", "<unk>", "<s>", "</s>"] + phones
+    words = corpus["words"]
     with open(data_dir / "vocab.txt", "w") as f:
-        for i, word in enumerate(vocab):
+        for i, word in enumerate(["<blank>", "<unk>", "<s>", "</s>"] + words):
             f.write(f"{word} {i}\n")
+    if corpus is TIMIT:
+        g = torch.Generator().manual_seed(seed)
+        lo, hi = corpus["frames"]
+
+        def draw():
+            n = int(torch.randint(lo, hi + 1, (1,), generator=g))
+            feats = torch.randn((n, FEAT_DIM), generator=g).numpy()
+            ids = torch.randint(0, len(words), (max(1, n // 10),),
+                                generator=g)
+            return feats, ids.tolist()
+    else:
+        rng = np.random.default_rng(seed)
+
+        def draw():  # about LibriSpeech's 2.9 words per second
+            n = _utterance_frames(rng, corpus)
+            feats = rng.normal(size=(n, FEAT_DIM)).astype(np.float32)
+            return feats, rng.integers(0, len(words), max(1, n // 35)).tolist()
     frames = 0
     with kaldi_io.ArkWriter(str(data_dir / "feats.ark"),
                             str(data_dir / "feats.scp")) as ark, \
             open(data_dir / "text", "w") as text:
         for u in range(n_utts):
-            n = int(torch.randint(MIN_FRAMES, MAX_FRAMES + 1, (1,),
-                                  generator=g))
-            frames += n
-            feats = torch.randn((n, FEAT_DIM), generator=g)
+            feats, ids = draw()
+            frames += feats.shape[0]
             key = f"utt{u:03d}"
-            ark.write(key, feats.numpy())
-            n_phones = max(1, n // 10)
-            ids = torch.randint(0, N_PHONES, (n_phones,), generator=g)
-            text.write(key + " " + " ".join(phones[i] for i in ids) + "\n")
+            ark.write(key, feats)
+            text.write(key + " " + " ".join(words[i] for i in ids) + "\n")
     return frames
 
 
@@ -428,61 +717,70 @@ def compare_nbest(gpu, cpu):
     return worst
 
 
-def run_slice(torch, ba, device="cuda", model_args=RECIPE_MODEL):
-    """The port's stage-3 and stage-5 entry points on ``device``, then the
-    first decode batch again on the CPU.  Returns the run's numbers."""
+def _sync(torch, device):
+    return torch.cuda.synchronize if device == "cuda" else (lambda: None)
+
+
+def run_slice(torch, corpus=TIMIT, device="cuda", model_args=None):
+    """Stage 3 and stage 5 of ``corpus``'s recipe with the port on
+    ``device``, then the first decode batch again on the CPU.  Returns the
+    run's numbers; ``launches`` are the decode's."""
     from pytorch_kaldi_asr_tpu_torch.data import read_vocab
     from pytorch_kaldi_asr_tpu_torch.data.loader import make_batch_loader
     from pytorch_kaldi_asr_tpu_torch.io import kaldi_io
     from pytorch_kaldi_asr_tpu_torch.recipes import decode, initialize_model
 
-    if WORK.exists():
-        shutil.rmtree(WORK)
-    data = WORK / "data"
-    frames = write_data_dir(data, kaldi_io, torch)
-    model = WORK / "model"
+    spec = corpus["decode"]
+    work = WORK / corpus["name"] / "decode"
+    if work.exists():
+        shutil.rmtree(work)
+    data = work / "data"
+    frames = write_data_dir(data, kaldi_io, torch, corpus, spec["utts"])
+    model = work / "model"
     initialize_model.main([
         "-read_feats_scp_file", str(data / "feats.scp"),
         "-lda_mat_file", "identity", "-read_vocab_file",
         str(data / "vocab.txt"), "-seed", str(SEED),
-        "-save_model_file", str(model), *model_args])
+        "-save_model_file", str(model), *(model_args or corpus["model"])])
 
     def decode_args(data_dir, out, device):
         return ["-read_data_dir", str(data_dir), "-read_vocab_file",
                 str(data / "vocab.txt"), "-load_model_file", str(model),
                 "-save_result_file", str(out), "-device", device,
-                "-batch_size", str(BATCH), "-beam_size", str(BEAM),
-                "-nbest", str(NBEST), "-max_token_seq_len", str(MAX_TOKENS)]
+                "-batch_size", str(spec["batch"]), "-num_buckets",
+                str(spec["buckets"]), "-beam_size", str(spec["beam"]),
+                "-nbest", str(spec["nbest"]), "-max_token_seq_len",
+                str(spec["max_tokens"])]
 
-    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
-
+    sync = _sync(torch, device)
     # the main path: every launch count at 0 just before, read just after
-    ba.banded_attention.launches = 0
+    reset_launch_counts()
     sync()
     t0 = time.perf_counter()
-    decode.main(decode_args(data, WORK / "decode.txt", device))
+    decode.main(decode_args(data, work / "decode.txt", device))
     sync()
     decode_s = time.perf_counter() - t0
-    launches = ba.banded_attention.launches
+    launches = launch_counts()
 
     t0 = time.perf_counter()
-    decode.main(decode_args(data, WORK / "decode_again.txt", device))
+    decode.main(decode_args(data, work / "decode_again.txt", device))
     sync()
     decode_again_s = time.perf_counter() - t0
 
     loader = make_batch_loader(str(data), read_vocab(str(data / "vocab.txt")),
-                               BATCH, mode="all", shuffle=False,
-                               num_buckets=4)
-    gpu = read_nbest(WORK / "decode.txt")
-    if len(gpu) != N_UTTS or any(len(h) != NBEST for h in gpu.values()):
-        raise AssertionError(f"expected {N_UTTS} utterances x {NBEST} "
-                             f"n-best lines")
-    compare_nbest(gpu, read_nbest(WORK / "decode_again.txt"))
+                               spec["batch"], mode="all", shuffle=False,
+                               num_buckets=spec["buckets"])
+    gpu = read_nbest(work / "decode.txt")
+    if len(gpu) != spec["utts"] or any(len(h) != spec["nbest"]
+                                       for h in gpu.values()):
+        raise AssertionError(f"expected {spec['utts']} utterances x "
+                             f"{spec['nbest']} n-best lines")
+    compare_nbest(gpu, read_nbest(work / "decode_again.txt"))
 
     # the first decode batch again, on the CPU
     first = next(iter(loader))
     keys = [key for key, ok in zip(first.keys, first.valid) if ok]
-    sub = WORK / "data_first_batch"
+    sub = work / "data_first_batch"
     sub.mkdir()
     scp = dict(kaldi_io.scp_entries(str(data / "feats.scp")))
     with open(sub / "feats.scp", "w") as f:
@@ -490,17 +788,17 @@ def run_slice(torch, ba, device="cuda", model_args=RECIPE_MODEL):
     with open(data / "text") as src, open(sub / "text", "w") as dst:
         dst.writelines(line for line in src if line.split()[0] in keys)
     t0 = time.perf_counter()
-    decode.main(decode_args(sub, WORK / "decode_cpu.txt", "cpu"))
+    decode.main(decode_args(sub, work / "decode_cpu.txt", "cpu"))
     cpu_s = time.perf_counter() - t0
-    cpu = read_nbest(WORK / "decode_cpu.txt")
+    cpu = read_nbest(work / "decode_cpu.txt")
     if sorted(cpu) != sorted(keys):
         raise AssertionError("the CPU decode covered other utterances")
     score_err = compare_nbest(gpu, cpu)
 
     audio_s = frames * 0.010
     return {
-        "utterances": N_UTTS, "frames": frames, "batches": len(loader),
-        "banded_attention_launches": launches,
+        "corpus": corpus["name"], "utterances": spec["utts"],
+        "frames": frames, "batches": len(loader), "launches": launches,
         "decode_s": decode_s, "rtf": decode_s / audio_s,
         "decode_again_s": decode_again_s,
         "rtf_again": decode_again_s / audio_s,
@@ -508,34 +806,86 @@ def run_slice(torch, ba, device="cuda", model_args=RECIPE_MODEL):
     }
 
 
-def _step_on(torch, device, params, cfg, batch):
-    """One train step from ``params`` on ``device``; returns (loss, grads in
-    flattening order, on the CPU)."""
+def _step_on(torch, device, params, cfg, batch, dtype=None):
+    """One train step from ``params`` on ``device`` (in ``dtype``, default
+    float32); returns (loss, {leaf path: gradient on the CPU in float64})."""
     from pytorch_kaldi_asr_tpu_torch.data.loader import to_device
     from pytorch_kaldi_asr_tpu_torch.models.transformer import tree_map
     from pytorch_kaldi_asr_tpu_torch.train import create_train_state, train_step
-    from pytorch_kaldi_asr_tpu_torch.train.optim import trainable_leaves
+    from pytorch_kaldi_asr_tpu_torch.train.optim import named_leaves
 
+    dtype = dtype or torch.float32
     state = create_train_state(
-        tree_map(lambda t: t.detach().to(device, copy=True), params))
+        tree_map(lambda t: t.detach().to(device, dtype, copy=True), params))
     b = to_device(batch, device)
-    metrics = train_step(state, cfg, b.src, b.src_mask, b.tgt, b.tgt_mask)
+    metrics = train_step(state, cfg, b.src.to(dtype), b.src_mask, b.tgt,
+                         b.tgt_mask)
     return (float(metrics["loss"]),
-            [p.grad.cpu() for p in trainable_leaves(state.params)])
+            {path: p.grad.cpu().double()
+             for path, p in named_leaves(state.params)})
 
 
-def run_train(torch, ba, device="cuda", model_args=RECIPE_MODEL,
-              utts=TRAIN_UTTS, batch=TRAIN_BATCH):
-    """Stages 3-4 of the recipe with the port on ``device``: initialize,
-    train (ending in combine), the standalone combine; then one train step
-    with dropout off on the card and on the CPU.  Returns the run's numbers;
-    the kernel launch counts are those of the train + combine CLIs."""
+def _rel_err(a, b):
+    """max |a - b| over the largest |b|."""
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def card_vs_cpu_step(torch, device, params, cfg, batch):
+    """One train step on ``device`` and on the CPU from the same parameters
+    and batch (the dropout masks are the same on both).  The loss must
+    agree within STEP_LOSS_RTOL and every gradient leaf within
+    STEP_GRAD_RTOL of its largest entry.  A leaf whose float32 gradient is
+    ill-conditioned (a sum over tens of thousands of frames that cancels)
+    differs by more between any two float32 summation orders; for such a
+    leaf the CPU step is run again in float64, and the card must be no
+    further from the float64 gradient than FLOAT64_RATIO times the CPU's
+    float32 result is.  Returns the numbers."""
+    loss_dev, grads_dev = _step_on(torch, device, params, cfg, batch)
+    t0 = time.perf_counter()
+    loss_cpu, grads_cpu = _step_on(torch, "cpu", params, cfg, batch)
+    cpu_s = time.perf_counter() - t0
+    loss_err = abs(loss_dev - loss_cpu) / abs(loss_cpu)
+    errs = {k: _rel_err(grads_dev[k], grads_cpu[k]) for k in grads_cpu}
+    worst = max(errs, key=errs.get)
+    out = {"loss": loss_dev, "loss_cpu": loss_cpu, "loss_rel_err": loss_err,
+           "grad_rel_err": errs[worst], "worst_leaf": str(worst),
+           "cpu_step_s": cpu_s, "float64_checks": {}}
+    if loss_err > STEP_LOSS_RTOL:
+        raise AssertionError(f"train step {device} vs cpu: loss {loss_err}")
+    over = [k for k, e in errs.items() if e > STEP_GRAD_RTOL]
+    if over:
+        _, grads64 = _step_on(torch, "cpu", params, cfg, batch,
+                              torch.float64)
+        for k in over:
+            card, cpu = (_rel_err(g[k], grads64[k])
+                         for g in (grads_dev, grads_cpu))
+            out["float64_checks"][str(k)] = {
+                "card_vs_cpu": errs[k], "card_vs_float64": card,
+                "cpu_vs_float64": cpu}
+            if card > max(STEP_GRAD_RTOL, FLOAT64_RATIO * cpu):
+                raise AssertionError(
+                    f"train step {device} vs cpu: gradient {k} differs by "
+                    f"{errs[k]:.2e} of its max; against float64 the card is "
+                    f"off by {card:.2e}, the CPU by {cpu:.2e}")
+    return out
+
+
+def run_train(torch, corpus=TIMIT, device="cuda", model_args=None, utts=None,
+              batch=None):
+    """Stages 3-4 of ``corpus``'s recipe with the port on ``device``:
+    initialize, pack archives where the recipe streams them, train (ending
+    in combine), the standalone combine; then one train step at the
+    recipe's dropout on the card and on the CPU, and the step's time and
+    profile.  Returns the run's numbers; ``launches`` are those of the train
+    and combine CLIs."""
     from pytorch_kaldi_asr_tpu_torch.data import read_vocab
+    from pytorch_kaldi_asr_tpu_torch.data.archive import ArchiveBatchLoader
     from pytorch_kaldi_asr_tpu_torch.data.loader import make_batch_loader, to_device
     from pytorch_kaldi_asr_tpu_torch.io import kaldi_io
     from pytorch_kaldi_asr_tpu_torch.models.transformer import tree_map
     from pytorch_kaldi_asr_tpu_torch.recipes import (
         combine,
+        generate_archive,
         initialize_model,
         train,
     )
@@ -545,86 +895,94 @@ def run_train(torch, ba, device="cuda", model_args=RECIPE_MODEL,
         train_step,
     )
 
-    work = WORK / "train"
+    spec = corpus["train"]
+    utts, batch = utts or spec["utts"], batch or spec["batch"]
+    epochs = spec["epochs"]
+    work = WORK / corpus["name"] / "train"
     if work.exists():
         shutil.rmtree(work)
     dirs = {name: work / name for name in utts}
-    frames = {name: write_data_dir(dirs[name], kaldi_io, torch, n, seed=i + 1)
+    frames = {name: write_data_dir(dirs[name], kaldi_io, torch, corpus, n,
+                                   seed=i + 1)
               for i, (name, n) in enumerate(utts.items())}
     vocab = dirs["train"] / "vocab.txt"
     model = work / "model.init"
     initialize_model.main([
         "-read_feats_scp_file", str(dirs["train"] / "feats.scp"),
         "-lda_mat_file", "identity", "-read_vocab_file", str(vocab),
-        "-seed", str(SEED), "-save_model_file", str(model), *model_args])
+        "-seed", str(SEED), "-save_model_file", str(model),
+        *(model_args or corpus["model"])])
+    archive_args = []
+    if spec["size_archive"]:
+        archives = work / "archives"
+        t0 = time.perf_counter()
+        generate_archive.main([
+            "-read_data_dir", str(dirs["train"]), "-read_vocab_file",
+            str(vocab), "-save_archive_dir", str(archives), "-size_archive",
+            str(spec["size_archive"])])
+        print(f"{corpus['name']}: generate_archive took "
+              f"{time.perf_counter() - t0:.2f} s")
+        archive_args = ["-train_archive_dir", str(archives)]
     exp = work / "exp"
-    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync = _sync(torch, device)
 
     # the main path: every launch count at 0 just before, read just after
-    kernels = (ba.banded_attention, ba.banded_attention_fwd,
-               ba.banded_attention_dq, ba.banded_attention_dkv)
-    for fn in kernels:
-        fn.launches = 0
+    reset_launch_counts()
     sync()
     t0 = time.perf_counter()
     rc = train.main([
-        "-read_train_dir", str(dirs["train"]), "-read_dev_dir",
-        str(dirs["dev"]), "-read_test_dir", str(dirs["test"]),
-        "-read_vocab_file", str(vocab), "-load_model_file", str(model),
-        "-save_model_dir", str(exp), "-batch_size", str(batch),
-        "-epoch", str(TRAIN_EPOCHS), "-save_interval", "1",
-        "-optim_start_lr", "0.001", "-optim_soft_coefficient", "25000",
-        "-device", device])
+        "-read_train_dir", str(dirs["train"]), *archive_args,
+        "-read_dev_dir", str(dirs["dev"]), "-read_test_dir",
+        str(dirs["test"]), "-read_vocab_file", str(vocab),
+        "-load_model_file", str(model), "-save_model_dir", str(exp),
+        "-batch_size", str(batch), "-epoch", str(epochs),
+        "-save_interval", "1", "-optim_start_lr", "0.001",
+        "-optim_soft_coefficient", "25000", "-device", device])
     sync()
     train_s = time.perf_counter() - t0
     if rc != 0:
         raise AssertionError(f"train CLI returned {rc}")
-    models = ",".join(str(exp / f"epoch.{e}")
-                      for e in range(TRAIN_EPOCHS, 0, -1))
+    models = ",".join(str(exp / f"epoch.{e}") for e in range(epochs, 0, -1))
     combine.main(["-model_list", models, "-read_data_dir", str(dirs["test"]),
                   "-read_vocab_file", str(vocab), "-save_model_dir",
                   str(work / "combined"), "-batch_size", str(batch),
                   "-device", device])
     sync()
-    launches = {fn.__name__: fn.launches for fn in kernels}
+    launches = launch_counts()
 
     records = [json.loads(x) for x in open(exp / "metrics.jsonl")]
-    if len(records) != TRAIN_EPOCHS:
+    if len(records) != epochs:
         raise AssertionError(f"metrics.jsonl has {len(records)} records")
     for r in records:
         if not all(math.isfinite(r[k]) for k in
                    ("train_loss", "train_accu", "dev_accu", "test_accu")):
             raise AssertionError(f"non-finite metrics {r}")
     names = sorted(p.name for p in exp.iterdir() if p.is_dir())
-    want = {f"epoch.{e}" for e in range(1, TRAIN_EPOCHS + 1)}
+    want = {f"epoch.{e}" for e in range(1, epochs + 1)}
     if not want <= set(names) or not any(
             n.startswith("best.epoch") for n in names) or not any(
             n.startswith("combined.accu") for n in names):
         raise AssertionError(f"checkpoint names {names}")
     if len(list((work / "combined").glob("combined.accu*"))) != 1:
         raise AssertionError("the combine CLI wrote no combined.accu*")
-    steps = records[-1]["step"]
 
-    # one train step from model.init, dropout off, on the card and the CPU
+    # one train step from model.init at the recipe's dropout, on the card
+    # and on the CPU: the masks are the same on both devices
     ckpt = load_checkpoint(str(model))
-    cfg = ckpt["cfg"].replace(en_dropout=0.0, de_dropout=0.0)
-    loader = make_batch_loader(str(dirs["train"]), read_vocab(str(vocab)),
-                               batch, mode="drop")
+    if archive_args:
+        loader = ArchiveBatchLoader(archive_args[1], batch, mode="drop")
+    else:
+        loader = make_batch_loader(str(dirs["train"]), read_vocab(str(vocab)),
+                                   batch, mode="drop")
     first = next(iter(loader))
-    loss_dev, grads_dev = _step_on(torch, device, ckpt["params"], cfg, first)
-    loss_cpu, grads_cpu = _step_on(torch, "cpu", ckpt["params"], cfg, first)
-    loss_err = abs(loss_dev - loss_cpu) / abs(loss_cpu)
-    grad_err = max(float((a - b).abs().max()) / max(float(b.abs().max()),
-                                                      1e-30)
-                   for a, b in zip(grads_dev, grads_cpu))
-    print(f"one train step, dropout off: loss {loss_dev!r} ({device}) vs "
-          f"{loss_cpu!r} (cpu), rel err {loss_err:.2e}; worst gradient leaf "
-          f"max abs err / max |g| = {grad_err:.2e}")
-    if loss_err > STEP_LOSS_RTOL or grad_err > STEP_GRAD_RTOL:
-        raise AssertionError(f"train step {device} vs cpu: loss {loss_err}, "
-                             f"gradients {grad_err}")
+    rows = spec["cpu_rows"] or batch
+    check = card_vs_cpu_step(torch, device, ckpt["params"], ckpt["cfg"],
+                             type(first)(*(x[:rows] for x in first)))
+    print(f"{corpus['name']}: one train step of {rows} utterances at dropout "
+          f"{ckpt['cfg'].en_dropout}/{ckpt['cfg'].de_dropout}, {device} vs "
+          f"cpu: " + json.dumps(check))
 
-    # the train step's time at the recipe's dropout, on one batch
+    # the train step's time at the recipe's dropout, on one full batch
     state = create_train_state(tree_map(
         lambda t: t.detach().to(device, copy=True), ckpt["params"]))
     b = to_device(first, device)
@@ -632,32 +990,48 @@ def run_train(torch, ba, device="cuda", model_args=RECIPE_MODEL,
     def step():
         train_step(state, ckpt["cfg"], b.src, b.src_mask, b.tgt, b.tgt_mask)
 
-    for _ in range(3):
-        step()
-    sync()
-    t0 = time.perf_counter()
-    n_steps = 10
-    for _ in range(n_steps):
-        step()
-    sync()
-    step_ms = (time.perf_counter() - t0) / n_steps * 1e3
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    [step_ms] = time_steps(step, sync)
+    peak_gb = (torch.cuda.max_memory_allocated() / 1e9 if device == "cuda"
+               else None)
     profile = profile_steps(torch, step) if device == "cuda" else None
     batch_frames = int(first.src_mask.sum())
     return {
-        "utterances": utts, "frames": frames, "train_steps": steps,
-        "train_cli_s": train_s, "metrics": records, "checkpoints": names,
-        "launches": launches, "step_ms": step_ms,
-        "step_frames": batch_frames, "step_padded_frames":
-            int(first.src_mask.size), "frames_per_s": batch_frames / step_ms * 1e3,
-        "step_loss_rel_err": loss_err, "step_grad_rel_err": grad_err,
-        "step_profile": profile,
+        "corpus": corpus["name"], "utterances": utts, "frames": frames,
+        "train_steps": records[-1]["step"], "train_cli_s": train_s,
+        "metrics": records, "checkpoints": names, "launches": launches,
+        "dropout_sites": dropout_sites(ckpt["cfg"]),
+        "en_layers": ckpt["cfg"].en_layers, "step_ms": step_ms,
+        "step_frames": batch_frames,
+        "step_padded_frames": int(first.src_mask.size),
+        "frames_per_s": batch_frames / step_ms * 1e3,
+        "peak_memory_gb": peak_gb, "card_vs_cpu_rows": rows,
+        "card_vs_cpu_step": check, "step_profile": profile,
     }
 
 
-def profile_steps(torch, step, n=5):
+def time_steps(step, sync, n_steps=10, repeats=1):
+    """Wall ms per call of ``step``, ``repeats`` times over ``n_steps``
+    calls each, after 3 warm-up calls."""
+    for _ in range(3):
+        step()
+    sync()
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            step()
+        sync()
+        times.append((time.perf_counter() - t0) / n_steps * 1e3)
+    return times
+
+
+def profile_steps(torch, step, n=3, by_name=False):
     """torch.profiler over ``n`` train steps: device time per step, the
-    device's idle share of the (profiled, so slower) wall time, and the
-    kernels that take the most device time."""
+    device's idle share of the (profiled, so slower) wall time, kernels per
+    step, the time of the port's kernels, and the kernels that take the
+    most device time; with ``by_name``, every kernel's launches per step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -669,23 +1043,140 @@ def profile_steps(torch, step, n=5):
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device rows that are kernels, not the GPU ranges of user annotations
-    # such as "Optimizer.step#Adam.step", which span the kernels inside them
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)
-               and "#" not in e.key]
+    # device rows that are kernels, copies and fills, not the GPU ranges of
+    # user annotations such as "Optimizer.step#Adam.step", which span the
+    # kernels inside them and carry the name of a host row.  (A kernel's
+    # name may hold "#" too: "{lambda()#1}" in every TensorIterator kernel
+    # built from a lambda, such as where, compare and the random draws.)
+    events = prof.key_averages()
+    host_names = {e.key for e in events if e.device_type == DeviceType.CPU}
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in device
+               if not getattr(e, "is_user_annotation", False)
+               and e.key not in host_names]
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.device_time_total)[:12]
-    return {
+    ours = {k: [sum(e.device_time_total for e in kernels if pat in e.key)
+                / 1e3 / n,
+                sum(e.count for e in kernels if pat in e.key) / n]
+            for k, pat in PROFILE_NAMES.items()}
+    out = {
         "profiled_wall_ms_per_step": wall_ms / n,
         "device_ms_per_step": busy_ms / n,
         "idle_share": 1.0 - busy_ms / wall_ms,
         "kernels_per_step": sum(e.count for e in kernels) / n,
+        "port_kernels_ms_and_launches_per_step": ours,
         "top_kernels_ms_per_step": [
             [e.key[:80], e.device_time_total / 1e3 / n, e.count / n]
             for e in top],
     }
+    if by_name:
+        out["launches_per_step_by_kernel"] = {
+            e.key: e.count / n
+            for e in sorted(kernels, key=lambda e: -e.count)}
+        out["annotation_rows"] = sorted(
+            e.key for e in device if e not in kernels)
+        host = [e for e in events if e.device_type == DeviceType.CPU]
+        out["host_ops_self_ms_total_ms_calls_per_step"] = [
+            [e.key, e.self_cpu_time_total / 1e3 / n,
+             e.cpu_time_total / 1e3 / n, e.count / n]
+            for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:30]]
+    return out
+
+
+def train_step_only(torch):
+    """The TIMIT recipe's train step alone, for ``--train-step``: its model
+    at the recipe's widths from seed 0, the first batch of run_train's
+    300-utterance train set, five timings of 20 steps and a profile.  Uses
+    only entry points that every slice of the port has, so it times the
+    port of whichever checkout is first on ``sys.path``.  Where the model's
+    dropout runs K3, also three rounds of three timings each of the step
+    with the dropout drawn by ``former_draw`` and by K3, alternated in this
+    process, and a profile of the former."""
+    from pytorch_kaldi_asr_tpu_torch.data import read_vocab
+    from pytorch_kaldi_asr_tpu_torch.data.loader import make_batch_loader, to_device
+    from pytorch_kaldi_asr_tpu_torch.io import kaldi_io
+    from pytorch_kaldi_asr_tpu_torch.models.transformer import tree_map
+    from pytorch_kaldi_asr_tpu_torch.recipes import initialize_model
+    from pytorch_kaldi_asr_tpu_torch.train import (
+        create_train_state,
+        load_checkpoint,
+        train_step,
+    )
+
+    work = WORK / "train_step"
+    if work.exists():
+        shutil.rmtree(work)
+    data = work / "train"
+    write_data_dir(data, kaldi_io, torch, TIMIT,
+                   TIMIT["train"]["utts"]["train"], seed=1)
+    initialize_model.main([
+        "-read_feats_scp_file", str(data / "feats.scp"),
+        "-lda_mat_file", "identity", "-read_vocab_file",
+        str(data / "vocab.txt"), "-seed", str(SEED), "-save_model_file",
+        str(work / "model.init"), *TIMIT["model"]])
+    ckpt = load_checkpoint(str(work / "model.init"))
+    first = next(iter(make_batch_loader(
+        str(data), read_vocab(str(data / "vocab.txt")),
+        TIMIT["train"]["batch"], mode="drop")))
+    state = create_train_state(tree_map(
+        lambda t: t.detach().to("cuda", copy=True), ckpt["params"]))
+    b = to_device(first, "cuda")
+
+    def step():
+        train_step(state, ckpt["cfg"], b.src, b.src_mask, b.tgt, b.tgt_mask)
+
+    sync = torch.cuda.synchronize
+    times = time_steps(step, sync, n_steps=20, repeats=5)
+    out = {"step_ms": times, "median_ms": sorted(times)[2],
+           "real_frames": int(first.src_mask.sum())}
+    from pytorch_kaldi_asr_tpu_torch.models import common
+
+    if not hasattr(common, "masked_dropout"):  # a checkout before K3
+        out["profile"] = profile_steps(torch, step, by_name=True)
+        return out
+    # every timing before the first profile: a profiled process launches
+    # more slowly afterwards
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    variants = {"k3": common.masked_dropout,
+                "former_draw": lambda x, seed, threshold, scale: former_draw(
+                    torch, x, 256 - (threshold >> 24), gen)}
+    rounds = {name: [] for name in variants}
+    try:
+        for _ in range(3):
+            for name in ("former_draw", "k3"):
+                common.masked_dropout = variants[name]
+                rounds[name] += time_steps(step, sync, n_steps=20, repeats=3)
+        for key, name in (("profile", "k3"),
+                          ("former_draw_profile", "former_draw")):
+            common.masked_dropout = variants[name]
+            out[key] = profile_steps(torch, step, by_name=True)
+    finally:
+        common.masked_dropout = variants["k3"]
+    out["alternated_step_ms"] = rounds
+    out["alternated_median_ms"] = {
+        name: sorted(t)[len(t) // 2] for name, t in rounds.items()}
+    return out
+
+
+def check_train_launches(training):
+    """K2a-c at exactly en_layers x steps, K3 at exactly (dropout sites) x
+    steps each way, and K1 in the evaluations."""
+    launches, steps = training["launches"], training["train_steps"]
+    want = {f"banded_attention_{k}": training["en_layers"] * steps
+            for k in ("fwd", "dq", "dkv")}
+    want.update({f"fused_dropout_{k}": training["dropout_sites"] * steps
+                 for k in ("forward", "backward")})
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"{training['corpus']}: {name} launched "
+                                 f"{launches[name]} times in training, "
+                                 f"expected {n}")
+    if launches["banded_attention"] == 0:
+        raise AssertionError("banded_attention (K1) not launched by the "
+                             "training path's evaluations")
+    print(f"{training['corpus']}: {training['dropout_sites']} dropout sites "
+          f"per train step; launches over {steps} steps: {launches}")
 
 
 def main():
@@ -695,15 +1186,17 @@ def main():
         print("chip_smoke: no CUDA device; this script runs on a card",
               file=sys.stderr)
         return 2
-    if not (REPO / "pytorch_kaldi_asr_tpu_torch").is_dir():
-        print("chip_smoke: run it from a checkout of the repository",
+    step_only = sys.argv[1:2] == ["--train-step"]
+    tree = Path(sys.argv[2]).resolve() if step_only else REPO
+    if not (tree / "pytorch_kaldi_asr_tpu_torch").is_dir():
+        print(f"chip_smoke: {tree} is not a checkout of the repository",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(REPO))
+    sys.path.insert(0, str(tree))
     from pytorch_kaldi_asr_tpu_torch.ops import _build
-    from pytorch_kaldi_asr_tpu_torch.ops import banded_attention as ba
     from pytorch_kaldi_asr_tpu_torch.utils.device import disable_tf32
 
+    t_start = time.perf_counter()
     card = card_line()
     print(f"card: {card}")
     disable_tf32()
@@ -716,53 +1209,86 @@ def main():
         for line in log.splitlines():
             if "ptxas" in line:
                 print(f"  {name}: {line.strip()}")
+    if step_only:
+        print("TRAIN_STEP " + json.dumps(
+            {"tree": str(tree), "card": card,
+             **train_step_only(torch)}))
+        return 0
+
+    from pytorch_kaldi_asr_tpu_torch.ops import banded_attention as ba
+    from pytorch_kaldi_asr_tpu_torch.ops import fused_dropout as fd
 
     err = check_banded_attention(torch, ba)
     train_errs = check_trainable_attention(torch, ba)
-    timing = time_banded_attention(torch, ba)
-    train_timing = time_trainable_attention(torch, ba)
-    summary = run_slice(torch, ba)
-    expected = 3 * summary["batches"]  # en_layers x decode batches
-    if summary["banded_attention_launches"] != expected:
-        raise AssertionError(
-            f"banded_attention launched {summary['banded_attention_launches']}"
-            f" times in the decode, expected {expected}")
-    summary["card"] = card
-    print("slice: " + json.dumps(summary))
+    k3_err = check_fused_dropout(torch, fd)
+    timing = {shape: time_banded_attention(torch, ba, shape)
+              for shape in ("timit_decode", "conformer_decode")}
+    train_timing = {shape: time_trainable_attention(torch, ba, shape)
+                    for shape in TRAIN_TIMING_SHAPES}
+    k3_timing = time_fused_dropout(torch, fd)
+    torch.cuda.empty_cache()
+    print(f"kernel phase done at {time.perf_counter() - t_start:.1f} s")
 
-    training = run_train(torch, ba)
-    launches = training["launches"]
-    expected = 3 * training["train_steps"]  # en_layers x train steps
-    for name in ("banded_attention_fwd", "banded_attention_dq",
-                 "banded_attention_dkv"):
-        if launches[name] != expected:
-            raise AssertionError(f"{name} launched {launches[name]} times in "
-                                 f"training, expected {expected}")
-    if launches["banded_attention"] == 0:
-        raise AssertionError("banded_attention (K1) not launched by the "
-                             "training path's evaluations")
-    k2_ms = sum(train_timing[n]["ms"] for n in ("fwd", "dq", "dkv"))
-    training["k2_share_of_step"] = 3 * k2_ms / training["step_ms"]
-    training["card"] = card
-    print(f"train step (batch {TRAIN_BATCH}, dropout {DROPOUT}): "
-          f"{training['step_ms']:.3f} ms, {training['frames_per_s']:.0f} "
-          f"real frames/s, K2a+K2b+K2c share {training['k2_share_of_step']:.3f}")
-    print("training: " + json.dumps(training))
+    decodes, trainings = {}, {}
+    for corpus in (TIMIT, LIBRISPEECH):
+        name = corpus["name"]
+        summary = run_slice(torch, corpus)
+        en_layers = int(corpus["model"][corpus["model"].index("-en_layers")
+                                        + 1])
+        expected = en_layers * summary["batches"]
+        if summary["launches"]["banded_attention"] != expected:
+            raise AssertionError(
+                f"{name}: banded_attention launched "
+                f"{summary['launches']['banded_attention']} times in the "
+                f"decode, expected {expected}")
+        summary["card"] = card
+        print(f"{name} decode: " + json.dumps(summary))
+        decodes[name] = summary
 
-    src = "pytorch_kaldi_asr_tpu_torch/ops/csrc/banded_attention_train.cu"
+        training = run_train(torch, corpus)
+        check_train_launches(training)
+        training["card"] = card
+        profile = training["step_profile"]
+        print(f"{name} train step (batch {corpus['train']['batch']}): "
+              f"{training['step_ms']:.3f} ms, "
+              f"{training['frames_per_s']:.0f} real frames/s, "
+              f"{profile['kernels_per_step']:.0f} kernels and "
+              f"{profile['device_ms_per_step']:.2f} ms of device time per "
+              f"profiled step, idle share {profile['idle_share']:.3f}")
+        print(f"{name} training: " + json.dumps(training))
+        trainings[name] = training
+        torch.cuda.empty_cache()
+        print(f"{name} done at {time.perf_counter() - t_start:.1f} s")
+
+    def total(name, paths):
+        return sum(p["launches"][name] for p in paths)
+
+    paths = [*decodes.values(), *trainings.values()]
     jax_file = "pytorch_kaldi_asr_tpu/ops/banded_attention.py"
     kernels = [dict(
         name="banded_attention", route="cuda",
         source="pytorch_kaldi_asr_tpu_torch/ops/csrc/banded_attention.cu",
-        replaces=f"{jax_file}:112",
-        launches=summary["banded_attention_launches"], max_abs_err=err,
-        **timing)]
+        replaces=f"{jax_file}:112", launches=total("banded_attention", paths),
+        max_abs_err=err, **timing["conformer_decode"])]
     for name, line in (("fwd", 415), ("dq", 477), ("dkv", 505)):
         kernels.append(dict(
-            name=f"banded_attention_{name}", route="cuda", source=src,
+            name=f"banded_attention_{name}", route="cuda",
+            source="pytorch_kaldi_asr_tpu_torch/ops/csrc/"
+                   "banded_attention_train.cu",
             replaces=f"{jax_file}:{line}",
-            launches=launches[f"banded_attention_{name}"],
-            max_abs_err=train_errs[name], **train_timing[name]))
+            launches=total(f"banded_attention_{name}", paths),
+            max_abs_err=train_errs[name],
+            **train_timing["conformer_train"][name]))
+    kernels.append(dict(
+        name="fused_dropout", route="cuda",
+        source="pytorch_kaldi_asr_tpu_torch/ops/csrc/fused_dropout.cu",
+        replaces="pytorch_kaldi_asr_tpu/ops/fused_dropout.py:34",
+        launches=total("fused_dropout_forward", paths)
+        + total("fused_dropout_backward", paths),
+        max_abs_err=k3_err,
+        **{k: k3_timing[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")}))
+    print(f"whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

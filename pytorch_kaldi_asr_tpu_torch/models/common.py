@@ -11,8 +11,8 @@ of them moves WER without an error:
 - layer norm divides by the UNBIASED std with ``eps`` added to the std,
   and is the identity when the sequence axis has length 1 (``skip_len1``);
 - frame folding subsamples the mask at ``[fold-1::fold]``;
-- dropout draws an 8-bit threshold per element: keep probability q/256 with
-  ``q = round((1 - rate) * 256)``, kept values scaled by exactly 256/q.
+- dropout keeps each element with probability q/256,
+  ``q = round((1 - rate) * 256)``, and scales kept values by exactly 256/q.
 
 Only the float32 path is ported: the port computes in float32 throughout.
 """
@@ -22,6 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from pytorch_kaldi_asr_tpu_torch.ops.fused_dropout import masked_dropout
 
 
 def position_encoding_table(n_position, d_model, device=None):
@@ -129,14 +131,12 @@ def spliced_linear(x, w, b, context):
 
 
 class DropoutRngs:
-    """The randomness of one training step.  ``mask`` is a
-    ``torch.Generator`` on the model's device that draws the dropout masks,
-    site after site in the model's order; ``seeds`` is a CPU generator that
-    draws the banded-attention kernels' dropout seeds as Python ints, so
-    taking one never waits on the card."""
+    """The randomness of one training step: ``seeds``, a CPU generator that
+    draws one seed per dropout site (the fused-dropout kernel's and the
+    banded-attention kernels') as a Python int, so taking one never waits
+    on the card, and the masks are the same on every device."""
 
-    def __init__(self, mask, seeds):
-        self.mask = mask
+    def __init__(self, seeds):
         self.seeds = seeds
 
     def seed(self):
@@ -144,21 +144,21 @@ class DropoutRngs:
         return int(torch.randint(0, 2**31 - 1, (), generator=self.seeds))
 
 
-def dropout(x, rate, generator, train):
+def dropout(x, rate, seed, train):
     """Inverted dropout, the JAX package's 8-bit threshold draw: each element
     is kept with probability q/256, ``q = round((1 - rate) * 256)``, and
-    scaled by 256/q, so the estimate stays unbiased.  The draws come from
-    ``generator``, which lives on ``x``'s device.  Identity when not
-    training, when ``rate == 0``, without a generator, or when q >= 256."""
-    if not train or rate == 0.0 or generator is None:
+    scaled by 256/q, so the estimate stays unbiased.  The mask comes from
+    the fused-dropout kernel (ops/fused_dropout.py) keyed by ``seed``: kept
+    iff its 32-bit word is at least ``(256 - q) * 2**24``, which has
+    probability exactly q/256.  Identity when not training, when
+    ``rate == 0``, without a seed, or when q >= 256."""
+    if not train or rate == 0.0 or seed is None:
         return x
     q = round((1.0 - rate) * 256)
     if q >= 256:
         return x
     q = max(q, 1)
-    bits = torch.randint(0, 256, x.shape, generator=generator,
-                         device=x.device, dtype=torch.uint8)
-    return torch.where(bits < q, x * (256.0 / q), 0.0)
+    return masked_dropout(x, seed, (256 - q) << 24, 256.0 / q)
 
 
 def xavier_normal(generator, shape, fan_in, fan_out):

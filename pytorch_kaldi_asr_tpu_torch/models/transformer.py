@@ -13,15 +13,16 @@ package by tests/test_torch_models.py):
 - post-LN residuals with the eps=1e-3 unbiased-std layer norm;
 - banded decoder self-attention window ``decoder_sub_sequence``;
 - the ``tdnn`` encoder is splice → frozen LDA affine → src_projection →
-  TDNN stack → +sinusoid positions; ``banded`` lives in models/encoders.py;
+  TDNN stack → +sinusoid positions; ``banded`` and ``conformer`` live in
+  models/encoders.py;
 - decoder: word+position embeddings → [self-attn, cross-attn, FFN]×N →
   vocab projection (no bias), with enc_dec_projection en_d_model→de_d_model.
 
 Training (``train=True``) adds dropout at the JAX package's sites, in its
-order, drawn from the ``DropoutRngs`` of models/common.py passed as
-``rngs``; with ``rngs=None`` every dropout is the identity.
-The draws differ from ``jax.random``'s, so the packages are compared with
-dropout off.
+order, each site with its own seed from the ``DropoutRngs`` of
+models/common.py passed as ``rngs``; with ``rngs=None`` every dropout is the
+identity.  The masks come from the fused-dropout kernel's Philox, not from
+``jax.random``, so the packages are compared with dropout off.
 """
 
 from __future__ import annotations
@@ -96,6 +97,12 @@ class TransformerConfig:
             raise NotImplementedError(
                 f"compute_dtype={self.compute_dtype!r} is not ported yet: "
                 f"the port computes in float32 ({ROADMAP_DTYPES})")
+        if (self.encoder_type == "conformer"
+                and self.conformer_stream_dtype != "float32"):
+            raise NotImplementedError(
+                f"conformer_stream_dtype={self.conformer_stream_dtype!r} is "
+                f"not ported yet: the conformer's residual stream is float32 "
+                f"({ROADMAP_DTYPES})")
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
@@ -232,8 +239,10 @@ def tree_map(fn, tree):
 
 
 def _drop(x, rate, rngs, train):
-    """Dropout at one site, drawing from ``rngs.mask``."""
-    return dropout(x, rate, None if rngs is None else rngs.mask, train)
+    """Dropout at one site, with the next seed of ``rngs``."""
+    if not train or rate == 0.0 or rngs is None:
+        return x
+    return dropout(x, rate, rngs.seed(), train)
 
 
 def multi_head_attention(p, q, k, v, blocked, cfg, rate=0.0, rngs=None,

@@ -5,8 +5,10 @@ output dims come from the data (``src_dim`` from the first scp matrix, the
 vocabulary size from the vocab file), the frozen LDA affine from
 ``lda.mat`` (or identity), hyperparameters from the flags with the TIMIT
 defaults.  Weights are drawn on the CPU from ``torch.Generator`` seeded by
-``-seed`` and saved in the JAX package's checkpoint layout.  Only the
-``tdnn`` and ``banded`` encoder families are ported so far.
+``-seed`` and saved in the JAX package's checkpoint layout.  The ``tdnn``,
+``banded`` and ``conformer`` encoder families are ported; the conformer
+with a float32 residual stream only (``-conformer_stream_dtype bfloat16``
+raises).
 """
 
 import argparse
@@ -87,12 +89,12 @@ def main(argv=None):
     parser.add_argument("-encoder_type", default="tdnn",
                         choices=["tdnn", "banded", "blstm", "conformer",
                                  "tdnnf"],
-                        help="encoder family (models/encoders.py); only "
-                             "tdnn and banded are ported so far")
+                        help="encoder family (models/encoders.py); tdnn, "
+                             "banded and conformer are ported")
     parser.add_argument("-conformer_stream_dtype", default="float32",
                         choices=["float32", "bfloat16"],
-                        help="Conformer residual-stream dtype (recorded in "
-                             "the config)")
+                        help="Conformer residual-stream dtype; the port "
+                             "takes float32 only (bfloat16 raises)")
     parser.add_argument("-seed", type=int, default=0)
     parser.add_argument("-init_compat", default="native",
                         choices=["native", "torch"],

@@ -6,12 +6,16 @@ Same flags as ``pytorch_kaldi_asr_tpu.recipes.train`` plus ``-device``
 (``cuda`` by default; ``cpu`` on request).  Without a visible card and
 without ``-device cpu`` it raises rather than fall back.  Exits with
 PREEMPT_EXIT_CODE (75) after a preemption.  ``-use_gpu`` is accepted for
-recipe compatibility."""
+recipe compatibility.  ``-train_archive_dir`` streams the training set from
+pre-packed archives (recipes.generate_archive) with the archives' own
+epoch shuffling, seeded by ``-seed`` (the JAX CLI leaves that loader at
+seed 0; the two agree at the default seed)."""
 
 import argparse
 import os
 
 from pytorch_kaldi_asr_tpu_torch.data import read_vocab
+from pytorch_kaldi_asr_tpu_torch.data.archive import ArchiveBatchLoader
 from pytorch_kaldi_asr_tpu_torch.data.loader import make_batch_loader
 from pytorch_kaldi_asr_tpu_torch.train import (
     combine_checkpoints,
@@ -42,8 +46,9 @@ def main(argv=None):
     parser.add_argument("-loader_workers", type=int, default=1,
                         help="host batch-assembly threads (ordered handoff)")
     parser.add_argument("-train_archive_dir", default=None,
-                        help="stream the training set from .npz batch "
-                             "archives (not ported yet)")
+                        help="stream the training set from the .npz batch "
+                             "archives of recipes.generate_archive instead "
+                             "of preloading read_train_dir")
     parser.add_argument("-label_smoothing", action="store_true")
     parser.add_argument("-save_interval", type=int, default=10)
     parser.add_argument("-seed", type=int, default=0,
@@ -60,10 +65,6 @@ def main(argv=None):
                         help="cuda (default), cuda:N or cpu")
     opt = parser.parse_args(argv)
 
-    if opt.train_archive_dir:
-        raise NotImplementedError(
-            "-train_archive_dir is not ported yet (data/archive.py; "
-            "ROADMAP.md queue 1, 'Port recipe, end to end')")
     if opt.specaugment:
         raise NotImplementedError(
             "-specaugment is not ported yet (ROADMAP.md queue 1, "
@@ -78,11 +79,16 @@ def main(argv=None):
 
     vocab = read_vocab(opt.read_vocab_file)
     info("reading training data...")
-    train_loader = make_batch_loader(opt.read_train_dir, vocab,
-                                     opt.batch_size, mode="drop",
-                                     num_buckets=opt.num_buckets,
-                                     seed=opt.seed,
-                                     num_workers=opt.loader_workers)
+    if opt.train_archive_dir:
+        train_loader = ArchiveBatchLoader(opt.train_archive_dir,
+                                          opt.batch_size, mode="drop",
+                                          seed=opt.seed)
+    else:
+        train_loader = make_batch_loader(opt.read_train_dir, vocab,
+                                         opt.batch_size, mode="drop",
+                                         num_buckets=opt.num_buckets,
+                                         seed=opt.seed,
+                                         num_workers=opt.loader_workers)
     info("reading dev data...")
     dev_loader = make_batch_loader(opt.read_dev_dir, vocab, opt.batch_size,
                                    mode="all")

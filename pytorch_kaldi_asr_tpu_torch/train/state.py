@@ -51,15 +51,13 @@ def create_train_state(params, *, start_lr=0.001, soft_coefficient=25000.0,
                       hyperbolic_schedule(start_lr, soft_coefficient))
 
 
-def step_rngs(seed, step, device):
-    """The dropout randomness of update ``step`` under ``seed``: a mask
-    generator on ``device`` and a CPU generator for the kernel seeds, both
-    seeded from (seed, step) on the host."""
+def step_rngs(seed, step):
+    """The dropout randomness of update ``step`` under ``seed``: a CPU
+    generator of the per-site kernel seeds, seeded from (seed, step) on the
+    host, so the same step draws the same masks on every device."""
     mixed = int(np.random.SeedSequence([int(seed), int(step)])
                 .generate_state(1, np.uint64)[0] >> 1)
-    mask = torch.Generator(device=device).manual_seed(mixed)
-    seeds = torch.Generator().manual_seed(mixed ^ 0x5DEECE66D)
-    return DropoutRngs(mask, seeds)
+    return DropoutRngs(torch.Generator().manual_seed(mixed ^ 0x5DEECE66D))
 
 
 def shift_for_teacher_forcing(tgt, tgt_mask):
@@ -82,7 +80,7 @@ def loss_and_metrics(params, cfg, src, src_mask, tgt, tgt_mask, *,
 def train_step(state, cfg, src, src_mask, tgt, tgt_mask, *, smoothing=False):
     """One update of ``state`` in place.  Returns the step's metrics
     ({loss, n_correct, n_words}, detached, on the device)."""
-    rngs = step_rngs(state.seed, state.step, src.device)
+    rngs = step_rngs(state.seed, state.step)
     loss, n_correct, n_words = loss_and_metrics(
         state.params, cfg, src, src_mask, tgt, tgt_mask, train=True,
         rngs=rngs, smoothing=smoothing)

@@ -29,7 +29,8 @@ torch.set_num_threads(1)
 
 # en_layers=11 puts list indices "10" after "9" (flax keeps list order)
 @pytest.mark.parametrize("encoder_type,en_layers", [("banded", 11),
-                                                    ("tdnn", 2)])
+                                                    ("tdnn", 2),
+                                                    ("conformer", 2)])
 def test_jax_checkpoint_round_trips_through_port(tmp_path, encoder_type,
                                                  en_layers):
     jcfg, pcfg = configs(encoder_type=encoder_type, en_layers=en_layers)

@@ -18,6 +18,7 @@ from pytorch_kaldi_asr_tpu_torch.models.transformer import (
     tree_map,
 )
 from pytorch_kaldi_asr_tpu_torch.ops import banded_attention as ba
+from pytorch_kaldi_asr_tpu_torch.ops import fused_dropout as fd
 
 pytestmark = pytest.mark.cuda
 
@@ -196,3 +197,90 @@ def test_beam_search_on_the_card_matches_the_cpu(cuda_device):
     for b in range(s.shape[0]):
         if np.all(np.abs(np.diff(s[b])) > 1e-3):
             assert torch.equal(gpu.tokens[b].cpu(), cpu.tokens[b])
+
+
+def _thresholds(rate):
+    """(threshold, scale) of the 8-bit model dropout and of fused_dropout."""
+    q = round((1 - rate) * 256)
+    return [((256 - q) << 24, 256.0 / q),
+            (fd.fused_dropout_threshold(rate), 1.0 / (1.0 - rate))]
+
+
+@pytest.mark.parametrize("which", [0, 1], ids=["8-bit", "exact"])
+@pytest.mark.parametrize("shape", [(512, 1024), (33, 7), (1, 256),
+                                   (3, 5, 11), (0, 4)])
+def test_fused_dropout_kernel_matches_plain_version(cuda_device, shape,
+                                                    which):
+    """K3 forward and backward against the plain version on the card: the
+    same mask bit for bit, outputs and gradients bit-equal, one launch each
+    way; a non-contiguous input is masked in its logical order."""
+    threshold, scale = _thresholds(0.35)[which]
+    g = torch.Generator().manual_seed(len(shape))
+    x = torch.randn(shape, generator=g).to(cuda_device).requires_grad_()
+    dout = torch.randn(shape, generator=g).to(cuda_device)
+    before = dict(fd.fused_dropout.launches)
+    y = fd.masked_dropout(x, 77, threshold, scale)
+    y.backward(dout)
+    torch.cuda.synchronize()
+    launched = 0 if x.numel() == 0 else 1
+    assert fd.fused_dropout.launches == {
+        k: v + launched for k, v in before.items()}
+    scale32 = float(np.float32(scale))
+    want = fd.fused_dropout_reference(x.detach(), 77, threshold, scale32)
+    assert torch.equal(y.detach(), want)
+    assert torch.equal(x.grad, fd.fused_dropout_reference(dout, 77, threshold,
+                                                          scale32))
+    if x.dim() == 2 and x.numel():
+        xt = x.detach().t()
+        assert torch.equal(fd.dropout_mask_pass(xt, 5, threshold, scale32),
+                           fd.fused_dropout_reference(xt, 5, threshold,
+                                                      scale32))
+
+
+def test_fused_dropout_kernel_refuses_what_it_cannot_take(cuda_device):
+    x = torch.ones(8, device=cuda_device)
+    with pytest.raises(TypeError):
+        fd.dropout_mask_pass(x.double(), 1, 2**31, 2.0)
+    with pytest.raises(ValueError, match="32-bit"):
+        fd.dropout_mask_pass(x, 1, 2**32, 2.0)
+
+
+def test_conformer_train_step_with_dropout_matches_the_cpu(cuda_device):
+    """One train step of a conformer with dropout on: the masks are the
+    same on both devices (K3's Philox, K2's hash), so the card (K2a-c once
+    per encoder layer, K3 once per dropout site each way) matches the CPU
+    (their plain versions)."""
+    from pytorch_kaldi_asr_tpu_torch.train import create_train_state, train_step
+    from pytorch_kaldi_asr_tpu_torch.train.optim import trainable_leaves
+
+    cfg = TransformerConfig(
+        src_dim=40, vocab_size=52, encoder_max_len=128, decoder_max_len=20,
+        encoder_sub_sequence=(-32, 32), decoder_sub_sequence=(-10, 0),
+        en_layers=2, de_layers=2, n_head=2, en_d_model=64, de_d_model=32,
+        d_k=16, d_v=16, en_dropout=0.1, de_dropout=0.1,
+        encoder_type="conformer")
+    params = init_transformer(torch.Generator().manual_seed(0), cfg)
+    g = torch.Generator().manual_seed(3)
+    src = torch.randn((3, 120, 40), generator=g)
+    mask = torch.ones((3, 120), dtype=torch.uint8)
+    mask[2, 70:] = 0
+    tgt = torch.tensor([[2, 5, 9, 3, 0], [2, 7, 3, 0, 0], [2, 4, 4, 6, 3]])
+    batch = (src, mask, tgt, (tgt != 0).to(torch.uint8))
+    # input + 6 per conformer layer; embedding + 5 per decoder layer + output
+    sites = 1 + 6 * cfg.en_layers + 2 + 5 * cfg.de_layers
+    results = {}
+    for device in ("cpu", cuda_device):
+        k2 = ba.banded_attention_fwd.launches
+        k3 = dict(fd.fused_dropout.launches)
+        state = create_train_state(tree_map(
+            lambda x: x.detach().to(device, copy=True), params))
+        m = train_step(state, cfg, *(x.to(device) for x in batch))
+        launched = [ba.banded_attention_fwd.launches - k2] + [
+            fd.fused_dropout.launches[k] - k3[k] for k in k3]
+        results[str(device)] = (float(m["loss"]), [
+            p.grad.cpu() for p in trainable_leaves(state.params)], launched)
+    (loss_c, grads_c, n_c), (loss_g, grads_g, n_g) = results.values()
+    assert n_c == [0, 0, 0] and n_g == [cfg.en_layers, sites, sites]
+    assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c)
+    for a, b in zip(grads_g, grads_c):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())

@@ -148,7 +148,8 @@ def test_port_init_matches_jax_tree_and_distributions():
 
 
 def test_unported_encoder_raises_with_roadmap_item():
-    cfg = pt.TransformerConfig(**dataclasses.asdict(configs()[1]) | {
-        "encoder_type": "conformer"})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.init_transformer(torch.Generator().manual_seed(0), cfg)
+    for encoder_type in ("blstm", "tdnnf"):
+        cfg = pt.TransformerConfig(**dataclasses.asdict(configs()[1]) | {
+            "encoder_type": encoder_type})
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            pt.init_transformer(torch.Generator().manual_seed(0), cfg)

@@ -5,9 +5,11 @@
   files with the same keys and words line by line, scores within 1e-4.
 - With the imports of jax, flax, optax, msgpack and the JAX package blocked,
   every port module (the training slice's train/, recipes.train and
-  recipes.combine included) and chip_smoke.py import, and the port's own
-  initialize_model + decode run end to end on the CPU
-  (tests/test_torch_train_slice.py runs train and combine so).
+  recipes.combine, the fused dropout and the archives included) and
+  chip_smoke.py import, and the port's own initialize_model + decode run
+  end to end on the CPU, for the banded encoder and for a conformer trained
+  with dropout from archives (tests/test_torch_train_slice.py runs train
+  and combine so).
 - The entry points refuse what they cannot do: no card without
   ``-device cpu``, and the options not ported yet.
 """
@@ -95,12 +97,15 @@ _NO_JAX = textwrap.dedent("""
     for name in names:
         importlib.import_module(name)
     for name in ("train.loop", "train.state", "train.optim", "train.loss",
-                 "recipes.train", "recipes.combine", "utils.metrics"):
+                 "recipes.train", "recipes.combine", "utils.metrics",
+                 "ops.fused_dropout", "data.archive",
+                 "recipes.generate_archive"):
         assert pkg.__name__ + "." + name in names, name
     importlib.import_module("chip_smoke")
 
     from pytorch_kaldi_asr_tpu_torch.io.kaldi_io import ArkWriter
-    from pytorch_kaldi_asr_tpu_torch.recipes import decode, initialize_model
+    from pytorch_kaldi_asr_tpu_torch.recipes import (
+        decode, generate_archive, initialize_model, train)
 
     work = Path(sys.argv[1])
     rng = np.random.default_rng(0)
@@ -124,9 +129,36 @@ _NO_JAX = textwrap.dedent("""
                  "-save_result_file", str(work / "decode.txt"),
                  "-max_token_seq_len", "6", "-batch_size", "2",
                  "-beam_size", "3", "-nbest", "2", "-device", "cpu"])
+
+    # the conformer with dropout on, trained from archives, then decoded
+    data = ["-read_vocab_file", str(work / "vocab.txt")]
+    initialize_model.main([
+        "-read_feats_scp_file", str(work / "feats.scp"), "-lda_mat_file",
+        "none", *data, "-encoder_max_len", "40", "-decoder_max_len", "8",
+        "-encoder_sub_sequence", "(-4,4)", "-en_layers", "1",
+        "-de_layers", "1", "-n_head", "2", "-en_d_model", "16",
+        "-de_d_model", "8", "-d_k", "4", "-d_v", "4", "-en_dropout", "0.1",
+        "-de_dropout", "0.1", "-encoder_type", "conformer",
+        "-save_model_file", str(work / "c")])
+    generate_archive.main(["-read_data_dir", str(work), *data,
+                           "-save_archive_dir", str(work / "ar"),
+                           "-size_archive", "2"])
+    assert train.main(["-read_train_dir", str(work), "-train_archive_dir",
+                       str(work / "ar"), "-read_dev_dir", str(work),
+                       "-read_test_dir", str(work), *data,
+                       "-load_model_file", str(work / "c"),
+                       "-save_model_dir", str(work / "exp"), "-epoch", "1",
+                       "-batch_size", "2", "-save_interval", "1",
+                       "-device", "cpu"]) == 0
+    combined = sorted((work / "exp").glob("combined.*"))[-1]
+    decode.main(["-read_data_dir", str(work), *data, "-load_model_file",
+                 str(combined), "-save_result_file", str(work / "c.txt"),
+                 "-max_token_seq_len", "6", "-batch_size", "2",
+                 "-beam_size", "3", "-nbest", "2", "-device", "cpu"])
     assert not BLOCKED & set(m.split(".")[0] for m in sys.modules)
     print("modules", len(names), "lines",
-          len((work / "decode.txt").read_text().splitlines()))
+          len((work / "decode.txt").read_text().splitlines()),
+          "conformer", len((work / "c.txt").read_text().splitlines()))
 """)
 
 
@@ -137,7 +169,7 @@ def test_port_runs_with_jax_blocked(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     last = proc.stdout.strip().splitlines()[-1].split()
     assert last[0] == "modules" and int(last[1]) >= 33
-    assert last[2:] == ["lines", "6"]
+    assert last[2:] == ["lines", "6", "conformer", "6"]
 
 
 def test_entry_points_refuse_what_they_cannot_do(tmp_path, monkeypatch):

@@ -195,8 +195,6 @@ def test_train_cli_refuses_what_it_cannot_do(tmp_path, monkeypatch):
         combine.main(["-model_list", "x", "-read_data_dir", "x",
                       "-read_vocab_file", "x", "-save_model_dir", "x"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.main(args + ["-train_archive_dir", "y"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         train.main(args + ["-specaugment"])
 
 
