@@ -10,9 +10,14 @@ CUDA card: ``python3 chip_smoke.py`` from the root of a checkout.
    card at the paths' shapes and at edge cases, then times the kernel, the
    plain version and the PyTorch library call that computes the same
    function, with CUDA events after warm-up.  K1 is the inference kernel;
-   K2a/K2b/K2c (forward with lse, dq, dk/dv) are held against autograd of
-   the plain trainable version at dropout 0 and 0.35, at the TIMIT shape
-   and at the conformer's (S 1600, band (-256, 256)); K3 (fused dropout)
+   K2a/K2b/K2c (forward with lse, dq with delta, dk/dv) are held against
+   autograd of the plain trainable version at dropout 0 and 0.35, at the
+   TIMIT shape, at the conformer's (S 1600, band (-256, 256)) and at cases
+   that reach each tile skip of the backward; one backward must be exactly
+   one K2b and one K2c launch and no other device work; the backward pair
+   is timed against SDPA's backward at dropout 0 and at the path's rate.
+   Bounds take the faster float32 route: the CUDA cores, or for the
+   attention products the TF32 tensor cores at three passes; K3 (fused dropout)
    forward and backward must match its plain version bit for bit (0 mask
    mismatches) at the conformer's [51200, 1024] and [51200, 256] for both
    thresholds at rates 0.1 and 0.35, and at edge cases.
@@ -44,14 +49,24 @@ CUDA card: ``python3 chip_smoke.py`` from the root of a checkout.
    ``{"ok": true, "device": {...}}``.  Any failure raises: the script then
    exits non-zero without the last line.
 
-``python3 chip_smoke.py --train-step TREE`` runs only the TIMIT train step
-of the port in the checkout ``TREE`` (for instance a parent commit unpacked
-with ``git archive`` under ``build/``) and prints one ``TRAIN_STEP`` JSON
-line: five timings of 20 steps and a profile with every kernel's launches
-and the host's busiest operations per step; where the port has K3, also
-the same step with the model's dropout drawn by the port's former draw
-(``former_draw``), alternated with K3 in one process.  Run parent, change,
-change, parent in one session on one card to compare two commits.
+``python3 chip_smoke.py --train-step TREE [timit|librispeech]`` runs only
+the train step of that recipe's model (default TIMIT; LibriSpeech is the
+conformer at batch 32 x S 1600) with the port in the checkout ``TREE`` (for
+instance a parent commit unpacked with ``git archive`` under ``build/``)
+and prints one ``TRAIN_STEP`` JSON line: five timings of 20 steps and a
+profile with every kernel's launches and the host's busiest operations per
+step; for TIMIT, where the port has K3, also the same step with the
+model's dropout drawn by the port's former draw (``former_draw``),
+alternated with K3 in one process.  Run parent, change, change, parent
+one after another on one card to compare two commits.
+
+``python3 chip_smoke.py --k2-sources A.cu [B.cu ...]`` compares versions
+of ``ops/csrc/banded_attention_train.cu`` (a parent's, or a copy with
+``#define`` lines on top) in one process: each is built with the port's
+nvcc flags (ptxas's registers and spills for ``dq_kernel`` and
+``dkv_kernel`` printed), and at both train timing shapes their K2b and K2c
+are timed in turns, three rounds, and held against the first source's
+outputs; one ``K2_SOURCES`` JSON line per shape.
 
 Everything it writes goes under ``build/chip_smoke/`` in the checkout.
 """
@@ -70,6 +85,10 @@ WORK = REPO / "build" / "chip_smoke"
 # H100 SXM published peaks (NVIDIA data sheet), the denominators of bound_ms
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12  # TF32 tensor cores, dense
+# float32 products on the TF32 tensor cores at float32 accuracy take three
+# passes (3xTF32: big.big + big.small + small.big)
+TF32_PASSES = 3
 
 # the TIMIT recipe's model (recipes/attention-transformer-timit/run.sh)
 # with the banded encoder
@@ -187,12 +206,25 @@ def dropout_sites(cfg):
 
 
 def _attention_inputs(torch, bh, s, d, dv, lengths, seed):
+    """Seeded q, k, v and key_valid on the card; ``lengths`` are per-row
+    valid prefixes, or a [bh, s] mask of valid keys."""
     g = torch.Generator().manual_seed(seed)
     q = torch.randn((bh, s, d), generator=g)
     k = torch.randn((bh, s, d), generator=g)
     v = torch.randn((bh, s, dv), generator=g)
-    valid = (torch.arange(s)[None, :] < torch.as_tensor(lengths)[:, None])
+    lengths = torch.as_tensor(lengths)
+    valid = lengths if lengths.dim() == 2 else (
+        torch.arange(s)[None, :] < lengths[:, None])
     return q.cuda(), k.cuda(), v.cuda(), valid.to(torch.int32).cuda()
+
+
+def _holes(torch, bh, s, seed):
+    """A key mask that is no prefix: 30 % of the keys invalid at random,
+    and the whole second 64-key tile invalid."""
+    g = torch.Generator().manual_seed(seed)
+    valid = torch.rand((bh, s), generator=g) > 0.3
+    valid[:, 64:128] = False
+    return valid
 
 
 def _lengths(torch, corpus, n_utts, heads, s, seed):
@@ -273,11 +305,16 @@ def time_ms(torch, fn, iters=100, warmup=10):
     return start.elapsed_time(end) / iters
 
 
-def _bound(n_bytes, flops):
-    """(bound_ms, bound_by) on the H100's published peaks."""
+def _bound(n_bytes, flops, tensor_cores=False):
+    """(bound_ms, bound_by) on the H100's published peaks: the bytes over
+    the memory rate or the operations over the faster float32 route,
+    whichever takes longer.  The attention products (``tensor_cores``) take
+    the TF32 tensor cores at TF32_PASSES passes (3 / 495 TFLOP/s, faster
+    than the CUDA cores' 1 / 67); other float32 work the CUDA cores."""
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / F32_FLOPS_PER_S * 1e3
-    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+    rate = TF32_FLOPS_PER_S / TF32_PASSES if tensor_cores else F32_FLOPS_PER_S
+    ops_ms = flops / rate * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
 def _allowed(torch, s, start, end, valid):
@@ -301,7 +338,8 @@ def time_banded_attention(torch, ba, shape):
     pairs = int(allowed.sum())
     n_bytes = 4 * (q.numel() + k.numel() + v.numel() + v.numel()
                    + valid.numel())
-    bound_ms, bound_by = _bound(n_bytes, pairs * (2 * d + 2 * d))
+    bound_ms, bound_by = _bound(n_bytes, pairs * (2 * d + 2 * d),
+                                tensor_cores=True)
     plain_iters = 100 if s_pad <= 512 else 10
     kernel_ms = time_ms(torch, lambda: ba._launch(q, k, v, valid, start, end,
                                                   scale))
@@ -327,8 +365,12 @@ def _grads(fn, q, k, v, dout):
 
 def check_trainable_attention(torch, ba):
     """K2a/K2b/K2c through the autograd function vs autograd of the plain
-    trainable version on the card, at dropout 0 and 0.35.  Returns the max
-    abs error per kernel: K2a out and lse, K2b dq, K2c dk and dv."""
+    trainable version on the card, at dropout 0 and 0.35, at the paths'
+    shapes and at the cases that reach each skip of the backward's tiling:
+    band edges on a tile boundary, whole invalid key tiles and dead query
+    tiles, a key mask that is no prefix, dv != d, d a multiple of 4 but not
+    of 8, and the largest head dims.  Returns the max abs error per kernel:
+    K2a out and lse, K2b dq, K2c dk and dv."""
     scale = 1.0 / math.sqrt(256.0)
     bh, s, d, (start, end), corpus, n, heads = ATTN_SHAPES["conformer_train"]
     cases = [
@@ -342,6 +384,20 @@ def check_trainable_attention(torch, ba):
         (2, 256, 16, 16, [128, 128], -10, 0, 0.1, "padded tail"),
         (2, 256, 16, 8, [216, 216], -100, 0, 0.125, "dv != d"),
         (3, 200, 64, 64, [200, 120, 0], -100, 0, scale, "S=200, empty row"),
+        (4, 256, 32, 32, [256, 200, 100, 30], -64, 64, scale,
+         "band (-64,64) on tile edges"),
+        (4, 256, 32, 32, [256, 200, 100, 30], -65, 0, scale, "band (-65,0)"),
+        (2, 640, 64, 64, [640, 500], -256, 256, scale,
+         "band (-256,256) S 640"),
+        (4, 512, 64, 64, [512, 200, 64, 0], -100, 0, scale,
+         "invalid key tiles, dead query tiles"),
+        (4, 512, 32, 32, [512, 130, 64, 0], -30, 30, scale,
+         "invalid key tiles, band (-30,30)"),
+        (2, 256, 16, 16, _holes(torch, 2, 256, 3), -40, 40, 0.25,
+         "key mask no prefix"),
+        (4, 256, 64, 32, [256, 180, 90, 0], -64, 32, scale, "d 64, dv 32"),
+        (4, 256, 12, 12, [256, 180, 90, 0], -40, 8, 0.3, "d 12"),
+        (2, 256, 128, 128, [256, 100], -100, 20, scale, "d 128"),
     ]
     worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
     for rate in (0.0, DROPOUT):
@@ -367,11 +423,10 @@ def check_trainable_attention(torch, ba):
             live = torch.isfinite(lse_want)
             errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
             errs.append(float((lse[live] - lse_want[live]).abs().max()))
-            # empty rows and invalid keys: exact zeros, gradients too
-            lens = torch.as_tensor(lengths, device=q.device)
-            pos = torch.arange(s, device=q.device)[None, :]
-            empty = pos + start >= lens[:, None]
-            invalid = pos >= lens[:, None]
+            # rows with no valid key in band and invalid keys: exact zeros,
+            # gradients too
+            empty = ~_allowed(torch, s, start, end, valid).any(-1)
+            invalid = valid == 0
             if bool((got[0][empty] != 0).any() or (got[1][empty] != 0).any()
                     or (got[2][invalid] != 0).any()
                     or (got[3][invalid] != 0).any()):
@@ -389,6 +444,61 @@ def check_trainable_attention(torch, ba):
     return worst
 
 
+def device_kernels(torch, fn):
+    """{kernel name: launches} on the card while ``fn`` runs (its work
+    synchronised), from torch.profiler: every kernel, copy and fill."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in _kernel_rows(prof.key_averages())[1]}
+
+
+def _kernel_rows(events):
+    """(device rows, those of them that are kernels, copies and fills) of
+    torch.profiler's ``key_averages()``: not the GPU ranges of user
+    annotations such as "Optimizer.step#Adam.step", which span the kernels
+    inside them and carry the name of a host row.  (A kernel's name may
+    hold "#" too: "{lambda()#1}" in every TensorIterator kernel built from
+    a lambda, such as where, compare and the random draws.)"""
+    from torch.autograd import DeviceType
+
+    host_names = {e.key for e in events if e.device_type == DeviceType.CPU}
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    return device, [e for e in device
+                    if not getattr(e, "is_user_annotation", False)
+                    and e.key not in host_names]
+
+
+def check_backward_launches(torch, ba):
+    """One backward of the trainable attention on the card is exactly two
+    kernels, K2b (with delta) then K2c, and no other device work; counted
+    by the wrappers and by torch.profiler at the conformer's band."""
+    q, k, v, valid = _attention_inputs(torch, 8, 1600, 64, 64,
+                                       [1600, 1200] * 4, seed=12)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    dout = torch.randn(v.shape, device="cuda")
+    out = ba.banded_attention_trainable(q, k, v, valid, 7, start=-256,
+                                        end=256, scale=0.0625,
+                                        dropout_rate=0.1)
+    wrappers = (ba.banded_attention_dq, ba.banded_attention_dkv)
+    before = [fn.launches for fn in wrappers]
+    kernels = device_kernels(torch, lambda: torch.autograd.grad(
+        out, (q, k, v), dout))
+    launched = tuple(fn.launches - n for fn, n in zip(wrappers, before))
+    ours = [any(PROFILE_NAMES[kn] in name for name in kernels)
+            for kn in ("K2b", "K2c")]
+    print(f"one backward of the trainable attention: wrapper launches "
+          f"(K2b, K2c) = {launched}; device kernels {kernels}")
+    if launched != (1, 1) or sum(kernels.values()) != 2 or not all(ours):
+        raise AssertionError(f"backward launched {kernels}, expected one "
+                             f"dq_kernel and one dkv_kernel")
+    return kernels
+
+
 # (bh, s, d, band, lengths, rate) of the K2 timings
 TRAIN_TIMING_SHAPES = {
     # the TIMIT training slice: batch 100 x 2 heads, utterances of 412-504
@@ -399,12 +509,10 @@ TRAIN_TIMING_SHAPES = {
 }
 
 
-def time_trainable_attention(torch, ba, shape):
-    """K2a, K2b and K2c, their plain versions and the library call at
-    ``shape`` (TRAIN_TIMING_SHAPES).  SDPA (forward; backward for dq and
-    dk/dv together) runs at dropout 0 with the same boolean band mask."""
-    import torch.nn.functional as F
-
+def train_timing_inputs(torch, ba, shape):
+    """(q, k, v, valid, dout, out, lse, seed, kw) at ``shape``
+    (TRAIN_TIMING_SHAPES): seeded inputs on the card, the forward's out and
+    lse, and the kernels' keyword arguments at the path's rate."""
     bh, s, d, (start, end), lengths, rate = TRAIN_TIMING_SHAPES[shape]
     scale, seed = 1.0 / math.sqrt(256.0), 99
     g = torch.Generator().manual_seed(5)
@@ -417,27 +525,60 @@ def time_trainable_attention(torch, ba, shape):
     dout = torch.randn((bh, s, d), generator=g).cuda()
     kw = dict(start=start, end=end, scale=scale, dropout_rate=rate)
     out, lse = ba.banded_attention_fwd(q, k, v, valid, seed, **kw)
-    delta = (dout * out).sum(-1)
-    bwd_args = (q, k, v, valid, dout, lse, delta, seed)
+    return q, k, v, valid, dout, out, lse, seed, kw
+
+
+def time_trainable_attention(torch, ba, shape):
+    """K2a, K2b and K2c, their plain versions and the library call at
+    ``shape`` (TRAIN_TIMING_SHAPES); and the backward as the model runs it,
+    K2b (with delta) then K2c, at dropout 0 (like for like with SDPA's
+    backward, which computes the same dq, dk and dv) and at the path's
+    rate.  SDPA (forward; backward for dq and dk/dv together) runs at
+    dropout 0 with the same boolean band mask."""
+    import torch.nn.functional as F
+
+    bh, s, d, (start, end), _, rate = TRAIN_TIMING_SHAPES[shape]
+    q, k, v, valid, dout, out, lse, seed, kw = train_timing_inputs(
+        torch, ba, shape)
+    scale = kw["scale"]
+    dq_args = (q, k, v, valid, dout, out, lse, seed)
+    _, delta = ba.banded_attention_dq(*dq_args, **kw)
+    dkv_args = (q, k, v, valid, dout, lse, delta, seed)
 
     allowed = _allowed(torch, s, start, end, valid)
     pairs = int(allowed.sum())
     vec = 4 * bh * s * d  # bytes of one [BH, S, 64] float32 tensor
     row = 4 * bh * s  # bytes of one [BH, S] int32/float32 tensor
     bounds = {  # (bytes: inputs once, outputs once; flops per in-band pair)
-        "fwd": _bound(4 * vec + 2 * row, pairs * 4 * d),
-        "dq": _bound(5 * vec + 3 * row, pairs * 6 * d),
-        "dkv": _bound(6 * vec + 3 * row, pairs * 8 * d),
+        "fwd": _bound(4 * vec + 2 * row, pairs * 4 * d, tensor_cores=True),
+        "dq": _bound(6 * vec + 3 * row, pairs * 6 * d + 2 * bh * s * d,
+                     tensor_cores=True),
+        "dkv": _bound(6 * vec + 3 * row, pairs * 8 * d, tensor_cores=True),
+        # the pair's function: q, k, v, dout, out, lse, key_valid in; dq,
+        # dk, dv out; five products per pair (S, dP, dV, dK, dQ) and delta.
+        # K2b's recomputation of S and dP is a cost of the two-kernel design
+        "backward": _bound(8 * vec + 2 * row, pairs * 10 * d + 2 * bh * s * d,
+                           tensor_cores=True),
     }
+    timed = dict(iters=20, warmup=3)
     kernel_ms = {
         "fwd": time_ms(torch, lambda: ba.banded_attention_fwd(
-            q, k, v, valid, seed, **kw), iters=20, warmup=3),
-        "dq": time_ms(torch, lambda: ba.banded_attention_dq(*bwd_args, **kw),
-                      iters=20, warmup=3),
-        "dkv": time_ms(torch, lambda: ba.banded_attention_dkv(*bwd_args,
+            q, k, v, valid, seed, **kw), **timed),
+        "dq": time_ms(torch, lambda: ba.banded_attention_dq(*dq_args, **kw),
+                      **timed),
+        "dkv": time_ms(torch, lambda: ba.banded_attention_dkv(*dkv_args,
                                                               **kw),
-                       iters=20, warmup=3),
+                       **timed),
     }
+
+    def backward_pair(rate):
+        band = dict(kw, dropout_rate=rate)
+        _, dl = ba.banded_attention_dq(*dq_args, **band)
+        ba.banded_attention_dkv(q, k, v, valid, dout, lse, dl, seed, **band)
+
+    # the forward's lse at rate 0 is the same: the normaliser is undropped
+    pair_ms = {r: time_ms(torch, lambda: backward_pair(r), **timed)
+               for r in (0.0, rate)}
     band = (start, end, scale, rate)
     plain = dict(iters=3, warmup=1)
     with torch.no_grad():
@@ -445,36 +586,130 @@ def time_trainable_attention(torch, ba, shape):
             "fwd": time_ms(torch, lambda: ba.banded_attention_trainable_reference(
                 q, k, v, valid, seed, *band), **plain),
             "dq": time_ms(torch, lambda: ba.banded_attention_dq_reference(
-                *bwd_args, *band), **plain),
+                *dq_args, *band), **plain),
             "dkv": time_ms(torch, lambda: ba.banded_attention_dkv_reference(
-                *bwd_args, *band), **plain),
+                *dkv_args, *band), **plain),
         }
     sdpa_fwd_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=allowed, scale=scale), iters=20, warmup=3)
+        q, k, v, attn_mask=allowed, scale=scale), **timed)
     qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
     sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=allowed,
                                               scale=scale)
     sdpa_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
-        sdpa_out, (qg, kg, vg), dout, retain_graph=True), iters=20, warmup=3)
+        sdpa_out, (qg, kg, vg), dout, retain_graph=True), **timed)
     del sdpa_out, qg, kg, vg
     library_ms = {"fwd": sdpa_fwd_ms, "dq": sdpa_bwd_ms, "dkv": sdpa_bwd_ms}
 
     # forward + backward as the model runs it: the autograd function (K2a,
-    # delta, K2b, K2c)
+    # K2b with delta, K2c)
     qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
     path_ms = time_ms(torch, lambda: torch.autograd.grad(
         ba.banded_attention_trainable(qg, kg, vg, valid, seed, **kw),
-        (qg, kg, vg), dout), iters=20, warmup=3)
+        (qg, kg, vg), dout), **timed)
     print(f"trainable attention timing ({shape}): BH={bh} S={s} d={d} "
           f"band=({start},{end}) rate={rate} in-band pairs={pairs} "
           f"kernel_ms={kernel_ms} plain_ms={plain_ms} "
           f"sdpa_fwd_ms={sdpa_fwd_ms:.6f} sdpa_bwd_ms={sdpa_bwd_ms:.6f} "
+          f"backward K2b+K2c: rate 0 {pair_ms[0.0]:.6f} ms, rate {rate} "
+          f"{pair_ms[rate]:.6f} ms (bound {bounds['backward'][0]:.6f}) "
+          f"against sdpa_bwd {sdpa_bwd_ms:.6f} ms; "
           f"fwd+bwd: kernels_ms={path_ms:.6f} "
           f"sdpa_ms={sdpa_fwd_ms + sdpa_bwd_ms:.6f} bounds={bounds}")
-    return {name: {"ms": kernel_ms[name], "plain_ms": plain_ms[name],
+    rows = {name: {"ms": kernel_ms[name], "plain_ms": plain_ms[name],
                    "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
                    "library_ms": library_ms[name]}
             for name in kernel_ms}
+    for name in ("dq", "dkv"):  # the pair against the one library call
+        rows[name].update(backward_pair_ms=pair_ms[0.0],
+                          backward_pair_ms_at_rate=pair_ms[rate],
+                          backward_pair_bound_ms=bounds["backward"][0])
+    return rows
+
+
+def start_k2_builds(sources):
+    """Start one nvcc per version of banded_attention_train.cu in
+    ``sources``, with the port's flags, into build/chip_smoke/k2_sources/;
+    returns {source: (process, library path)}."""
+    from pytorch_kaldi_asr_tpu_torch.ops import _build
+
+    out_dir = WORK / "k2_sources"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for i, src in enumerate(sources):
+        lib = out_dir / f"{i}-{src.stem}.so"
+        procs[src] = (subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+    return procs
+
+
+def finish_k2_builds(procs):
+    """{source: ctypes library} of start_k2_builds' processes; prints
+    ptxas's registers and spills for each dq_kernel and dkv_kernel."""
+    import ctypes
+    import re
+
+    libs = {}
+    for src, (proc, lib) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src}:\n{log}")
+        entry = None
+        for line in log.splitlines():
+            found = re.search(r"(dq_kernel|dkv_kernel)ILi(\d+)E", line)
+            if "Compiling entry function" in line:
+                entry = f"{found[1]}<{found[2]}>" if found else None
+            elif entry and ("Used" in line or "spill" in line):
+                print(f"  {src.name} {entry}: "
+                      f"{line.split('ptxas info', 1)[-1].strip(' :')}")
+        libs[src] = ctypes.CDLL(str(lib))
+    return libs
+
+
+def compare_k2_sources(torch, ba, libs, rounds=3):
+    """K2b (dq with delta) and K2c (dk/dv) of each build in ``libs``
+    ({source: ctypes library}) at each TRAIN_TIMING_SHAPES shape, on the
+    same inputs at the path's rate: CUDA-event times in ``rounds`` rounds
+    that take the builds in turns, and each build's largest difference from
+    the first build's dq, delta, dk and dv."""
+    fns = {src: {w: ba.train_entry(lib, w) for w in ("dq", "dkv")}
+           for src, lib in libs.items()}
+    results = {}
+    for shape in TRAIN_TIMING_SHAPES:
+        q, k, v, valid, dout, out, lse, seed, kw = train_timing_inputs(
+            torch, ba, shape)
+        bh, s, d = q.shape
+        scalars = (bh, s, d, v.shape[-1], kw["start"], kw["end"], kw["scale"],
+                   *ba._dropout_args(seed, kw["dropout_rate"]))
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+        delta = torch.empty_like(lse)
+        tensors = {"dq": (q, k, v, dout, out, lse, valid, dq, delta),
+                   "dkv": (q, k, v, dout, lse, delta, valid, dk, dv)}
+
+        def launch(src, which):
+            ptrs = [t.data_ptr() for t in tensors[which]]
+            return lambda: ba._run(f"{src.name} {which}", fns[src][which],
+                                   q.device, *ptrs, *scalars)
+
+        first, diff = None, {}
+        for src in libs:
+            launch(src, "dq")()
+            launch(src, "dkv")()
+            got = [x.clone() for x in (dq, delta, dk, dv)]
+            first = got if first is None else first
+            diff[src] = max(float((a - b).abs().max())
+                            for a, b in zip(got, first))
+        times = {src: {"dq": [], "dkv": []} for src in libs}
+        for _ in range(rounds):
+            for src in libs:
+                for which in ("dq", "dkv"):
+                    times[src][which].append(time_ms(
+                        torch, launch(src, which), iters=20, warmup=3))
+        results[shape] = {str(src): {"dq_ms": times[src]["dq"],
+                                     "dkv_ms": times[src]["dkv"],
+                                     "max_diff_from_first": diff[src]}
+                          for src in libs}
+    return results
 
 
 # ---------------------------------------------------------------------------
@@ -1043,17 +1278,8 @@ def profile_steps(torch, step, n=3, by_name=False):
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device rows that are kernels, copies and fills, not the GPU ranges of
-    # user annotations such as "Optimizer.step#Adam.step", which span the
-    # kernels inside them and carry the name of a host row.  (A kernel's
-    # name may hold "#" too: "{lambda()#1}" in every TensorIterator kernel
-    # built from a lambda, such as where, compare and the random draws.)
     events = prof.key_averages()
-    host_names = {e.key for e in events if e.device_type == DeviceType.CPU}
-    device = [e for e in events if e.device_type == DeviceType.CUDA]
-    kernels = [e for e in device
-               if not getattr(e, "is_user_annotation", False)
-               and e.key not in host_names]
+    device, kernels = _kernel_rows(events)
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.device_time_total)[:12]
     ours = {k: [sum(e.device_time_total for e in kernels if pat in e.key)
@@ -1084,15 +1310,18 @@ def profile_steps(torch, step, n=3, by_name=False):
     return out
 
 
-def train_step_only(torch):
-    """The TIMIT recipe's train step alone, for ``--train-step``: its model
-    at the recipe's widths from seed 0, the first batch of run_train's
-    300-utterance train set, five timings of 20 steps and a profile.  Uses
-    only entry points that every slice of the port has, so it times the
-    port of whichever checkout is first on ``sys.path``.  Where the model's
-    dropout runs K3, also three rounds of three timings each of the step
-    with the dropout drawn by ``former_draw`` and by K3, alternated in this
-    process, and a profile of the former."""
+def train_step_only(torch, corpus=TIMIT):
+    """The train step of ``corpus``'s recipe alone, for ``--train-step``:
+    its model at the recipe's widths from seed 0, the first batch of
+    run_train's train set (TIMIT: 300 utterances at batch 100; LibriSpeech:
+    128 utterances packed by ``generate_archive`` and read back as
+    ``train -train_archive_dir`` reads them, batch 32 at S 1600), five
+    timings of 20 steps and a profile.  Uses only entry points that every
+    slice of the port with that recipe has, so it times the port of
+    whichever checkout is first on ``sys.path``.  For TIMIT, where the
+    model's dropout runs K3, also three rounds of three timings each of the
+    step with the dropout drawn by ``former_draw`` and by K3, alternated in
+    this process, and a profile of the former."""
     from pytorch_kaldi_asr_tpu_torch.data import read_vocab
     from pytorch_kaldi_asr_tpu_torch.data.loader import make_batch_loader, to_device
     from pytorch_kaldi_asr_tpu_torch.io import kaldi_io
@@ -1104,21 +1333,35 @@ def train_step_only(torch):
         train_step,
     )
 
-    work = WORK / "train_step"
+    spec = corpus["train"]
+    work = WORK / "train_step" / corpus["name"]
     if work.exists():
         shutil.rmtree(work)
     data = work / "train"
-    write_data_dir(data, kaldi_io, torch, TIMIT,
-                   TIMIT["train"]["utts"]["train"], seed=1)
+    write_data_dir(data, kaldi_io, torch, corpus, spec["utts"]["train"],
+                   seed=1)
     initialize_model.main([
         "-read_feats_scp_file", str(data / "feats.scp"),
         "-lda_mat_file", "identity", "-read_vocab_file",
         str(data / "vocab.txt"), "-seed", str(SEED), "-save_model_file",
-        str(work / "model.init"), *TIMIT["model"]])
+        str(work / "model.init"), *corpus["model"]])
     ckpt = load_checkpoint(str(work / "model.init"))
-    first = next(iter(make_batch_loader(
-        str(data), read_vocab(str(data / "vocab.txt")),
-        TIMIT["train"]["batch"], mode="drop")))
+    if spec["size_archive"]:
+        from pytorch_kaldi_asr_tpu_torch.data.archive import ArchiveBatchLoader
+        from pytorch_kaldi_asr_tpu_torch.recipes import generate_archive
+
+        generate_archive.main([
+            "-read_data_dir", str(data), "-read_vocab_file",
+            str(data / "vocab.txt"), "-save_archive_dir",
+            str(work / "archives"), "-size_archive",
+            str(spec["size_archive"])])
+        loader = ArchiveBatchLoader(str(work / "archives"), spec["batch"],
+                                    mode="drop")
+    else:
+        loader = make_batch_loader(str(data),
+                                   read_vocab(str(data / "vocab.txt")),
+                                   spec["batch"], mode="drop")
+    first = next(iter(loader))
     state = create_train_state(tree_map(
         lambda t: t.detach().to("cuda", copy=True), ckpt["params"]))
     b = to_device(first, "cuda")
@@ -1132,7 +1375,8 @@ def train_step_only(torch):
            "real_frames": int(first.src_mask.sum())}
     from pytorch_kaldi_asr_tpu_torch.models import common
 
-    if not hasattr(common, "masked_dropout"):  # a checkout before K3
+    if corpus is not TIMIT or not hasattr(common, "masked_dropout"):
+        # the conformer, or a checkout before K3
         out["profile"] = profile_steps(torch, step, by_name=True)
         return out
     # every timing before the first profile: a profiled process launches
@@ -1187,7 +1431,19 @@ def main():
               file=sys.stderr)
         return 2
     step_only = sys.argv[1:2] == ["--train-step"]
+    sources = ([Path(p).resolve() for p in sys.argv[2:]]
+               if sys.argv[1:2] == ["--k2-sources"] else None)
+    if sources == []:
+        print("chip_smoke: --k2-sources takes one or more .cu files",
+              file=sys.stderr)
+        return 2
     tree = Path(sys.argv[2]).resolve() if step_only else REPO
+    corpus = {"timit": TIMIT, "librispeech": LIBRISPEECH}.get(
+        sys.argv[3] if step_only and len(sys.argv) > 3 else "timit")
+    if corpus is None:
+        print(f"chip_smoke: --train-step takes timit or librispeech, got "
+              f"{sys.argv[3]}", file=sys.stderr)
+        return 2
     if not (tree / "pytorch_kaldi_asr_tpu_torch").is_dir():
         print(f"chip_smoke: {tree} is not a checkout of the repository",
               file=sys.stderr)
@@ -1202,17 +1458,26 @@ def main():
     disable_tf32()
 
     t0 = time.perf_counter()
-    logs = _build.build()
+    procs = start_k2_builds(sources) if sources else None
+    logs = _build.build(["banded_attention_train"] if sources else None)
     print(f"built {sorted(logs) or 'nothing (cached)'} in "
           f"{time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():
             if "ptxas" in line:
                 print(f"  {name}: {line.strip()}")
+    if sources:
+        from pytorch_kaldi_asr_tpu_torch.ops import banded_attention as ba
+
+        compared = compare_k2_sources(torch, ba, finish_k2_builds(procs))
+        for shape, row in compared.items():
+            print("K2_SOURCES " + json.dumps(
+                {"card": card, "shape": shape, "builds": row}))
+        return 0
     if step_only:
         print("TRAIN_STEP " + json.dumps(
-            {"tree": str(tree), "card": card,
-             **train_step_only(torch)}))
+            {"tree": str(tree), "card": card, "corpus": corpus["name"],
+             **train_step_only(torch, corpus)}))
         return 0
 
     from pytorch_kaldi_asr_tpu_torch.ops import banded_attention as ba
@@ -1220,6 +1485,7 @@ def main():
 
     err = check_banded_attention(torch, ba)
     train_errs = check_trainable_attention(torch, ba)
+    check_backward_launches(torch, ba)
     k3_err = check_fused_dropout(torch, fd)
     timing = {shape: time_banded_attention(torch, ba, shape)
               for shape in ("timit_decode", "conformer_decode")}

@@ -17,13 +17,14 @@ raises.  ``banded_attention.launches`` counts kernel launches.
 :func:`banded_attention_trainable` is the training path: the same function
 plus attention-probability dropout, differentiable through one
 ``torch.autograd.Function`` whose forward runs :func:`banded_attention_fwd`
-(K2a) and whose backward runs :func:`banded_attention_dq` (K2b) and
-:func:`banded_attention_dkv` (K2c), the kernels of
-``csrc/banded_attention_train.cu``.  Each of the three sends a CUDA tensor
-to its kernel and a CPU tensor to its plain version, and counts its kernel
-launches in ``.launches``.  The dropout mask is :func:`dropout_keep`, the
-JAX package's hash, bit for bit, so a run is reproducible across the two
-packages and the kernels regenerate the forward's mask in the backward.
+(K2a) and whose backward runs :func:`banded_attention_dq` (K2b, which
+also computes delta = rowsum(dout * out)) and :func:`banded_attention_dkv`
+(K2c), the kernels of ``csrc/banded_attention_train.cu``.  Each of the
+three sends a CUDA tensor to its kernel and a CPU tensor to its plain
+version, and counts its kernel launches in ``.launches``.  The dropout
+mask is :func:`dropout_keep`, the JAX package's hash, bit for bit, so a
+run is reproducible across the two packages and the kernels regenerate the
+forward's mask in the backward.
 """
 
 from __future__ import annotations
@@ -243,14 +244,16 @@ def _probs(q, k, key_valid, lse, start, end, scale):
     return torch.where(mask, torch.exp(logits - lse_safe), 0.0)
 
 
-def banded_attention_dq_reference(q, k, v, key_valid, dout, lse, delta, seed,
+def banded_attention_dq_reference(q, k, v, key_valid, dout, out, lse, seed,
                                   start, end, scale, dropout_rate=0.0):
-    """Plain version of K2b: dq = scale * (a * (drop(dout v^T) - delta)) k."""
+    """Plain version of K2b: (dq, delta) with delta = rowsum(dout * out) and
+    dq = scale * (a * (drop(dout v^T) - delta)) k."""
+    delta = (dout * out).sum(dim=-1)
     a = _probs(q, k, key_valid, lse, start, end, scale)
     keep = _keep_mask(seed, q.shape[0], q.shape[1], dropout_rate, q.device)
     dp = _drop(torch.einsum("bqd,bkd->bqk", dout, v), keep, dropout_rate)
     ds = a * (dp - delta[..., None])
-    return torch.einsum("bqk,bkd->bqd", ds, k) * scale
+    return torch.einsum("bqk,bkd->bqd", ds, k) * scale, delta
 
 
 def banded_attention_dkv_reference(q, k, v, key_valid, dout, lse, delta,
@@ -294,26 +297,28 @@ def banded_attention_fwd(q, k, v, key_valid, seed, *, start, end, scale,
     return out, lse
 
 
-def banded_attention_dq(q, k, v, key_valid, dout, lse, delta, seed, *, start,
+def banded_attention_dq(q, k, v, key_valid, dout, out, lse, seed, *, start,
                         end, scale, dropout_rate=0.0):
-    """K2b: dq of the trainable attention; S % BLOCK == 0.  A CUDA tensor
-    launches the kernel, a CPU tensor takes the plain version."""
+    """K2b: (dq, delta) of the trainable attention, delta = rowsum(dout *
+    out) [BH, S] for K2c; S % BLOCK == 0.  A CUDA tensor launches the kernel
+    (which computes delta too), a CPU tensor takes the plain version."""
     if not q.is_cuda:
-        return banded_attention_dq_reference(q, k, v, key_valid, dout, lse,
-                                             delta, seed, start, end, scale,
+        return banded_attention_dq_reference(q, k, v, key_valid, dout, out,
+                                             lse, seed, start, end, scale,
                                              dropout_rate)
-    (q, k, v, dout, lse, delta), (key_valid,) = _kernel_operands(
-        "banded_attention_dq", (q, k, v, dout, lse, delta), (key_valid,))
+    (q, k, v, dout, out, lse), (key_valid,) = _kernel_operands(
+        "banded_attention_dq", (q, k, v, dout, out, lse), (key_valid,))
     bh, s, d = q.shape
     dv = v.shape[-1]
     dq = torch.empty_like(q)
+    delta = torch.empty_like(lse)
     _run("banded_attention_dq", _train_kernel_fn("dq"), q.device,
          q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-         lse.data_ptr(), delta.data_ptr(), key_valid.data_ptr(), dq.data_ptr(),
-         bh, s, d, dv, int(start), int(end), float(scale),
+         out.data_ptr(), lse.data_ptr(), key_valid.data_ptr(), dq.data_ptr(),
+         delta.data_ptr(), bh, s, d, dv, int(start), int(end), float(scale),
          *_dropout_args(seed, dropout_rate))
     banded_attention_dq.launches += 1
-    return dq
+    return dq, delta
 
 
 def banded_attention_dkv(q, k, v, key_valid, dout, lse, delta, seed, *,
@@ -352,9 +357,14 @@ def _train_kernel_fn(which):
     (seed, threshold as uint32, keep probability, on) and the stream."""
     from pytorch_kaldi_asr_tpu_torch.ops import _build
 
-    n_ptr = {"fwd": 6, "dq": 8, "dkv": 9}[which]
-    fn = getattr(_build.load("banded_attention_train"),
-                 f"banded_attention_{which}_f32")
+    return train_entry(_build.load("banded_attention_train"), which)
+
+
+def train_entry(library, which):
+    """``banded_attention_{which}_f32`` of a ``ctypes.CDLL`` built from
+    csrc/banded_attention_train.cu (or a version of it), signature set."""
+    n_ptr = {"fwd": 6, "dq": 9, "dkv": 9}[which]
+    fn = getattr(library, f"banded_attention_{which}_f32")
     fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_uint32, ctypes.c_uint32,
                       ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
@@ -363,10 +373,10 @@ def _train_kernel_fn(which):
 
 
 class _BandedAttentionTrainable(torch.autograd.Function):
-    """K2a forward; K2b then K2c backward, with delta = rowsum(dout * out)
-    in plain torch (the JAX package also computes it outside its kernels).
-    S % BLOCK == 0; padded query rows get dout = 0 from the slice, so their
-    delta and their ds are exactly 0."""
+    """K2a forward; K2b then K2c backward.  K2b also computes delta =
+    rowsum(dout * out), which K2c reads, so on the card one backward is
+    exactly two launches.  S % BLOCK == 0; padded query rows get dout = 0
+    from the slice, so their delta and their ds are exactly 0."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_valid, seed, start, end, scale, rate):
@@ -381,10 +391,9 @@ class _BandedAttentionTrainable(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, key_valid, out, lse = ctx.saved_tensors
-        dout = dout.contiguous()
-        delta = (dout * out).sum(dim=-1)
-        dq = banded_attention_dq(q, k, v, key_valid, dout, lse, delta,
-                                 ctx.seed, **ctx.args)
+        dout = dout.contiguous()  # once for both kernels
+        dq, delta = banded_attention_dq(q, k, v, key_valid, dout, out, lse,
+                                        ctx.seed, **ctx.args)
         dk, dv = banded_attention_dkv(q, k, v, key_valid, dout, lse, delta,
                                       ctx.seed, **ctx.args)
         return dq, dk, dv, None, None, None, None, None, None
@@ -411,4 +420,5 @@ def banded_attention_trainable(q, k, v, key_valid, seed, *, start, end, scale,
     out = _BandedAttentionTrainable.apply(q, k, v, key_valid, int(seed),
                                           int(start), int(end), float(scale),
                                           float(dropout_rate))
-    return out[:, :s]
+    # no slice when nothing was padded: its backward would add two launches
+    return out if out.shape[1] == s else out[:, :s]

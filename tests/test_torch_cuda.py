@@ -37,11 +37,15 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-def _inputs(device, bh, s, d, dv, valid_len, seed=0):
+def _inputs(device, bh, s, d, dv, valid, seed=0):
+    """q, k, v from ``seed`` and the int32 key mask: ``valid`` is a [bh, s]
+    mask or the bh valid lengths."""
     g = torch.Generator().manual_seed(seed)
     q, k = (torch.randn((bh, s, d), generator=g) for _ in range(2))
     v = torch.randn((bh, s, dv), generator=g)
-    valid = (torch.arange(s)[None, :] < torch.as_tensor(valid_len)[:, None])
+    valid = torch.as_tensor(valid)
+    if valid.dim() == 1:
+        valid = torch.arange(s)[None, :] < valid[:, None]
     return [x.to(device) for x in (q, k, v, valid.to(torch.int32))]
 
 
@@ -88,20 +92,47 @@ def _grads_of(fn, q, k, v, dout):
     return out.detach(), q.grad, k.grad, v.grad
 
 
+TRAINABLE_SHAPES = [
+    (512, 64, 64, -100, 0, "lengths"),   # the training slice's kernel shape
+    (256, 32, 32, -64, 32, "lengths"),
+    (200, 16, 8, -10, 0, "lengths"),     # S not a multiple of the tile, dv != d
+    # the largest head dims (dynamic shared memory)
+    (64, 128, 128, -300, 0, "lengths"),
+    # the backward's tile skips: band edges on a tile boundary, the
+    # conformer's band over several tiles, whole invalid key tiles and dead
+    # query tiles (lengths s/2, 1 and 0), dv != d, d % 8 != 0
+    (256, 32, 32, -64, 64, "lengths"),
+    (256, 32, 32, -65, 0, "lengths"),
+    (640, 64, 64, -256, 256, "lengths"),
+    (512, 64, 64, -30, 30, "lengths"),
+    (256, 64, 32, -64, 32, "lengths"),
+    (256, 12, 12, -40, 8, "lengths"),
+    # a key mask that is no prefix: random holes, a whole invalid 64-key
+    # tile, a cut tail
+    (256, 16, 16, -40, 40, "holes"),
+]
+
+
+def _key_mask(s, keys):
+    """[4, s] key mask: lengths s, s/2, 1 and 0, or ``holes``."""
+    if keys == "lengths":
+        return torch.arange(s)[None, :] < torch.tensor([s, s // 2, 1, 0])[:, None]
+    valid = torch.rand((4, s), generator=torch.Generator().manual_seed(3)) > 0.3
+    valid[:, 64:128] = False
+    valid[1, 150:] = False
+    return valid
+
+
 @pytest.mark.parametrize("rate", [0.0, 0.35])
-@pytest.mark.parametrize("s,d,dv,start,end", [
-    (512, 64, 64, -100, 0),   # the training slice's kernel shape
-    (256, 32, 32, -64, 32),
-    (200, 16, 8, -10, 0),     # S not a multiple of the tile, dv != d
-    (64, 128, 128, -300, 0),  # the largest head dims (dynamic shared memory)
-])
+@pytest.mark.parametrize("s,d,dv,start,end,keys", TRAINABLE_SHAPES)
 def test_trainable_kernels_match_plain_version(cuda_device, rate, s, d, dv,
-                                               start, end):
-    """K2a (out, lse), K2b (dq) and K2c (dk, dv) against autograd of the
-    plain version, each launched exactly once per forward + backward; rows
-    with no valid key get exact-zero outputs and gradients."""
-    lengths = [s, s // 2, 1, 0]
-    q, k, v, valid = _inputs(cuda_device, 4, s, d, dv, lengths, seed=s + d)
+                                               start, end, keys):
+    """K2a (out, lse), K2b (dq, with delta) and K2c (dk, dv) against
+    autograd of the plain version, each launched exactly once per forward +
+    backward; rows with no valid key in band get exact-zero outputs and
+    gradients, invalid keys exact-zero gradients."""
+    q, k, v, valid = _inputs(cuda_device, 4, s, d, dv, _key_mask(s, keys),
+                             seed=s + d)
     dout = torch.randn(v.shape, generator=torch.Generator().manual_seed(1)
                        ).to(cuda_device)
     kw = dict(start=start, end=end, scale=0.125, dropout_rate=rate)
@@ -119,9 +150,13 @@ def test_trainable_kernels_match_plain_version(cuda_device, rate, s, d, dv,
         q, k, v, valid, 1234, start, end, 0.125, rate)[0], q, k, v, dout)
     for g, w, tol in zip(got, want, (ATOL, GRAD_ATOL, GRAD_ATOL, GRAD_ATOL)):
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), atol=tol)
-    empty = torch.arange(s, device=cuda_device)[None, :] + start >= \
-        torch.as_tensor(lengths, device=cuda_device)[:, None]
+    pos = torch.arange(s, device=cuda_device)
+    rel = pos[None, :] - pos[:, None]
+    allowed = ((rel >= start) & (rel <= end))[None] & (valid[:, None, :] > 0)
+    empty = ~allowed.any(-1)
+    assert empty.any()
     assert (got[0][empty] == 0).all() and (got[1][empty] == 0).all()
+    assert (got[2][valid == 0] == 0).all() and (got[3][valid == 0] == 0).all()
     # lse straight from K2a, padded to the tile as the wrapper does
     s_pad = -(-s // ba.BLOCK) * ba.BLOCK
     padded = ba._check_and_pad(q, k, v, valid, start, end)

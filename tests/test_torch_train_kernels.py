@@ -8,8 +8,12 @@ against the JAX package's, on the CPU.
   ``banded_attention_trainable_reference`` both match JAX
   ``banded_attention_trainable`` in interpret mode under ``jax.vjp``:
   out within 2e-5, dq/dk/dv within 1e-4, at dropout 0 and 0.35, three
-  bands, dv != d, padded tails and an empty row.
-- The plain versions of K2b and K2c equal autograd of the plain forward.
+  bands, dv != d, padded tails and an empty row; and at the shapes that
+  reach each tile skip of the CUDA backward (band edges on a tile
+  boundary, the conformer's band over several tiles, whole invalid key
+  tiles and dead query tiles, d 64 with dv 32, d 12).
+- The plain versions of K2b and K2c equal autograd of the plain forward,
+  and K2b's returns delta = rowsum(dout * out) beside dq.
 The CUDA kernels run only on a card (tests/test_torch_cuda.py)."""
 
 import jax
@@ -114,6 +118,39 @@ def test_trainable_matches_jax_kernels(rate, start, end):
         assert not np.any(x[2])
 
 
+# (bh, s, d, dv, lengths, start, end): each reaches a skip of the CUDA
+# backward's tiling (K2b, K2c) on the card; here the plain versions
+TILE_EDGE_CASES = {
+    "band (-64,64) on tile edges": (3, 256, 16, 16, [256, 200, 30], -64, 64),
+    "band (-65,0)": (3, 256, 16, 16, [256, 130, 64], -65, 0),
+    "band (-256,256) at S 640": (2, 640, 8, 8, [640, 200], -256, 256),
+    "invalid key tiles, dead query tiles": (3, 512, 8, 8, [512, 130, 0],
+                                            -30, 30),
+    "d 64, dv 32": (2, 256, 64, 32, [256, 180], -64, 32),
+    "d 12": (2, 256, 12, 12, [256, 90], -40, 8),
+}
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.35])
+@pytest.mark.parametrize("case", list(TILE_EDGE_CASES))
+def test_trainable_matches_jax_at_tile_edges(case, rate):
+    bh, s, d, dv, lengths, start, end = TILE_EDGE_CASES[case]
+    q, k, v, valid, dout = _inputs(bh, s, d, dv, lengths, seed=s + d + dv)
+    seed, scale = 31, 1.0 / np.sqrt(d)
+    want = _jax_vjp(q, k, v, valid, dout, seed, start, end, scale, rate)
+    tvalid = torch.from_numpy(valid)
+    got = _torch_vjp(lambda q, k, v: ba.banded_attention_trainable(
+        q, k, v, tvalid, seed, start=start, end=end, scale=scale,
+        dropout_rate=rate), q, k, v, dout)
+    _assert_close(got, want)
+    # rows with no valid key in band, and invalid keys: exact zeros
+    pos = np.arange(s)
+    empty = pos[None, :] + start >= np.asarray(lengths)[:, None]
+    assert empty.any()
+    assert not got[0][empty].any() and not got[1][empty].any()
+    assert not got[2][valid == 0].any() and not got[3][valid == 0].any()
+
+
 @pytest.mark.parametrize("s", [200, 37])
 def test_trainable_pads_any_length(s):
     """The JAX kernel needs S % 128 == 0; the port pads to its 64-frame
@@ -141,13 +178,33 @@ def test_backward_plain_versions_equal_autograd():
     # rows 80+ of the second sequence see no valid key: lse = -inf
     assert torch.isinf(lse[1, 80:]).all() and torch.isfinite(lse[1, :80]).all()
     tdout = torch.from_numpy(dout)
-    delta = (tdout * out).sum(-1)
-    dq = ba.banded_attention_dq(*args, tdout, lse, delta, 11, **kw)
+    dq, delta = ba.banded_attention_dq(*args, tdout, out, lse, 11, **kw)
     dk, dv = ba.banded_attention_dkv(*args, tdout, lse, delta, 11, **kw)
     want = _torch_vjp(lambda q, k, v: ba.banded_attention_trainable_reference(
         q, k, v, args[3], 11, *band)[0], q, k, v, dout)
     for g, w in zip((dq, dk, dv), want[1:]):
         np.testing.assert_allclose(g.numpy(), w, atol=1e-5)
+
+
+def test_plain_dq_returns_delta():
+    """K2b's plain version returns (dq, delta): delta is rowsum(dout * out)
+    (what K2c reads), and dq is still autograd's, at dropout 0 and 0.35."""
+    q, k, v, valid, dout = _inputs(2, 192, 12, 8, [192, 70], seed=4)
+    args = [torch.from_numpy(x) for x in (q, k, v, valid)]
+    tdout = torch.from_numpy(dout)
+    for rate in (0.0, 0.35):
+        band = (-65, 0, 0.4, rate)
+        out, lse = ba.banded_attention_trainable_reference(*args, 8, *band)
+        dq, delta = ba.banded_attention_dq_reference(*args, tdout, out, lse,
+                                                     8, *band)
+        assert delta.shape == lse.shape
+        assert torch.equal(delta, (tdout * out).sum(dim=-1))
+        # rows of the second sequence past 135 see no key: out and delta 0
+        assert not delta[1, 135:].any() and delta[1, :135].any()
+        want = _torch_vjp(
+            lambda q, k, v: ba.banded_attention_trainable_reference(
+                q, k, v, args[3], 8, *band)[0], q, k, v, dout)
+        np.testing.assert_allclose(dq.numpy(), want[1], atol=1e-5)
 
 
 def test_trainable_rejects_bad_arguments():
