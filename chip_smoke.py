@@ -9,13 +9,16 @@ CUDA card: ``python3 chip_smoke.py`` from the root of a checkout.
 3. Kernel phase: holds each kernel against its plain PyTorch version on the
    card at the paths' shapes and at edge cases, then times the kernel, the
    plain version and the PyTorch library call that computes the same
-   function, with CUDA events after warm-up.  K1 is the inference kernel;
-   K2a/K2b/K2c (forward with lse, dq with delta, dk/dv) are held against
-   autograd of the plain trainable version at dropout 0 and 0.35, at the
-   TIMIT shape, at the conformer's (S 1600, band (-256, 256)) and at cases
-   that reach each tile skip of the backward; one backward must be exactly
-   one K2b and one K2c launch and no other device work; the backward pair
-   is timed against SDPA's backward at dropout 0 and at the path's rate.
+   function, with CUDA events after warm-up.  K1 is the inference kernel,
+   held against its plain version at the paths' shapes and at cases that
+   reach each tile skip; K2a/K2b/K2c (forward with lse, dq with delta,
+   dk/dv) are held against autograd of the plain trainable version at
+   dropout 0 and 0.35, at the TIMIT shape, at the conformer's (S 1600, band
+   (-256, 256)) and at the same tile-skip cases; one trainable forward must
+   be exactly one K2a launch, one inference call one K1 launch, and one
+   backward exactly one K2b and one K2c launch, with no other device work;
+   the backward pair is timed against SDPA's backward at dropout 0 and at
+   the path's rate.
    Bounds take the faster float32 route: the CUDA cores, or for the
    attention products the TF32 tensor cores at three passes; K3 (fused dropout)
    forward and backward must match its plain version bit for bit (0 mask
@@ -62,11 +65,12 @@ one after another on one card to compare two commits.
 
 ``python3 chip_smoke.py --k2-sources A.cu [B.cu ...]`` compares versions
 of ``ops/csrc/banded_attention_train.cu`` (a parent's, or a copy with
-``#define`` lines on top) in one process: each is built with the port's
-nvcc flags (ptxas's registers and spills for ``dq_kernel`` and
-``dkv_kernel`` printed), and at both train timing shapes their K2b and K2c
-are timed in turns, three rounds, and held against the first source's
-outputs; one ``K2_SOURCES`` JSON line per shape.
+``#define`` lines on top; a parent's ``banded_attention.cu`` for its K1) in
+one process: each is built with the port's nvcc flags (ptxas's registers
+and spills for each kernel printed), and each kernel a build has is timed
+in turns with the other builds', three rounds, and held against the first
+build's outputs: K2a, K2b and K2c at both train timing shapes, K1 at both
+decode shapes; one ``K2_SOURCES`` JSON line per shape.
 
 Everything it writes goes under ``build/chip_smoke/`` in the checkout.
 """
@@ -246,8 +250,33 @@ ATTN_SHAPES = {
 }
 
 
+def _tile_cases(torch, scale):
+    """(bh, s, d, dv, lengths, start, end, scale, name) of the cases that
+    reach each skip of the kernels' tiling: band edges on a tile boundary,
+    whole invalid key tiles and dead query tiles, 8-key chunks wholly in
+    band beside partial ones, a key mask that is no prefix, dv != d, d a
+    multiple of 4 but not of 8, and the largest head dims."""
+    return [
+        (4, 256, 32, 32, [256, 200, 100, 30], -64, 64, scale,
+         "band (-64,64) on tile edges"),
+        (4, 256, 32, 32, [256, 200, 100, 30], -65, 0, scale, "band (-65,0)"),
+        (2, 640, 64, 64, [640, 500], -256, 256, scale,
+         "band (-256,256) S 640"),
+        (4, 512, 64, 64, [512, 200, 64, 0], -100, 0, scale,
+         "invalid key tiles, dead query tiles"),
+        (4, 512, 32, 32, [512, 130, 64, 0], -30, 30, scale,
+         "invalid key tiles, band (-30,30)"),
+        (2, 256, 16, 16, _holes(torch, 2, 256, 3), -40, 40, 0.25,
+         "key mask no prefix"),
+        (4, 256, 64, 32, [256, 180, 90, 0], -64, 32, scale, "d 64, dv 32"),
+        (4, 256, 12, 12, [256, 180, 90, 0], -40, 8, 0.3, "d 12"),
+        (2, 256, 128, 128, [256, 100], -100, 20, scale, "d 128"),
+    ]
+
+
 def check_banded_attention(torch, ba):
-    """Kernel vs plain version on the card; returns the max abs error."""
+    """Kernel vs plain version on the card, at the paths' shapes and at
+    the tile-skip cases; returns the max abs error."""
     scale = 1.0 / math.sqrt(256.0)
     # (bh, s, d, dv, lengths, start, end, scale, name)
     cases = []
@@ -264,6 +293,7 @@ def check_banded_attention(torch, ba):
         (2, 256, 16, 8, [216, 216], -100, 0, 0.125, "dv != d"),
         (3, 200, 64, 64, [200, 120, 0], -100, 0, scale, "S=200, empty row"),
         (4, 504, 64, 64, [504, 300, 150, 33], -100, 0, scale, "S=504"),
+        *_tile_cases(torch, scale),
     ]
     worst = 0.0
     for bh, s, d, dv, lengths, start, end, sc, name in cases:
@@ -277,8 +307,7 @@ def check_banded_attention(torch, ba):
             raise AssertionError(f"banded_attention {name}: bad output")
         err = float((got - want).abs().max())
         # rows with no valid key in band must be exact zeros
-        lens = torch.as_tensor(lengths, device=q.device)
-        empty = torch.arange(s, device=q.device)[None, :] + start >= lens[:, None]
+        empty = ~_allowed(torch, s, start, end, valid).any(-1)
         if bool((got[empty] != 0).any()):
             raise AssertionError(f"banded_attention {name}: masked rows not 0")
         print(f"banded_attention {name}: bh={bh} S={s} d={d} dv={dv} "
@@ -305,6 +334,25 @@ def time_ms(torch, fn, iters=100, warmup=10):
     return start.elapsed_time(end) / iters
 
 
+def kernel_device_ms(torch, fn, kernel, n=100):
+    """Mean device time of the kernel ``kernel`` (a PROFILE_NAMES key) over
+    ``n`` calls of ``fn``, from torch.profiler: its own duration, without
+    the gaps that the host's launch cost leaves between short kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in _kernel_rows(prof.key_averages())[1]
+            if PROFILE_NAMES[kernel] in e.key]
+    return (sum(e.device_time_total for e in rows)
+            / sum(e.count for e in rows) / 1e3)
+
+
 def _bound(n_bytes, flops, tensor_cores=False):
     """(bound_ms, bound_by) on the H100's published peaks: the bytes over
     the memory rate or the operations over the faster float32 route,
@@ -323,17 +371,24 @@ def _allowed(torch, s, start, end, valid):
     return ((rel >= start) & (rel <= end))[None] & (valid[:, None, :] > 0)
 
 
+def decode_timing_inputs(torch, ba, shape):
+    """(q, k, v, valid, start, end, scale) of one decode batch of ``shape``
+    (ATTN_SHAPES), S padded to the 64-frame tile as the wrapper pads it."""
+    bh, s, d, (start, end), corpus, n, heads = ATTN_SHAPES[shape]
+    s_pad = -(-s // ba.BLOCK) * ba.BLOCK
+    q, k, v, valid = _attention_inputs(
+        torch, bh, s_pad, d, d, _lengths(torch, corpus, n, heads, s, 1),
+        seed=7)
+    return q, k, v, valid, start, end, 1.0 / math.sqrt(256.0)
+
+
 def time_banded_attention(torch, ba, shape):
     """K1, its plain version and the library call at one decode batch of
     ``shape`` (ATTN_SHAPES), S padded by the wrapper to the 64-frame tile."""
     import torch.nn.functional as F
 
-    bh, s, d, (start, end), corpus, n, heads = ATTN_SHAPES[shape]
-    scale = 1.0 / math.sqrt(256.0)
-    s_pad = -(-s // ba.BLOCK) * ba.BLOCK
-    q, k, v, valid = _attention_inputs(
-        torch, bh, s_pad, d, d, _lengths(torch, corpus, n, heads, s, 1),
-        seed=7)
+    q, k, v, valid, start, end, scale = decode_timing_inputs(torch, ba, shape)
+    (bh, s_pad, d), s = q.shape, ATTN_SHAPES[shape][1]
     allowed = _allowed(torch, s_pad, start, end, valid)
     pairs = int(allowed.sum())
     n_bytes = 4 * (q.numel() + k.numel() + v.numel() + v.numel()
@@ -341,18 +396,23 @@ def time_banded_attention(torch, ba, shape):
     bound_ms, bound_by = _bound(n_bytes, pairs * (2 * d + 2 * d),
                                 tensor_cores=True)
     plain_iters = 100 if s_pad <= 512 else 10
-    kernel_ms = time_ms(torch, lambda: ba._launch(q, k, v, valid, start, end,
-                                                  scale))
+    def launch():
+        return ba._launch(q, k, v, valid, start, end, scale)
+
+    kernel_ms = time_ms(torch, launch)
+    device_ms = kernel_device_ms(torch, launch, "K1")
     plain_ms = time_ms(torch, lambda: ba.banded_attention_reference(
         q, k, v, valid, start, end, scale), iters=plain_iters, warmup=2)
     library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=allowed, scale=scale))
     print(f"banded_attention timing ({shape}): BH={bh} S={s} (kernel "
           f"S={s_pad}) d={d} band=({start},{end}) in-band pairs={pairs} "
-          f"bytes={n_bytes} kernel_ms={kernel_ms:.6f} plain_ms={plain_ms:.6f} "
+          f"bytes={n_bytes} kernel_ms={kernel_ms:.6f} "
+          f"kernel_device_ms={device_ms:.6f} plain_ms={plain_ms:.6f} "
           f"sdpa_ms={library_ms:.6f} bound_ms={bound_ms:.6f} ({bound_by})")
-    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+    return {"ms": kernel_ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
 
 
 def _grads(fn, q, k, v, dout):
@@ -366,11 +426,9 @@ def _grads(fn, q, k, v, dout):
 def check_trainable_attention(torch, ba):
     """K2a/K2b/K2c through the autograd function vs autograd of the plain
     trainable version on the card, at dropout 0 and 0.35, at the paths'
-    shapes and at the cases that reach each skip of the backward's tiling:
-    band edges on a tile boundary, whole invalid key tiles and dead query
-    tiles, a key mask that is no prefix, dv != d, d a multiple of 4 but not
-    of 8, and the largest head dims.  Returns the max abs error per kernel:
-    K2a out and lse, K2b dq, K2c dk and dv."""
+    shapes and at the cases that reach each skip of the kernels' tiling
+    (``_tile_cases``).  Returns the max abs error per kernel: K2a out and
+    lse, K2b dq, K2c dk and dv."""
     scale = 1.0 / math.sqrt(256.0)
     bh, s, d, (start, end), corpus, n, heads = ATTN_SHAPES["conformer_train"]
     cases = [
@@ -384,20 +442,7 @@ def check_trainable_attention(torch, ba):
         (2, 256, 16, 16, [128, 128], -10, 0, 0.1, "padded tail"),
         (2, 256, 16, 8, [216, 216], -100, 0, 0.125, "dv != d"),
         (3, 200, 64, 64, [200, 120, 0], -100, 0, scale, "S=200, empty row"),
-        (4, 256, 32, 32, [256, 200, 100, 30], -64, 64, scale,
-         "band (-64,64) on tile edges"),
-        (4, 256, 32, 32, [256, 200, 100, 30], -65, 0, scale, "band (-65,0)"),
-        (2, 640, 64, 64, [640, 500], -256, 256, scale,
-         "band (-256,256) S 640"),
-        (4, 512, 64, 64, [512, 200, 64, 0], -100, 0, scale,
-         "invalid key tiles, dead query tiles"),
-        (4, 512, 32, 32, [512, 130, 64, 0], -30, 30, scale,
-         "invalid key tiles, band (-30,30)"),
-        (2, 256, 16, 16, _holes(torch, 2, 256, 3), -40, 40, 0.25,
-         "key mask no prefix"),
-        (4, 256, 64, 32, [256, 180, 90, 0], -64, 32, scale, "d 64, dv 32"),
-        (4, 256, 12, 12, [256, 180, 90, 0], -40, 8, 0.3, "d 12"),
-        (2, 256, 128, 128, [256, 100], -100, 20, scale, "d 128"),
+        *_tile_cases(torch, scale),
     ]
     worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
     for rate in (0.0, DROPOUT):
@@ -473,30 +518,62 @@ def _kernel_rows(events):
                     and e.key not in host_names]
 
 
+def _one_launch_each(torch, what, fn, wrappers, names):
+    """Runs ``fn`` under torch.profiler: each of ``wrappers`` must count one
+    launch, and the card must run exactly the kernels ``names``
+    (PROFILE_NAMES keys), once each, and no other device work."""
+    before = [w.launches for w in wrappers]
+    kernels = device_kernels(torch, fn)
+    launched = tuple(w.launches - n for w, n in zip(wrappers, before))
+    ours = [sum(n for name, n in kernels.items() if PROFILE_NAMES[k] in name)
+            for k in names]
+    print(f"{what}: wrapper launches {launched}; device kernels {kernels}")
+    if launched != (1,) * len(wrappers) or ours != [1] * len(names) \
+            or sum(kernels.values()) != len(names):
+        raise AssertionError(f"{what} launched {kernels}, expected one "
+                             f"each of {names}")
+    return kernels
+
+
+def _launch_check_inputs(torch):
+    """q, k, v, key_valid at the conformer's S 1600 for the launch checks."""
+    return _attention_inputs(torch, 8, 1600, 64, 64, [1600, 1200] * 4,
+                             seed=12)
+
+
+BAND = dict(start=-256, end=256, scale=0.0625)  # the launch checks' band
+
+
+def check_forward_launches(torch, ba):
+    """One trainable forward on the card is exactly one K2a launch and one
+    inference call exactly one K1 launch, with no other device work;
+    counted by the wrappers and by torch.profiler at the conformer's
+    band."""
+    q, k, v, valid = _launch_check_inputs(torch)
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    _one_launch_each(
+        torch, "one trainable forward", lambda: ba.banded_attention_trainable(
+            qg, kg, vg, valid, 7, dropout_rate=0.1, **BAND),
+        (ba.banded_attention_fwd,), ("K2a",))
+    _one_launch_each(
+        torch, "one banded_attention call",
+        lambda: ba.banded_attention(q, k, v, valid, **BAND),
+        (ba.banded_attention,), ("K1",))
+
+
 def check_backward_launches(torch, ba):
     """One backward of the trainable attention on the card is exactly two
     kernels, K2b (with delta) then K2c, and no other device work; counted
     by the wrappers and by torch.profiler at the conformer's band."""
-    q, k, v, valid = _attention_inputs(torch, 8, 1600, 64, 64,
-                                       [1600, 1200] * 4, seed=12)
+    q, k, v, valid = _launch_check_inputs(torch)
     q, k, v = (x.requires_grad_() for x in (q, k, v))
     dout = torch.randn(v.shape, device="cuda")
-    out = ba.banded_attention_trainable(q, k, v, valid, 7, start=-256,
-                                        end=256, scale=0.0625,
-                                        dropout_rate=0.1)
-    wrappers = (ba.banded_attention_dq, ba.banded_attention_dkv)
-    before = [fn.launches for fn in wrappers]
-    kernels = device_kernels(torch, lambda: torch.autograd.grad(
-        out, (q, k, v), dout))
-    launched = tuple(fn.launches - n for fn, n in zip(wrappers, before))
-    ours = [any(PROFILE_NAMES[kn] in name for name in kernels)
-            for kn in ("K2b", "K2c")]
-    print(f"one backward of the trainable attention: wrapper launches "
-          f"(K2b, K2c) = {launched}; device kernels {kernels}")
-    if launched != (1, 1) or sum(kernels.values()) != 2 or not all(ours):
-        raise AssertionError(f"backward launched {kernels}, expected one "
-                             f"dq_kernel and one dkv_kernel")
-    return kernels
+    out = ba.banded_attention_trainable(q, k, v, valid, 7, dropout_rate=0.1,
+                                        **BAND)
+    _one_launch_each(
+        torch, "one backward of the trainable attention",
+        lambda: torch.autograd.grad(out, (q, k, v), dout),
+        (ba.banded_attention_dq, ba.banded_attention_dkv), ("K2b", "K2c"))
 
 
 # (bh, s, d, band, lengths, rate) of the K2 timings
@@ -645,7 +722,7 @@ def start_k2_builds(sources):
 
 def finish_k2_builds(procs):
     """{source: ctypes library} of start_k2_builds' processes; prints
-    ptxas's registers and spills for each dq_kernel and dkv_kernel."""
+    ptxas's registers and spills for each attention kernel."""
     import ctypes
     import re
 
@@ -656,7 +733,8 @@ def finish_k2_builds(procs):
             raise RuntimeError(f"nvcc failed for {src}:\n{log}")
         entry = None
         for line in log.splitlines():
-            found = re.search(r"(dq_kernel|dkv_kernel)ILi(\d+)E", line)
+            found = re.search(r"(banded_attention_kernel|fwd_kernel|dq_kernel"
+                              r"|dkv_kernel)ILi(\d+)E", line)
             if "Compiling entry function" in line:
                 entry = f"{found[1]}<{found[2]}>" if found else None
             elif entry and ("Used" in line or "spill" in line):
@@ -666,49 +744,76 @@ def finish_k2_builds(procs):
     return libs
 
 
+def _source_calls(torch, ba, shape):
+    """{kernel: (pointer arguments, scalar arguments, outputs)} of the
+    kernels --k2-sources times at ``shape``: K2a, K2b and K2c at a
+    TRAIN_TIMING_SHAPES shape (K2a into outputs of its own, so that K2b and
+    K2c read the same out and lse in every build), K1 at a decode shape."""
+    if shape not in TRAIN_TIMING_SHAPES:
+        q, k, v, valid, start, end, scale = decode_timing_inputs(torch, ba,
+                                                                 shape)
+        out = torch.empty_like(v)
+        return {"k1": ((q, k, v, valid, out),
+                       (*q.shape, v.shape[-1], start, end, scale), (out,))}
+    q, k, v, valid, dout, out, lse, seed, kw = train_timing_inputs(
+        torch, ba, shape)
+    scalars = (*q.shape, v.shape[-1], kw["start"], kw["end"], kw["scale"],
+               *ba._dropout_args(seed, kw["dropout_rate"]))
+    out_f, lse_f, dq, dk, dv = (torch.empty_like(x)
+                                for x in (out, lse, q, k, v))
+    delta = torch.empty_like(lse)
+    return {"fwd": ((q, k, v, valid, out_f, lse_f), scalars, (out_f, lse_f)),
+            "dq": ((q, k, v, dout, out, lse, valid, dq, delta), scalars,
+                   (dq, delta)),
+            "dkv": ((q, k, v, dout, lse, delta, valid, dk, dv), scalars,
+                    (dk, dv))}
+
+
 def compare_k2_sources(torch, ba, libs, rounds=3):
-    """K2b (dq with delta) and K2c (dk/dv) of each build in ``libs``
-    ({source: ctypes library}) at each TRAIN_TIMING_SHAPES shape, on the
-    same inputs at the path's rate: CUDA-event times in ``rounds`` rounds
+    """Each attention kernel of each build in ``libs`` ({source: ctypes
+    library}) that has its entry point, on the same inputs: K2a, K2b (dq
+    with delta) and K2c at each TRAIN_TIMING_SHAPES shape at the path's
+    rate, K1 at both decode shapes.  CUDA-event times in ``rounds`` rounds
     that take the builds in turns, and each build's largest difference from
-    the first build's dq, delta, dk and dv."""
-    fns = {src: {w: ba.train_entry(lib, w) for w in ("dq", "dkv")}
-           for src, lib in libs.items()}
+    the first build's outputs (0 where both are -inf)."""
+    fns = {src: {} for src in libs}
+    for src, lib in libs.items():
+        for which in ("k1", "fwd", "dq", "dkv"):
+            try:
+                fns[src][which] = ba.kernel_entry(lib, which)
+            except AttributeError:  # a source without this kernel
+                pass
     results = {}
-    for shape in TRAIN_TIMING_SHAPES:
-        q, k, v, valid, dout, out, lse, seed, kw = train_timing_inputs(
-            torch, ba, shape)
-        bh, s, d = q.shape
-        scalars = (bh, s, d, v.shape[-1], kw["start"], kw["end"], kw["scale"],
-                   *ba._dropout_args(seed, kw["dropout_rate"]))
-        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-        delta = torch.empty_like(lse)
-        tensors = {"dq": (q, k, v, dout, out, lse, valid, dq, delta),
-                   "dkv": (q, k, v, dout, lse, delta, valid, dk, dv)}
+    for shape in (*TRAIN_TIMING_SHAPES, "timit_decode", "conformer_decode"):
+        calls = _source_calls(torch, ba, shape)
 
         def launch(src, which):
-            ptrs = [t.data_ptr() for t in tensors[which]]
+            tensors, scalars, _ = calls[which]
+            ptrs = [t.data_ptr() for t in tensors]
             return lambda: ba._run(f"{src.name} {which}", fns[src][which],
-                                   q.device, *ptrs, *scalars)
+                                   tensors[0].device, *ptrs, *scalars)
 
-        first, diff = None, {}
+        first, diff = {}, {src: {} for src in libs}
         for src in libs:
-            launch(src, "dq")()
-            launch(src, "dkv")()
-            got = [x.clone() for x in (dq, delta, dk, dv)]
-            first = got if first is None else first
-            diff[src] = max(float((a - b).abs().max())
-                            for a, b in zip(got, first))
-        times = {src: {"dq": [], "dkv": []} for src in libs}
+            for which in calls:  # in order: K2c reads K2b's delta
+                if which not in fns[src]:
+                    continue
+                launch(src, which)()
+                got = [x.clone() for x in calls[which][2]]
+                first.setdefault(which, got)
+                diff[src][which] = max(
+                    float(torch.nan_to_num((a - b).abs(), nan=0.0).max())
+                    for a, b in zip(got, first[which]))
+        times = {src: {w: [] for w in calls if w in fns[src]} for src in libs}
         for _ in range(rounds):
             for src in libs:
-                for which in ("dq", "dkv"):
+                for which in times[src]:
                     times[src][which].append(time_ms(
                         torch, launch(src, which), iters=20, warmup=3))
-        results[shape] = {str(src): {"dq_ms": times[src]["dq"],
-                                     "dkv_ms": times[src]["dkv"],
-                                     "max_diff_from_first": diff[src]}
-                          for src in libs}
+        results[shape] = {
+            str(src): {**{f"{w}_ms": t for w, t in times[src].items()},
+                       "max_diff_from_first": diff[src]}
+            for src in libs}
     return results
 
 
@@ -1464,7 +1569,7 @@ def main():
           f"{time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "ptxas" in line:
+            if "ptxas" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
     if sources:
         from pytorch_kaldi_asr_tpu_torch.ops import banded_attention as ba
@@ -1485,6 +1590,7 @@ def main():
 
     err = check_banded_attention(torch, ba)
     train_errs = check_trainable_attention(torch, ba)
+    check_forward_launches(torch, ba)
     check_backward_launches(torch, ba)
     k3_err = check_fused_dropout(torch, fd)
     timing = {shape: time_banded_attention(torch, ba, shape)
@@ -1531,16 +1637,14 @@ def main():
 
     paths = [*decodes.values(), *trainings.values()]
     jax_file = "pytorch_kaldi_asr_tpu/ops/banded_attention.py"
+    source = "pytorch_kaldi_asr_tpu_torch/ops/csrc/banded_attention_train.cu"
     kernels = [dict(
-        name="banded_attention", route="cuda",
-        source="pytorch_kaldi_asr_tpu_torch/ops/csrc/banded_attention.cu",
-        replaces=f"{jax_file}:112", launches=total("banded_attention", paths),
+        name="banded_attention", route="cuda", source=source,
+        replaces=f"{jax_file}:140", launches=total("banded_attention", paths),
         max_abs_err=err, **timing["conformer_decode"])]
-    for name, line in (("fwd", 415), ("dq", 477), ("dkv", 505)):
+    for name, line in (("fwd", 431), ("dq", 477), ("dkv", 505)):
         kernels.append(dict(
-            name=f"banded_attention_{name}", route="cuda",
-            source="pytorch_kaldi_asr_tpu_torch/ops/csrc/"
-                   "banded_attention_train.cu",
+            name=f"banded_attention_{name}", route="cuda", source=source,
             replaces=f"{jax_file}:{line}",
             launches=total(f"banded_attention_{name}", paths),
             max_abs_err=train_errs[name],

@@ -9,8 +9,9 @@ key_valid ``[BH, S]``, out ``[BH, S, Dv]``.
 
 :func:`banded_attention` is the inference path.  It pads S up to the
 kernel's tile (padded keys invalid), then sends a CPU tensor to
-:func:`banded_attention_reference` and a CUDA tensor to the kernel in
-``csrc/banded_attention.cu``, and slices the padding off.  There is no
+:func:`banded_attention_reference` and a CUDA tensor to the kernel K1
+(``banded_attention_kernel`` in ``csrc/banded_attention_train.cu``, K2a's
+routine without lse and dropout), and slices the padding off.  There is no
 length threshold and no fall back: a CUDA tensor the kernel cannot take
 raises.  ``banded_attention.launches`` counts kernel launches.
 
@@ -69,7 +70,9 @@ def _check_and_pad(q, k, v, key_valid, start, end):
                          "must agree")
     s_pad = -(-s // BLOCK) * BLOCK
     q, k, v = (_pad_seq(x, s_pad) for x in (q, k, v))
-    key_valid = F.pad(key_valid.to(torch.int32), (0, s_pad - s))
+    key_valid = key_valid.to(torch.int32)
+    if s_pad > s:
+        key_valid = F.pad(key_valid, (0, s_pad - s))
     return q, k, v, key_valid
 
 
@@ -126,7 +129,7 @@ def _launch(q, k, v, key_valid, start, end, scale):
     bh, s, d = q.shape
     dv = v.shape[-1]
     out = torch.empty((bh, s, dv), dtype=q.dtype, device=q.device)
-    _run("banded_attention", _kernel_fn(), q.device, q.data_ptr(),
+    _run("banded_attention", _kernel_fn("k1"), q.device, q.data_ptr(),
          k.data_ptr(), v.data_ptr(), key_valid.data_ptr(), out.data_ptr(),
          bh, s, d, dv, int(start), int(end), float(scale))
     banded_attention.launches += 1
@@ -134,14 +137,31 @@ def _launch(q, k, v, key_valid, start, end, scale):
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_fn():
-    """The C entry point, built at first use, with its signature declared:
-    (q, k, v, key_valid, out, bh, s, d, dv, start, end, scale, stream)."""
+def _kernel_fn(which):
+    """:func:`kernel_entry` ``which`` of csrc/banded_attention_train.cu,
+    built at first use."""
     from pytorch_kaldi_asr_tpu_torch.ops import _build
 
-    fn = _build.load("banded_attention").banded_attention_f32
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_void_p])
+    return kernel_entry(_build.load("banded_attention_train"), which)
+
+
+def kernel_entry(library, which):
+    """The C entry point of K1 (``which`` "k1": ``banded_attention_f32``)
+    or of K2a/K2b/K2c ("fwd", "dq", "dkv": ``banded_attention_{which}_f32``)
+    of a ``ctypes.CDLL`` built from csrc/banded_attention_train.cu (or a
+    version of it), signature set: pointers, then (bh, s, d, dv, start, end)
+    ints, scale, then for K2 the dropout (seed, threshold as uint32, keep
+    probability, on), and the stream."""
+    if which == "k1":
+        fn = library.banded_attention_f32
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                       + [ctypes.c_float, ctypes.c_void_p])
+    else:
+        n_ptr = {"fwd": 6, "dq": 9, "dkv": 9}[which]
+        fn = getattr(library, f"banded_attention_{which}_f32")
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6
+                       + [ctypes.c_float, ctypes.c_uint32, ctypes.c_uint32,
+                          ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -289,7 +309,7 @@ def banded_attention_fwd(q, k, v, key_valid, seed, *, start, end, scale,
     dv = v.shape[-1]
     out = torch.empty((bh, s, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((bh, s), dtype=torch.float32, device=q.device)
-    _run("banded_attention_fwd", _train_kernel_fn("fwd"), q.device,
+    _run("banded_attention_fwd", _kernel_fn("fwd"), q.device,
          q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(),
          out.data_ptr(), lse.data_ptr(), bh, s, d, dv, int(start), int(end),
          float(scale), *_dropout_args(seed, dropout_rate))
@@ -312,7 +332,7 @@ def banded_attention_dq(q, k, v, key_valid, dout, out, lse, seed, *, start,
     dv = v.shape[-1]
     dq = torch.empty_like(q)
     delta = torch.empty_like(lse)
-    _run("banded_attention_dq", _train_kernel_fn("dq"), q.device,
+    _run("banded_attention_dq", _kernel_fn("dq"), q.device,
          q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
          out.data_ptr(), lse.data_ptr(), key_valid.data_ptr(), dq.data_ptr(),
          delta.data_ptr(), bh, s, d, dv, int(start), int(end), float(scale),
@@ -335,7 +355,7 @@ def banded_attention_dkv(q, k, v, key_valid, dout, lse, delta, seed, *,
     dv = v.shape[-1]
     dk = torch.empty_like(k)
     dv_out = torch.empty_like(v)
-    _run("banded_attention_dkv", _train_kernel_fn("dkv"), q.device,
+    _run("banded_attention_dkv", _kernel_fn("dkv"), q.device,
          q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
          lse.data_ptr(), delta.data_ptr(), key_valid.data_ptr(), dk.data_ptr(),
          dv_out.data_ptr(), bh, s, d, dv, int(start), int(end), float(scale),
@@ -347,29 +367,6 @@ def banded_attention_dkv(q, k, v, key_valid, dout, lse, delta, seed, *,
 banded_attention_fwd.launches = 0
 banded_attention_dq.launches = 0
 banded_attention_dkv.launches = 0
-
-
-@functools.lru_cache(maxsize=None)
-def _train_kernel_fn(which):
-    """The C entry point ``banded_attention_{which}_f32`` of
-    csrc/banded_attention_train.cu, built at first use, with its signature:
-    pointers, then (bh, s, d, dv, start, end) ints, scale, then the dropout
-    (seed, threshold as uint32, keep probability, on) and the stream."""
-    from pytorch_kaldi_asr_tpu_torch.ops import _build
-
-    return train_entry(_build.load("banded_attention_train"), which)
-
-
-def train_entry(library, which):
-    """``banded_attention_{which}_f32`` of a ``ctypes.CDLL`` built from
-    csrc/banded_attention_train.cu (or a version of it), signature set."""
-    n_ptr = {"fwd": 6, "dq": 9, "dkv": 9}[which]
-    fn = getattr(library, f"banded_attention_{which}_f32")
-    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_uint32, ctypes.c_uint32,
-                      ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
 
 
 class _BandedAttentionTrainable(torch.autograd.Function):

@@ -1,13 +1,14 @@
-// Trainable banded (time-restricted) attention, float32, for Hopper (sm_90a):
-// the forward with its log-sum-exp and attention-probability dropout, and the
-// two backward kernels.
+// Banded (time-restricted) attention, float32, for Hopper (sm_90a): the
+// inference forward, the trainable forward with its log-sum-exp and
+// attention-probability dropout, and the two backward kernels.
 //
-// Replaces the TPU kernels K2a, K2b and K2c of the JAX package:
+// Replaces the TPU kernels K1, K2a, K2b and K2c of the JAX package:
 //   pytorch_kaldi_asr_tpu/ops/banded_attention.py
+//     K1   banded_attention_pallas (Pallas kernel `_kernel`)
 //     K2a  _trainable_fwd  (Pallas kernel `_fwd_kernel`)
 //     K2b  _trainable_bwd, dq call    (Pallas kernel `_dq_kernel`)
 //     K2c  _trainable_bwd, dk/dv call (Pallas kernel `_dkv_kernel`)
-// used by the banded encoder's training step.
+// K1 serves the encoders' inference, K2 their training step.
 //
 // Semantics (per batch-head b, query t, key j in [t + start, t + end] with
 // key_valid[b, j] != 0):
@@ -15,7 +16,10 @@
 //   out = sum_j drop(p) v / l, lse = m + log(l), or -inf for a row with no key;
 //   drop(p) = keep(seed, b, t, j) ? p / (1 - rate) : 0,
 // where keep() is the JAX package's `_dropout_keep` hash on global positions,
-// so the three kernels regenerate one mask however they tile the work.
+// so the three K2 kernels regenerate one mask however they tile the work.  K1
+// is K2a's out at rate 0, without lse.  As in the Pallas kernels, m is a
+// running max over key tiles (m_safe = 0 while it is -inf, alpha = 0 from an
+// empty running state) and a row with l = 0 gets exact zeros.
 // Backward, with a = exp(scale * q.k - lse) and delta = rowsum(dout * out):
 //   dq = scale * sum_j a (drop(dout.v) - delta) k
 //   dk = scale * sum_t a (drop(dout.v) - delta) q,  dv = sum_t drop(a) dout.
@@ -26,46 +30,61 @@
 // of 64 (the wrapper pads with invalid keys); D and Dv are multiples of 4, at
 // most 128.
 //
-// K2a (simple and correct first), K1's layout: CTAs of 256 threads, four
-// consecutive threads per row, each holding a float4 share of the row's
-// vectors and reducing dot products with two shuffles; one CTA per (bh,
-// 64-query tile), looping over the 64-key tiles that overlap
-// [q0 + start, q0 + 63 + end], a tile's 64 scores in registers.
-//
-// K2b and K2c (the backward) run their tile products on the tensor cores at
-// float32 accuracy: mma.sync m16n8k8 in TF32 with the 3xTF32 split
-// (x = big + small, a.b ~ big.big + big.small + small.big).  A CTA of 4
-// warps owns a 64-row tile, 16 rows per warp (the mma's m): K2b a query
-// tile (q, dout; it also computes delta and writes it for K2c), K2c a key
+// All four kernels run their tile products on the tensor cores at float32
+// accuracy: mma.sync m16n8k8 in TF32 with the 3xTF32 split (x = big + small,
+// a.b ~ big.big + big.small + small.big).  A CTA of 4 warps owns a 64-row
+// tile, 16 rows per warp (the mma's m): K1, K2a and K2b a query tile (K2b's
+// rows q and dout; it also computes delta and writes it for K2c), K2c a key
 // tile (k, v; one CTA per key tile, so no atomics and deterministic dk/dv).
 // The owned rows wait in shared memory in the mma's fragment order; the
 // other side's 64-row tiles stream through a ring of one or two stages
-// filled with cp.async.  Each warp computes its scores S and dP = dout.v^T
-// 32 streamed rows at a time (K2c: their transposes, so every product keeps
-// the owned rows as the mma's rows), does the softmax, band, validity and
-// dropout work in the accumulator's layout (each (q, k) element on one
-// thread: one hash per element), and feeds dS (and K2c's drop(P)) straight
-// back as the A operand of the accumulating product: the k index of that
-// product is permuted so the accumulator layout is the operand layout, with
-// the other side's rows read to match.  Work the band and lengths make zero is
-// skipped: streamed tiles with no valid key (K2b) or no live query row
-// (K2c), 16 x 8 sub-tiles wholly out of band, warps and CTAs whose own rows
-// are all dead or invalid.  What hides latency (measured on the H100, see
-// PERF.md): the 3xTF32 split by integer ops rather than conversions, the
-// three products in passes over independent accumulators, and registers
-// capped for three CTAs per SM, whose loads and math overlap.  So the ring
-// takes two stages only where they cost no CTA per SM: at d = dv = 64 one
-// (two stages at two CTAs per SM were slower).  The ring's loop with one
-// stage also ran 7-13 % faster than the same arithmetic in a loop written
-// for one buffer alone (ptxas schedules the two differently).
+// filled with cp.async.  Each warp computes its scores 32 streamed rows at a
+// time (K2c: their transposes, so every product keeps the owned rows as the
+// mma's rows), does the softmax, band, validity and dropout work in the
+// accumulator's layout (each (q, k) element on one thread: one hash per
+// element), and feeds the result straight back as the A operand of the
+// accumulating product: the k index of that product is permuted so the
+// accumulator layout is the operand layout, with the other side's rows read
+// to match.  Work the band and lengths make zero is skipped: streamed tiles
+// with no valid key (K1, K2a, K2b) or no live query row (K2c), 16 x 8
+// sub-tiles wholly out of band (and the band test of those wholly in it),
+// warps and CTAs whose own rows are all dead or invalid (the backward).
 //
-// Bound on an H100 SXM at the conformer's train shape (BH 128, S 1600, d = dv
-// = 64, band (-256, 256), about 60e6 in-band pairs): K2b does 6 x 64, K2c
-// 8 x 64 float32 operations per in-band pair, 23 and 31 GFLOP; at 3 x that
-// on the TF32 tensor cores (495 TFLOP/s) 0.14 and 0.19 ms, under the 67
-// TFLOP/s CUDA-core route; their bytes (6-7 vectors of [128, 1600, 64]
-// float32, 0.3-0.4 GB) take 0.1 ms at 3.35 TB/s.  So both are bound by
-// their operations.
+// The forward (K1 and K2a: one routine, a template flag adds lse and dropout)
+// stages q scaled by scale * log2(e), so S = q k^T comes out in the exp2
+// domain; per pass of 32 keys each row's max is a 4-lane shuffle (lanes 4g to
+// 4g + 3 hold a row), the O accumulator ([d/8][4] registers) and l are
+// rescaled once, p = exp2(s - m), l sums the undropped p (each lane its share,
+// added up once at the end), and drop(p) is the A operand of P.V.  It does
+// two products per pair where K2b does three.  Each 8-wide step of S and each
+// 8-key chunk of P.V is summed from zero and added to S or O in float32
+// (mma_3xtf32's kFresh): chained on one accumulator, the tensor core's
+// rounding toward zero shrank every output by about 1e-6 of its size, a bias
+// that failed a train step against the CPU (PERF.md).  The backward's
+// accumulators still take long chains (a drift of -1.3e-6 to -2.1e-6 in
+// dq, dk and dv under cuda_emu.h's model of the rounding).
+//
+// What hides latency (measured on the H100, see PERF.md): the 3xTF32 split by
+// integer ops rather than conversions, the products in passes over
+// independent accumulators, and registers capped for three CTAs per SM, whose
+// loads and math overlap.  So the ring takes two stages only where they cost
+// no CTA per SM: at d = dv = 64 one (two stages at two CTAs per SM were
+// slower in the backward).  The ring's loop with one stage also ran 7-13 %
+// faster than the same arithmetic in a loop written for one buffer alone
+// (ptxas schedules the two differently).
+//
+// Bounds on an H100 SXM (3.35 TB/s; 495 TFLOP/s TF32 dense, at 3 passes for
+// float32 accuracy, faster than the 67 TFLOP/s CUDA-core route):
+//   conformer train shape (BH 128, S 1600, d = dv = 64, band (-256, 256),
+//   about 60e6 in-band pairs): K2a does 4 x 64, K2b 6 x 64, K2c 8 x 64
+//   operations per in-band pair, 15, 23 and 31 GFLOP: 0.093, 0.14 and 0.19
+//   ms; their bytes (4-7 vectors of [128, 1600, 64] float32, 0.2-0.4 GB) take
+//   0.06-0.1 ms, so all three are bound by their operations;
+//   TIMIT train shape (BH 200, S 512, band (-100, 0)): K2a 0.032 ms, bound
+//   by its bytes (q, k, v, out of [200, 512, 64], 0.1 GB);
+//   K1 at the conformer decode shape (BH 32, S 1600, 19e6 pairs): 0.030 ms by
+//   operations; at TIMIT's (BH 16, S 504, padded to 512): 0.0025 ms by bytes,
+//   one wave of 128 CTAs, so its launch and latency set its time.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -73,9 +92,7 @@
 
 namespace {
 
-constexpr int kBlock = 64;               // rows per CTA = rows per staged tile
-constexpr int kTpr = 4;                  // threads per row
-constexpr int kThreads = kBlock * kTpr;  // 256
+constexpr int kBlock = 64;  // rows per CTA = rows per staged tile
 constexpr int kMaxHeadDim = 128;
 
 struct Dropout {
@@ -87,8 +104,8 @@ struct Dropout {
 
 // The mixing steps of the JAX package's _dropout_keep on its linear part
 // x = qpos * 2654435761 + kpos * 2246822519 + bh * 3266489917 + seed
-// (uint32 wraps), which the backward kernels assemble from a term per own
-// row and a term per streamed row.
+// (uint32 wraps), which the kernels assemble from a term per own row and a
+// term per streamed row.
 __device__ __forceinline__ bool keep_mixed(uint32_t x, uint32_t thresh) {
   x ^= x >> 16;
   x *= 0x7FEB352Du;
@@ -98,145 +115,16 @@ __device__ __forceinline__ bool keep_mixed(uint32_t x, uint32_t thresh) {
   return x >= thresh;
 }
 
-// The JAX package's _dropout_keep: a lowbias32-style hash of (seed,
-// batch-head, global query position, global key position).
-__device__ __forceinline__ bool keep_bit(const Dropout& dr, uint32_t bh,
-                                         uint32_t qpos, uint32_t kpos) {
-  return keep_mixed(qpos * 2654435761u + kpos * 2246822519u + bh * 3266489917u + dr.seed,
-                    dr.thresh);
-}
-
-__device__ __forceinline__ float dot4(const float4 a, const float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ void axpy4(float4& acc, const float a, const float4 x) {
-  acc.x = fmaf(a, x.x, acc.x);
-  acc.y = fmaf(a, x.y, acc.y);
-  acc.z = fmaf(a, x.z, acc.z);
-  acc.w = fmaf(a, x.w, acc.w);
-}
-
-// sum over the four threads of a row (they are consecutive lanes)
-__device__ __forceinline__ float row_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 __device__ __forceinline__ float4 zero4() { return make_float4(0.f, 0.f, 0.f, 0.f); }
 
-__device__ __forceinline__ float4 scale4(const float4 x, const float s) {
-  return make_float4(x.x * s, x.y * s, x.z * s, x.w * s);
-}
-
 // ---------------------------------------------------------------------------
-// K2a: forward with lse and dropout
+// the tensor-core tile machinery of all four kernels (3xTF32 mma.sync)
 // ---------------------------------------------------------------------------
 
-// R = float4 groups of the head dimension each thread holds (d and dv).
-template <int R>
-__global__ void __launch_bounds__(kThreads)
-fwd_kernel(const float4* __restrict__ q, const float4* __restrict__ k,
-           const float4* __restrict__ v, const int* __restrict__ key_valid,
-           float4* __restrict__ out, float* __restrict__ lse, int s, int d4, int dv4,
-           int start, int end, float scale, Dropout dr) {
-  extern __shared__ float4 smem[];
-  float4* k_tile = smem;                // [kBlock][d4]
-  float4* v_tile = smem + kBlock * d4;  // [kBlock][dv4]
-  int* valid_tile = reinterpret_cast<int*>(v_tile + kBlock * dv4);
-
-  const int n_qtiles = s / kBlock;
-  const int bh = blockIdx.x / n_qtiles;
-  const int q0 = (blockIdx.x % n_qtiles) * kBlock;
-  const int row = threadIdx.x / kTpr;
-  const int sub = threadIdx.x % kTpr;
-  const int qpos = q0 + row;
-  const size_t base = static_cast<size_t>(bh) * s;
-
-  float4 qr[R];
-  float4 acc[R];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int g = sub + i * kTpr;
-    qr[i] = g < d4 ? q[(base + qpos) * d4 + g] : zero4();
-    acc[i] = zero4();
-  }
-  float m = -INFINITY;  // running max of the row's scores
-  float l = 0.f;        // running sum of the undropped probabilities
-
-  const int k_lo = max(0, q0 + start);
-  const int k_hi = min(s - 1, q0 + kBlock - 1 + end);
-  for (int t0 = (k_lo / kBlock) * kBlock; t0 <= k_hi; t0 += kBlock) {
-    __syncthreads();  // the previous tile is consumed
-    const float4* k_src = k + (base + t0) * d4;
-    for (int i = threadIdx.x; i < kBlock * d4; i += kThreads) k_tile[i] = k_src[i];
-    const float4* v_src = v + (base + t0) * dv4;
-    for (int i = threadIdx.x; i < kBlock * dv4; i += kThreads) v_tile[i] = v_src[i];
-    if (threadIdx.x < kBlock) valid_tile[threadIdx.x] = key_valid[base + t0 + threadIdx.x];
-    __syncthreads();
-
-    float sc[kBlock];
-    float tile_max = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kBlock; ++j) {
-      float part = 0.f;
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const int g = sub + i * kTpr;
-        if (g < d4) part = dot4(qr[i], k_tile[j * d4 + g], part);
-      }
-      part = row_sum(part);
-      const int rel = t0 + j - qpos;
-      const bool ok = rel >= start && rel <= end && valid_tile[j] != 0;
-      sc[j] = ok ? part * scale : -INFINITY;
-      tile_max = fmaxf(tile_max, sc[j]);
-    }
-
-    const float m_new = fmaxf(m, tile_max);
-    const float m_safe = m_new == -INFINITY ? 0.f : m_new;
-    const float alpha = m == -INFINITY ? 0.f : expf(m - m_safe);
-    l *= alpha;
-#pragma unroll
-    for (int i = 0; i < R; ++i) acc[i] = scale4(acc[i], alpha);
-#pragma unroll
-    for (int j = 0; j < kBlock; ++j) {
-      const float p = sc[j] == -INFINITY ? 0.f : expf(sc[j] - m_safe);
-      l += p;
-      float pa = p;
-      if (dr.on) pa = keep_bit(dr, bh, qpos, t0 + j) ? p / dr.keep_prob : 0.f;
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const int g = sub + i * kTpr;
-        if (g < dv4) axpy4(acc[i], pa, v_tile[j * dv4 + g]);
-      }
-    }
-    m = m_new;
-  }
-
-  const float denom = l == 0.f ? 1.f : l;
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int g = sub + i * kTpr;
-    if (g < dv4) {
-      const float4 a = acc[i];
-      out[(base + qpos) * dv4 + g] =
-          make_float4(a.x / denom, a.y / denom, a.z / denom, a.w / denom);
-    }
-  }
-  if (sub == 0) lse[base + qpos] = l > 0.f ? m + logf(l) : -INFINITY;
-}
-
-// ---------------------------------------------------------------------------
-// K2b and K2c: the backward on the tensor cores (3xTF32 mma.sync)
-// ---------------------------------------------------------------------------
-
-constexpr int kWarps = 4;                 // a CTA of 4 warps owns 64 rows
-constexpr int kBwdThreads = kWarps * 32;  // 128
-constexpr int kChunks = kBlock / 8;       // 8-wide n-chunks of a 64-row tile
-constexpr int kPass = 4;   // chunks per pass: a warp holds 16 x 32 of S and dP
+constexpr int kWarps = 4;              // a CTA of 4 warps owns 64 rows
+constexpr int kThreads = kWarps * 32;  // 128
+constexpr int kChunks = kBlock / 8;    // 8-wide n-chunks of a 64-row tile
+constexpr int kPass = 4;   // chunks per pass: a warp holds 16 x 32 of S (and dP)
 constexpr int kGroup = 4;  // split B operands in flight in mma_3xtf32
 
 // The 3xTF32 split of x: big = x rounded to tf32 (10 mantissa bits, half
@@ -281,8 +169,12 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], 
 // B_n's two registers are the floats b[n * step] and b[n * step + off],
 // split here.  The three products (small.big, big.small, big.big) go in
 // three passes over the n, so consecutive mmas are independent and the
-// tensor core's latency is hidden within the warp.
-template <int N0, int N, int M, class Live>
+// tensor core's latency is hidden within the warp.  kFresh: the products
+// are summed from zero and added to c by float32 adds.  (The tensor core
+// rounds each mma's sum toward zero, so an accumulator that takes a long
+// chain of mmas drifts toward zero: a bias of a few ulp that the forward's
+// long sums would carry into every output.)
+template <int N0, int N, bool kFresh, int M, class Live>
 __device__ __forceinline__ void mma_3xtf32_n(float (&c)[M][4], const Frag& a, const float* b,
                                              int step, int off, Live live) {
   uint32_t big[N][2], small[N][2];
@@ -295,27 +187,45 @@ __device__ __forceinline__ void mma_3xtf32_n(float (&c)[M][4], const Frag& a, co
     small[i][0] = tf32_small(x0, big[i][0]);
     small[i][1] = tf32_small(x1, big[i][1]);
   }
+  if constexpr (kFresh) {
+    float t[N][4] = {};
 #pragma unroll
-  for (int i = 0; i < N; ++i)
-    if (live(N0 + i)) mma_tf32(c[N0 + i], a.small, big[i][0], big[i][1]);
+    for (int i = 0; i < N; ++i)
+      if (live(N0 + i)) mma_tf32(t[i], a.small, big[i][0], big[i][1]);
 #pragma unroll
-  for (int i = 0; i < N; ++i)
-    if (live(N0 + i)) mma_tf32(c[N0 + i], a.big, small[i][0], small[i][1]);
+    for (int i = 0; i < N; ++i)
+      if (live(N0 + i)) mma_tf32(t[i], a.big, small[i][0], small[i][1]);
 #pragma unroll
-  for (int i = 0; i < N; ++i)
-    if (live(N0 + i)) mma_tf32(c[N0 + i], a.big, big[i][0], big[i][1]);
+    for (int i = 0; i < N; ++i)
+      if (live(N0 + i)) mma_tf32(t[i], a.big, big[i][0], big[i][1]);
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[N0 + i][e] += t[i][e];
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      if (live(N0 + i)) mma_tf32(c[N0 + i], a.small, big[i][0], big[i][1]);
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      if (live(N0 + i)) mma_tf32(c[N0 + i], a.big, small[i][0], small[i][1]);
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      if (live(N0 + i)) mma_tf32(c[N0 + i], a.big, big[i][0], big[i][1]);
+  }
 }
 
 // mma_3xtf32_n over all M accumulators, G at a time (fewer registers for
 // the split operands where M is large)
-template <int M, int G = (M < kGroup ? M : kGroup), int N0 = 0, class Live>
+template <int M, bool kFresh = false, int G = (M < kGroup ? M : kGroup), int N0 = 0, class Live>
 __device__ __forceinline__ void mma_3xtf32(float (&c)[M][4], const Frag& a, const float* b,
                                            int step, int off, Live live) {
-  mma_3xtf32_n<N0, G>(c, a, b, step, off, live);
-  if constexpr (N0 + G < M) mma_3xtf32<M, G, N0 + G>(c, a, b, step, off, live);
+  mma_3xtf32_n<N0, G, kFresh>(c, a, b, step, off, live);
+  if constexpr (N0 + G < M) mma_3xtf32<M, kFresh, G, N0 + G>(c, a, b, step, off, live);
 }
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -335,7 +245,7 @@ __device__ __forceinline__ void cp_async_wait() {
 // rows `ld` floats apart
 __device__ __forceinline__ void tile_async(float* dst, int ld, const float* src, int w) {
   const int w4 = w / 4;
-  for (int i = threadIdx.x; i < kBlock * w4; i += kBwdThreads) {
+  for (int i = threadIdx.x; i < kBlock * w4; i += kThreads) {
     const int r = i / w4, c = (i % w4) * 4;
     cp_async16(dst + r * ld + c, src + static_cast<size_t>(r) * w + c);
   }
@@ -351,8 +261,9 @@ __device__ __forceinline__ void row_async(void* dst, const void* src) {
 // The A fragments of the CTA's 64 rows of x ([64, w], rows packed), split
 // into 8-column steps: float4 (a0, a1, a2, a3) of (warp, step, lane) at
 // (warp * w8 + step) * 32 + lane, so each lane later reads its own with one
-// 16-byte load; columns from w up to 8 * w8 are zero.
-__device__ void stage_owned(float4* dst, const float* x, int w, int w8) {
+// 16-byte load; columns from w up to 8 * w8 are zero.  The values are
+// multiplied by `mul`.
+__device__ void stage_owned(float4* dst, const float* x, int w, int w8, float mul = 1.f) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const float* r0 = x + static_cast<size_t>(warp * 16 + g) * w;
@@ -360,35 +271,36 @@ __device__ void stage_owned(float4* dst, const float* x, int w, int w8) {
   for (int ks = 0; ks < w8; ++ks) {
     const int c0 = ks * 8 + t, c1 = c0 + 4;
     dst[(warp * w8 + ks) * 32 + lane] =
-        make_float4(c0 < w ? r0[c0] : 0.f, c0 < w ? r1[c0] : 0.f, c1 < w ? r0[c1] : 0.f,
-                    c1 < w ? r1[c1] : 0.f);
+        make_float4(c0 < w ? r0[c0] * mul : 0.f, c0 < w ? r1[c0] * mul : 0.f,
+                    c1 < w ? r0[c1] * mul : 0.f, c1 < w ? r1[c1] * mul : 0.f);
   }
 }
 
 // columns [w, wp) of a 64-row tile whose rows are `ld` apart
 __device__ void zero_columns(float* tile, int ld, int w, int wp) {
-  for (int i = threadIdx.x; i < kBlock * (wp - w); i += kBwdThreads)
+  for (int i = threadIdx.x; i < kBlock * (wp - w); i += kThreads)
     tile[(i / (wp - w)) * ld + w + i % (wp - w)] = 0.f;
 }
 
 // Zero-fill rows [row0, row0 + 64) of x ([.., w], w % 4 == 0).
 __device__ void zero_rows(float* x, size_t row0, int w) {
   float4* p = reinterpret_cast<float4*>(x + row0 * w);
-  for (int i = threadIdx.x; i < kBlock * w / 4; i += kBwdThreads) p[i] = zero4();
+  for (int i = threadIdx.x; i < kBlock * w / 4; i += kThreads) p[i] = zero4();
 }
 
-// Shared memory of K2b and K2c, in floats: the owned rows' fragments
-// (64 x 8 * w8 for each of the two owned operands), then `stages` ring
-// stages of two tiles (rows padded to 8 * w8 + 4 floats, which spreads a
-// fragment's reads over all 32 banks) and `extra_rows` 64-value rows, then
-// one int per candidate tile.  One stage is 68 KB at d = dv = 64, so three
-// CTAs share an SM.
-struct BwdSmem {
-  int d8, dv8, ldk, ldv, stage;
-  __host__ __device__ BwdSmem(int d, int dv, int extra_rows)
+// Shared memory of every kernel, in floats: the owned rows' fragments (64 x
+// 8 * d8, and 64 x 8 * dv8 more where a kernel owns a second operand: the
+// backward), then `stages` ring stages of two tiles (rows padded to 8 * w8 +
+// 4 floats, which spreads a fragment's reads over all 32 banks) and
+// `extra_rows` 64-value rows, then one int per candidate tile.  One stage is
+// 68 KB in the backward at d = dv = 64 (three CTAs share an SM), 51 KB in
+// the forward.
+struct RingSmem {
+  int d8, dv8, ldk, ldv, own8, stage;
+  __host__ __device__ RingSmem(int d, int dv, int extra_rows, bool own_dv)
       : d8((d + 7) / 8), dv8((dv + 7) / 8), ldk(d8 * 8 + 4), ldv(dv8 * 8 + 4),
-        stage(kBlock * (ldk + ldv + extra_rows)) {}
-  __host__ __device__ int owned() const { return kBlock * 8 * (d8 + dv8); }
+        own8(own_dv ? d8 + dv8 : d8), stage(kBlock * (ldk + ldv + extra_rows)) {}
+  __host__ __device__ int owned() const { return kBlock * 8 * own8; }
   __host__ __device__ size_t bytes(int stages, int n_tiles) const {
     return sizeof(float) * (static_cast<size_t>(owned()) + static_cast<size_t>(stages) * stage) +
            sizeof(int) * n_tiles;
@@ -415,13 +327,240 @@ __device__ __forceinline__ int next_live(const int* flags, int n, int i) {
 }
 
 // ---------------------------------------------------------------------------
+// K2a and K1: the forward
+// ---------------------------------------------------------------------------
+
+// One CTA per (bh, 64-query tile); MAXD8 bounds d8 and dv8.  kTrain (K2a)
+// adds the lse and the dropout; K1 leaves `lse` and `dr` unread.
+template <int MAXD8, bool kTrain>
+__device__ __forceinline__ void forward(const float* __restrict__ q, const float* __restrict__ k,
+                                        const float* __restrict__ v,
+                                        const int* __restrict__ key_valid,
+                                        float* __restrict__ out, float* __restrict__ lse, int s,
+                                        int d, int dv, int start, int end, float scale,
+                                        Dropout dr, int stages) {
+  extern __shared__ float4 smem[];
+  const RingSmem lay(d, dv, 1, false);
+  const int d8 = lay.d8, dv8 = lay.dv8, ldk = lay.ldk, ldv = lay.ldv;
+  float4* own_q = smem;
+  float* ring = reinterpret_cast<float*>(smem) + lay.owned();
+  int* flags = reinterpret_cast<int*>(ring + stages * lay.stage);
+
+  const int n_tiles = s / kBlock;
+  const int bh = blockIdx.x / n_tiles;
+  const int q0 = (blockIdx.x % n_tiles) * kBlock;
+  const size_t base = static_cast<size_t>(bh) * s;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int own0 = q0 + warp * 16;  // this warp's first query
+  const size_t row0 = base + own0 + g, row1 = row0 + 8;
+
+  // q scale log2(e): S = q k^T comes out in the exp2 domain
+  stage_owned(own_q, q + (base + q0) * d, d, d8, scale * kLog2e);
+  // the hash's batch-head part (its row and column parts are rebuilt per
+  // element: registers are what this loop is short of); dropout's 1 / (1 -
+  // rate)
+  const uint32_t bh_hash = static_cast<uint32_t>(bh) * 3266489917u + dr.seed;
+  const float inv_keep = 1.f / dr.keep_prob;
+
+  // the key tiles that overlap [q0 + start, q0 + 63 + end], flagged if they
+  // hold a valid key
+  const int kt_lo = max(0, q0 + start) / kBlock;
+  const int kt_hi = min(s - 1, q0 + kBlock - 1 + end) / kBlock;
+  const int n_cand = kt_hi - kt_lo + 1;
+  for (int i = threadIdx.x; i < n_cand; i += kThreads) flags[i] = 0;
+  for (int st = 0; st < stages; ++st) {
+    zero_columns(ring + st * lay.stage, ldk, d, 8 * d8);
+    zero_columns(ring + st * lay.stage + kBlock * ldk, ldv, dv, 8 * dv8);
+  }
+  __syncthreads();
+  for (int j = kt_lo * kBlock + threadIdx.x; j < (kt_hi + 1) * kBlock; j += kThreads)
+    if (key_valid[base + j] != 0) flags[j / kBlock - kt_lo] = 1;
+  __syncthreads();
+
+  auto load = [&](int i, int st) {
+    float* kt = ring + st * lay.stage;
+    const int t0 = (kt_lo + i) * kBlock;
+    tile_async(kt, ldk, k + (base + t0) * d, d);
+    tile_async(kt + kBlock * ldk, ldv, v + (base + t0) * dv, dv);
+    row_async(kt + kBlock * (ldk + ldv), key_valid + base + t0);
+  };
+
+  // O of rows g and g + 8 (elements h = 0, 1 and 2, 3 of each column step);
+  // the rows' running max (exp2 domain) and this lane's share of their l
+  float acc[MAXD8][4];
+#pragma unroll
+  for (int n = 0; n < MAXD8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  int cur = next_live(flags, n_cand, -1), st = 0;
+  if (cur >= 0) load(cur, 0);
+  cp_async_commit();
+  while (cur >= 0) {
+    const int nxt = next_live(flags, n_cand, cur);
+    if (stages == 2) {
+      if (nxt >= 0) load(nxt, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    const float* kt = ring + st * lay.stage;
+    const float* vt = kt + kBlock * ldk;
+    const int* valid = reinterpret_cast<const int*>(vt + kBlock * ldv);
+    const int t0 = (kt_lo + cur) * kBlock;
+#pragma unroll
+    for (int n0 = 0; n0 < kChunks; n0 += kPass) {
+      bool c_live[kPass], c_full[kPass], any_live = false;
+      float sc[kPass][4];
+#pragma unroll
+      for (int n = 0; n < kPass; ++n) {
+        chunk_band(true, own0, t0, start, end, n0 + n, c_live[n], c_full[n]);
+        any_live = any_live || c_live[n];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+      }
+      if (!any_live) continue;  // the same for the whole warp
+      const auto chunk_live = [&](int n) { return c_live[n]; };
+      // S = q k^T, 16 queries x 32 keys per warp
+#pragma unroll
+      for (int ks = 0; ks < MAXD8; ++ks) {
+        if (ks < d8) {
+          const float4 a = own_q[(warp * d8 + ks) * 32 + lane];
+          mma_3xtf32<kPass, true>(sc, split_frag(a.x, a.y, a.z, a.w),
+                                  kt + (8 * n0 + g) * ldk + 8 * ks + t, 8 * ldk, 4,
+                                  chunk_live);
+        }
+      }
+      // band and validity in the accumulator layout: element e of chunk n
+      // is (query own0 + g + 8 (e / 2), key t0 + 8 (n0 + n) + 2 t + e % 2);
+      // then each row's max over its four lanes
+      float pass_max[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int n = 0; n < kPass; ++n) {
+        if (!c_live[n]) continue;
+        const int c0 = 8 * (n0 + n) + 2 * t;
+        const int2 ok2 = *reinterpret_cast<const int2*>(valid + c0);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1, i = e & 1;
+          const int rel = t0 + c0 + i - (own0 + g + 8 * h);
+          const bool ok = (i ? ok2.y : ok2.x) != 0 &&
+                          (c_full[n] || (rel >= start && rel <= end));
+          sc[n][e] = ok ? sc[n][e] : -INFINITY;
+          pass_max[h] = fmaxf(pass_max[h], sc[n][e]);
+        }
+      }
+      // the online rescale, once per pass
+      float m_safe[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        pass_max[h] = fmaxf(pass_max[h], __shfl_xor_sync(0xffffffffu, pass_max[h], 1));
+        pass_max[h] = fmaxf(pass_max[h], __shfl_xor_sync(0xffffffffu, pass_max[h], 2));
+        const float m_new = fmaxf(m[h], pass_max[h]);
+        m_safe[h] = m_new == -INFINITY ? 0.f : m_new;
+        const float alpha = m[h] == -INFINITY ? 0.f : exp2f(m[h] - m_safe[h]);
+        m[h] = m_new;
+        l[h] *= alpha;
+#pragma unroll
+        for (int n = 0; n < MAXD8; ++n) {
+          acc[n][2 * h] *= alpha;
+          acc[n][2 * h + 1] *= alpha;
+        }
+      }
+      // p (0 where masked), l, and drop(p) in place of the scores
+#pragma unroll
+      for (int n = 0; n < kPass; ++n) {
+        if (!c_live[n]) continue;
+        const int c0 = t0 + 8 * (n0 + n) + 2 * t;
+        const uint32_t col[2] = {c0 * 2246822519u + bh_hash, (c0 + 1) * 2246822519u + bh_hash};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1, i = e & 1;
+          float p = exp2f(sc[n][e] - m_safe[h]);
+          l[h] += p;
+          if constexpr (kTrain)
+            if (dr.on)
+              p = keep_mixed((own0 + g + 8 * h) * 2654435761u + col[i], dr.thresh) ? p * inv_keep
+                                                                                  : 0.f;
+          sc[n][e] = p;
+        }
+      }
+      // O += drop(P) v, with K2b's permuted k index: drop(P)'s accumulator
+      // registers are its A registers, b0 and b1 read keys 2t and 2t + 1
+#pragma unroll
+      for (int j = 0; j < kPass; ++j) {
+        if (!c_live[j]) continue;
+        mma_3xtf32<MAXD8, true>(acc, split_frag(sc[j][0], sc[j][2], sc[j][1], sc[j][3]),
+                                vt + (8 * (n0 + j) + 2 * t) * ldv + g, 8, ldv,
+                                [&](int n) { return n < dv8; });
+      }
+    }
+    __syncthreads();  // the stage is consumed
+    if (stages == 1 && nxt >= 0) {
+      load(nxt, 0);
+      cp_async_commit();
+    }
+    cur = nxt;
+    if (stages == 2) st ^= 1;
+  }
+
+  // out = O / l (exact zeros where l = 0: O is 0 there), lse = m + log(l)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  const float denom[2] = {l[0] == 0.f ? 1.f : l[0], l[1] == 0.f ? 1.f : l[1]};
+#pragma unroll
+  for (int n = 0; n < MAXD8; ++n) {
+    const int c = 8 * n + 2 * t;
+    if (n < dv8 && c < dv) {
+      *reinterpret_cast<float2*>(out + row0 * dv + c) =
+          make_float2(acc[n][0] / denom[0], acc[n][1] / denom[0]);
+      *reinterpret_cast<float2*>(out + row1 * dv + c) =
+          make_float2(acc[n][2] / denom[1], acc[n][3] / denom[1]);
+    }
+  }
+  if constexpr (kTrain) {
+    if (t == 0) {
+      lse[row0] = l[0] > 0.f ? m[0] * kLn2 + logf(l[0]) : -INFINITY;
+      lse[row1] = l[1] > 0.f ? m[1] * kLn2 + logf(l[1]) : -INFINITY;
+    }
+  }
+}
+
+// K2a.  Registers are capped for 2 CTAs per SM up to d = 64: capped for 3
+// (170 registers), its dropout path spilled 4 bytes at d = 64.
+template <int MAXD8>
+__global__ void __launch_bounds__(kThreads, MAXD8 > 8 ? 1 : 2)
+fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, const int* __restrict__ key_valid,
+           float* __restrict__ out, float* __restrict__ lse, int s, int d, int dv, int start,
+           int end, float scale, Dropout dr, int stages) {
+  forward<MAXD8, true>(q, k, v, key_valid, out, lse, s, d, dv, start, end, scale, dr, stages);
+}
+
+// K1: the same signature, so one launch helper serves both.
+template <int MAXD8>
+__global__ void __launch_bounds__(kThreads, MAXD8 > 8 ? 1 : 3)
+banded_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const int* __restrict__ key_valid,
+                        float* __restrict__ out, float* __restrict__ lse, int s, int d, int dv,
+                        int start, int end, float scale, Dropout dr, int stages) {
+  forward<MAXD8, false>(q, k, v, key_valid, out, lse, s, d, dv, start, end, scale, dr, stages);
+}
+
+// ---------------------------------------------------------------------------
 // K2b: dq and delta
 // ---------------------------------------------------------------------------
 
 // One CTA per (bh, 64-query tile); MAXD8 bounds d8 and dv8 (8-column
 // steps).  Registers are capped for 3 CTAs per SM up to d = 64.
 template <int MAXD8>
-__global__ void __launch_bounds__(kBwdThreads, MAXD8 > 8 ? 1 : 3)
+__global__ void __launch_bounds__(kThreads, MAXD8 > 8 ? 1 : 3)
 dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, const float* __restrict__ dout,
           const float* __restrict__ out, const float* __restrict__ lse,
@@ -429,7 +568,7 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
           float* __restrict__ delta, int s, int d, int dv, int start, int end, float scale,
           Dropout dr, int stages) {
   extern __shared__ float4 smem[];
-  const BwdSmem lay(d, dv, 1);
+  const RingSmem lay(d, dv, 1, true);
   const int d8 = lay.d8, dv8 = lay.dv8, ldk = lay.ldk, ldv = lay.ldv;
   float4* own_q = smem;
   float4* own_do = own_q + kBlock * 2 * d8;  // 64 x 8 * d8 floats
@@ -494,13 +633,13 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int kt_lo = max(0, q0 + start) / kBlock;
   const int kt_hi = min(s - 1, q0 + kBlock - 1 + end) / kBlock;
   const int n_cand = kt_hi - kt_lo + 1;
-  for (int i = threadIdx.x; i < n_cand; i += kBwdThreads) flags[i] = 0;
+  for (int i = threadIdx.x; i < n_cand; i += kThreads) flags[i] = 0;
   for (int st = 0; st < stages; ++st) {
     zero_columns(ring + st * lay.stage, ldk, d, 8 * d8);
     zero_columns(ring + st * lay.stage + kBlock * ldk, ldv, dv, 8 * dv8);
   }
   __syncthreads();
-  for (int j = kt_lo * kBlock + threadIdx.x; j < (kt_hi + 1) * kBlock; j += kBwdThreads)
+  for (int j = kt_lo * kBlock + threadIdx.x; j < (kt_hi + 1) * kBlock; j += kThreads)
     if (key_valid[base + j] != 0) flags[j / kBlock - kt_lo] = 1;
   __syncthreads();
 
@@ -623,7 +762,7 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // One CTA per (bh, 64-key tile); as K2b, MAXD8 bounds d8 and dv8.
 template <int MAXD8>
-__global__ void __launch_bounds__(kBwdThreads, MAXD8 > 8 ? 1 : 3)
+__global__ void __launch_bounds__(kThreads, MAXD8 > 8 ? 1 : 3)
 dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, const float* __restrict__ dout,
            const float* __restrict__ lse, const float* __restrict__ delta,
@@ -631,7 +770,7 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
            float* __restrict__ dv_out, int s, int d, int dv, int start, int end,
            float scale, Dropout dr, int stages) {
   extern __shared__ float4 smem[];
-  const BwdSmem lay(d, dv, 2);
+  const RingSmem lay(d, dv, 2, true);
   const int d8 = lay.d8, dv8 = lay.dv8, ldk = lay.ldk, ldv = lay.ldv;
   float4* own_k = smem;
   float4* own_v = own_k + kBlock * 2 * d8;
@@ -669,13 +808,13 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int qt_lo = max(0, k0 - end) / kBlock;
   const int qt_hi = min(s - 1, k0 + kBlock - 1 - start) / kBlock;
   const int n_cand = qt_hi - qt_lo + 1;
-  for (int i = threadIdx.x; i < n_cand; i += kBwdThreads) flags[i] = 0;
+  for (int i = threadIdx.x; i < n_cand; i += kThreads) flags[i] = 0;
   for (int st = 0; st < stages; ++st) {
     zero_columns(ring + st * lay.stage, ldk, d, 8 * d8);
     zero_columns(ring + st * lay.stage + kBlock * ldk, ldv, dv, 8 * dv8);
   }
   __syncthreads();
-  for (int j = qt_lo * kBlock + threadIdx.x; j < (qt_hi + 1) * kBlock; j += kBwdThreads)
+  for (int j = qt_lo * kBlock + threadIdx.x; j < (qt_hi + 1) * kBlock; j += kThreads)
     if (lse[base + j] > -INFINITY) flags[j / kBlock - qt_lo] = 1;
   __syncthreads();
 
@@ -820,21 +959,9 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-size_t tile_smem(int d4, int dv4, size_t extra) {
-  return static_cast<size_t>(kBlock) * (d4 + dv4) * sizeof(float4) + extra;
-}
-
 bool bad_shape(int bh, int s, int d, int dv, int start, int end) {
   return bh <= 0 || s <= 0 || s % kBlock != 0 || d <= 0 || dv <= 0 || d % 4 != 0 ||
          dv % 4 != 0 || d > kMaxHeadDim || dv > kMaxHeadDim || start > 0 || end < 0;
-}
-
-// float4 groups per thread, rounded up to the instantiated 1, 2, 4 or 8
-int groups_for(int d, int dv) {
-  const int gd = (d / 4 + kTpr - 1) / kTpr;
-  const int gv = (dv / 4 + kTpr - 1) / kTpr;
-  const int g = gd > gv ? gd : gv;
-  return g <= 1 ? 1 : g <= 2 ? 2 : g <= 4 ? 4 : 8;
 }
 
 // 8-column steps of the larger head dim, rounded up to the instantiated
@@ -853,39 +980,42 @@ Dropout make_dropout(unsigned seed, unsigned thresh, float keep_prob, int on) {
   return dr;
 }
 
-template <int R>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* key_valid,
-                       void* out, void* lse, int bh, int s, int d4, int dv4, int start,
-                       int end, float scale, Dropout dr, cudaStream_t stream) {
-  const size_t smem = tile_smem(d4, dv4, kBlock * sizeof(int));
-  cudaError_t err = allow_smem(fwd_kernel<R>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>(bh) * static_cast<unsigned>(s / kBlock));
-  fwd_kernel<R><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float4*>(q), static_cast<const float4*>(k),
-      static_cast<const float4*>(v), static_cast<const int*>(key_valid),
-      static_cast<float4*>(out), static_cast<float*>(lse), s, d4, dv4, start, end, scale,
-      dr);
-  return cudaGetLastError();
-}
-
 // The ring's stages and shared-memory bytes for `kernel`: two stages where
 // the card runs as many of its CTAs per SM with two as with one (where the
 // registers, not the shared memory, bound them: d <= 32, d = 128), else
 // one (at d = dv = 64, one stage lets 3 CTAs share an SM, two would let 2).
 template <typename Kernel>
-cudaError_t ring_stages(Kernel kernel, const BwdSmem& lay, int s, int& stages, size_t& smem) {
+cudaError_t ring_stages(Kernel kernel, const RingSmem& lay, int s, int& stages, size_t& smem) {
   const size_t one = lay.bytes(1, s / kBlock), two = lay.bytes(2, s / kBlock);
   if (one > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = allow_smem(kernel, two <= kMaxSmem ? two : one);
   int per_sm[2] = {0, 0};
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[0], kernel, kBwdThreads, one);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[0], kernel, kThreads, one);
   if (err == cudaSuccess && two <= kMaxSmem)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[1], kernel, kBwdThreads, two);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[1], kernel, kThreads, two);
   stages = per_sm[1] >= per_sm[0] ? 2 : 1;
   smem = stages == 2 ? two : one;
   return err;
+}
+
+// K2a (kTrain) or K1
+template <int MAXD8, bool kTrain>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* key_valid,
+                       void* out, void* lse, int bh, int s, int d, int dv, int start, int end,
+                       float scale, Dropout dr, cudaStream_t stream) {
+  const auto kernel = kTrain ? fwd_kernel<MAXD8> : banded_attention_kernel<MAXD8>;
+  int stages = 0;
+  size_t smem = 0;
+  const cudaError_t err = ring_stages(kernel, RingSmem(d, dv, 1, false), s, stages, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(static_cast<unsigned>(bh) * static_cast<unsigned>(s / kBlock));
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const int*>(key_valid),
+      static_cast<float*>(out), static_cast<float*>(lse), s, d, dv, start, end, scale, dr,
+      stages);
+  return cudaGetLastError();
 }
 
 template <int MAXD8>
@@ -895,10 +1025,11 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
                       float scale, Dropout dr, cudaStream_t stream) {
   int stages = 0;
   size_t smem = 0;
-  const cudaError_t err = ring_stages(dq_kernel<MAXD8>, BwdSmem(d, dv, 1), s, stages, smem);
+  const cudaError_t err =
+      ring_stages(dq_kernel<MAXD8>, RingSmem(d, dv, 1, true), s, stages, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(bh) * static_cast<unsigned>(s / kBlock));
-  dq_kernel<MAXD8><<<grid, kBwdThreads, smem, stream>>>(
+  dq_kernel<MAXD8><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(out), static_cast<const float*>(lse),
@@ -914,10 +1045,11 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
                        float scale, Dropout dr, cudaStream_t stream) {
   int stages = 0;
   size_t smem = 0;
-  const cudaError_t err = ring_stages(dkv_kernel<MAXD8>, BwdSmem(d, dv, 2), s, stages, smem);
+  const cudaError_t err =
+      ring_stages(dkv_kernel<MAXD8>, RingSmem(d, dv, 2, true), s, stages, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(bh) * static_cast<unsigned>(s / kBlock));
-  dkv_kernel<MAXD8><<<grid, kBwdThreads, smem, stream>>>(
+  dkv_kernel<MAXD8><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -933,6 +1065,22 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
 // `seed`, `thresh`, `keep_prob` and `dropout_on` describe the dropout mask;
 // with dropout_on == 0 they are ignored.
 
+// K1: out [BH, S, Dv].
+extern "C" int banded_attention_f32(const void* q, const void* k, const void* v,
+                                    const void* key_valid, void* out, int bh, int s, int d,
+                                    int dv, int start, int end, float scale, void* stream) {
+  if (bad_shape(bh, s, d, dv, start, end)) return static_cast<int>(cudaErrorInvalidValue);
+  const Dropout off = make_dropout(0, 0, 1.f, 0);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (steps_for(d, dv)) {
+    case 2: return launch_fwd<2, false>(q, k, v, key_valid, out, nullptr, bh, s, d, dv, start, end, scale, off, st);
+    case 4: return launch_fwd<4, false>(q, k, v, key_valid, out, nullptr, bh, s, d, dv, start, end, scale, off, st);
+    case 8: return launch_fwd<8, false>(q, k, v, key_valid, out, nullptr, bh, s, d, dv, start, end, scale, off, st);
+    default: return launch_fwd<16, false>(q, k, v, key_valid, out, nullptr, bh, s, d, dv, start, end, scale, off, st);
+  }
+}
+
+// K2a: out [BH, S, Dv] and lse [BH, S].
 extern "C" int banded_attention_fwd_f32(const void* q, const void* k, const void* v,
                                         const void* key_valid, void* out, void* lse,
                                         int bh, int s, int d, int dv, int start, int end,
@@ -941,12 +1089,11 @@ extern "C" int banded_attention_fwd_f32(const void* q, const void* k, const void
   if (bad_shape(bh, s, d, dv, start, end)) return static_cast<int>(cudaErrorInvalidValue);
   const Dropout dr = make_dropout(seed, thresh, keep_prob, dropout_on);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int d4 = d / 4, dv4 = dv / 4;
-  switch (groups_for(d, dv)) {
-    case 1: return launch_fwd<1>(q, k, v, key_valid, out, lse, bh, s, d4, dv4, start, end, scale, dr, st);
-    case 2: return launch_fwd<2>(q, k, v, key_valid, out, lse, bh, s, d4, dv4, start, end, scale, dr, st);
-    case 4: return launch_fwd<4>(q, k, v, key_valid, out, lse, bh, s, d4, dv4, start, end, scale, dr, st);
-    default: return launch_fwd<8>(q, k, v, key_valid, out, lse, bh, s, d4, dv4, start, end, scale, dr, st);
+  switch (steps_for(d, dv)) {
+    case 2: return launch_fwd<2, true>(q, k, v, key_valid, out, lse, bh, s, d, dv, start, end, scale, dr, st);
+    case 4: return launch_fwd<4, true>(q, k, v, key_valid, out, lse, bh, s, d, dv, start, end, scale, dr, st);
+    case 8: return launch_fwd<8, true>(q, k, v, key_valid, out, lse, bh, s, d, dv, start, end, scale, dr, st);
+    default: return launch_fwd<16, true>(q, k, v, key_valid, out, lse, bh, s, d, dv, start, end, scale, dr, st);
   }
 }
 

@@ -4,7 +4,8 @@
 // (tests/test_torch_k2_emulated.py): one std::thread per CUDA thread, one
 // CTA at a time; barriers for __syncthreads and the warp collectives; and
 // mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 by its PTX fragment
-// layout.  Shared memory starts filled with NaN, so a read of a word never
+// layout, with the tensor core's rounding (exact products, their sum with c
+// rounded toward zero).  Shared memory starts filled with NaN, so a read of a word never
 // written shows in the results.
 #pragma once
 #include <algorithm>
@@ -100,7 +101,8 @@ inline bool __any_sync(unsigned, bool x) {
 inline float tf32_value(uint32_t b) { return __uint_as_float(b & 0xFFFFE000u); }
 // c += A.B; lane (g, t) = (lane / 4, lane % 4) holds A rows g and g + 8 at
 // columns t and t + 4 (a0..a3), B rows t and t + 4 at column g (b0, b1),
-// and C rows g and g + 8 at columns 2t and 2t + 1 (c0..c3)
+// and C rows g and g + 8 at columns 2t and 2t + 1 (c0..c3).  The products of
+// tf32 operands are exact in double; the sum is rounded toward zero.
 inline void emu_mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
   Warp& w = my_warp();
   const int l = my_lane();
@@ -121,7 +123,10 @@ inline void emu_mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t
   const int g = l / 4, t = l % 4;
   for (int i = 0; i < 4; ++i) {
     const int row = g + 8 * (i / 2), col = 2 * t + (i % 2);
-    for (int kk = 0; kk < 8; ++kk) c[i] += A[row][kk] * B[kk][col];
+    double sum = c[i];
+    for (int kk = 0; kk < 8; ++kk) sum += double(A[row][kk]) * double(B[kk][col]);
+    const float rounded = float(sum);
+    c[i] = std::fabs(double(rounded)) > std::fabs(sum) ? std::nextafter(rounded, 0.f) : rounded;
   }
   w.bar.arrive_and_wait();
 }

@@ -49,15 +49,57 @@ def _inputs(device, bh, s, d, dv, valid, seed=0):
     return [x.to(device) for x in (q, k, v, valid.to(torch.int32))]
 
 
-@pytest.mark.parametrize("s,d,dv,start,end", [
-    (504, 64, 64, -100, 0),   # the slice's shape
-    (256, 32, 32, -64, 32),
-    (200, 16, 8, -10, 0),
-    (64, 128, 128, -300, 0),  # the largest head dims (dynamic shared memory)
+# (s, d, dv, start, end, keys) of K1 and K2 beyond each path's own shape
+SHAPES = [
+    (256, 32, 32, -64, 32, "lengths"),
+    (200, 16, 8, -10, 0, "lengths"),     # S not a multiple of the tile, dv != d
+    # the largest head dims (dynamic shared memory)
+    (64, 128, 128, -300, 0, "lengths"),
+    # the tile skips: band edges on a tile boundary, the conformer's band
+    # over several tiles, whole invalid key tiles and dead query tiles
+    # (lengths s/2, 1 and 0), dv != d, d % 8 != 0
+    (256, 32, 32, -64, 64, "lengths"),
+    (256, 32, 32, -65, 0, "lengths"),
+    (640, 64, 64, -256, 256, "lengths"),
+    (512, 64, 64, -30, 30, "lengths"),
+    (256, 64, 32, -64, 32, "lengths"),
+    (256, 12, 12, -40, 8, "lengths"),
+    # the forward's: 8-key chunks wholly in band beside partial ones at
+    # TIMIT's band and head dim, d % 8 = 4 with dv one 8-column step
+    (256, 64, 64, -100, 0, "lengths"),
+    (128, 20, 4, -20, 20, "lengths"),
+    # a key mask that is no prefix: random holes, a whole invalid 64-key
+    # tile, a cut tail
+    (256, 16, 16, -40, 40, "holes"),
+]
+
+
+def _key_mask(s, keys):
+    """[4, s] key mask: lengths s, s/2, 1 and 0, or ``holes``."""
+    if keys == "lengths":
+        return torch.arange(s)[None, :] < torch.tensor([s, s // 2, 1, 0])[:, None]
+    valid = torch.rand((4, s), generator=torch.Generator().manual_seed(3)) > 0.3
+    valid[:, 64:128] = False
+    valid[1, 150:] = False
+    return valid
+
+
+def _empty_rows(s, start, end, valid):
+    """[4, s]: query rows with no valid key in their band."""
+    pos = torch.arange(s, device=valid.device)
+    rel = pos[None, :] - pos[:, None]
+    allowed = ((rel >= start) & (rel <= end))[None] & (valid[:, None, :] > 0)
+    return ~allowed.any(-1)
+
+
+@pytest.mark.parametrize("s,d,dv,start,end,keys", [
+    (504, 64, 64, -100, 0, "lengths"),   # the slice's shape
+    *SHAPES,
 ])
-def test_kernel_matches_plain_version(cuda_device, s, d, dv, start, end):
-    lengths = [s, s // 2, 1, 0]
-    q, k, v, valid = _inputs(cuda_device, 4, s, d, dv, lengths, seed=s)
+def test_kernel_matches_plain_version(cuda_device, s, d, dv, start, end,
+                                      keys):
+    q, k, v, valid = _inputs(cuda_device, 4, s, d, dv, _key_mask(s, keys),
+                             seed=s)
     before = ba.banded_attention.launches
     got = ba.banded_attention(q, k, v, valid, start=start, end=end,
                               scale=0.125)
@@ -67,9 +109,8 @@ def test_kernel_matches_plain_version(cuda_device, s, d, dv, start, end):
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                atol=ATOL)
     # rows with no valid key in their band are exact zeros
-    empty = torch.arange(s, device=cuda_device)[None, :] + start >= \
-        torch.as_tensor(lengths, device=cuda_device)[:, None]
-    assert (got[empty] == 0).all()
+    empty = _empty_rows(s, start, end, valid)
+    assert empty.any() and (got[empty] == 0).all()
 
 
 def test_kernel_refuses_what_it_cannot_take(cuda_device):
@@ -92,39 +133,11 @@ def _grads_of(fn, q, k, v, dout):
     return out.detach(), q.grad, k.grad, v.grad
 
 
-TRAINABLE_SHAPES = [
-    (512, 64, 64, -100, 0, "lengths"),   # the training slice's kernel shape
-    (256, 32, 32, -64, 32, "lengths"),
-    (200, 16, 8, -10, 0, "lengths"),     # S not a multiple of the tile, dv != d
-    # the largest head dims (dynamic shared memory)
-    (64, 128, 128, -300, 0, "lengths"),
-    # the backward's tile skips: band edges on a tile boundary, the
-    # conformer's band over several tiles, whole invalid key tiles and dead
-    # query tiles (lengths s/2, 1 and 0), dv != d, d % 8 != 0
-    (256, 32, 32, -64, 64, "lengths"),
-    (256, 32, 32, -65, 0, "lengths"),
-    (640, 64, 64, -256, 256, "lengths"),
-    (512, 64, 64, -30, 30, "lengths"),
-    (256, 64, 32, -64, 32, "lengths"),
-    (256, 12, 12, -40, 8, "lengths"),
-    # a key mask that is no prefix: random holes, a whole invalid 64-key
-    # tile, a cut tail
-    (256, 16, 16, -40, 40, "holes"),
-]
-
-
-def _key_mask(s, keys):
-    """[4, s] key mask: lengths s, s/2, 1 and 0, or ``holes``."""
-    if keys == "lengths":
-        return torch.arange(s)[None, :] < torch.tensor([s, s // 2, 1, 0])[:, None]
-    valid = torch.rand((4, s), generator=torch.Generator().manual_seed(3)) > 0.3
-    valid[:, 64:128] = False
-    valid[1, 150:] = False
-    return valid
-
-
 @pytest.mark.parametrize("rate", [0.0, 0.35])
-@pytest.mark.parametrize("s,d,dv,start,end,keys", TRAINABLE_SHAPES)
+@pytest.mark.parametrize("s,d,dv,start,end,keys", [
+    (512, 64, 64, -100, 0, "lengths"),   # the training slice's kernel shape
+    *SHAPES,
+])
 def test_trainable_kernels_match_plain_version(cuda_device, rate, s, d, dv,
                                                start, end, keys):
     """K2a (out, lse), K2b (dq, with delta) and K2c (dk, dv) against
@@ -150,10 +163,7 @@ def test_trainable_kernels_match_plain_version(cuda_device, rate, s, d, dv,
         q, k, v, valid, 1234, start, end, 0.125, rate)[0], q, k, v, dout)
     for g, w, tol in zip(got, want, (ATOL, GRAD_ATOL, GRAD_ATOL, GRAD_ATOL)):
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), atol=tol)
-    pos = torch.arange(s, device=cuda_device)
-    rel = pos[None, :] - pos[:, None]
-    allowed = ((rel >= start) & (rel <= end))[None] & (valid[:, None, :] > 0)
-    empty = ~allowed.any(-1)
+    empty = _empty_rows(s, start, end, valid)
     assert empty.any()
     assert (got[0][empty] == 0).all() and (got[1][empty] == 0).all()
     assert (got[2][valid == 0] == 0).all() and (got[3][valid == 0] == 0).all()

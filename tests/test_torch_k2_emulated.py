@@ -1,13 +1,15 @@
-"""The trainable banded-attention kernels as written for the card (K2a, K2b
-and K2c in pytorch_kaldi_asr_tpu_torch/ops/csrc/banded_attention_train.cu),
+"""The banded-attention kernels as written for the card (K1, K2a, K2b and
+K2c in pytorch_kaldi_asr_tpu_torch/ops/csrc/banded_attention_train.cu),
 compiled on the CPU with g++ against tests/cuda_emu.h and held against the
 port's plain versions (themselves held against the JAX package in
-tests/test_torch_train_kernels.py) at the card tests' tolerances.
+tests/test_torch_banded_attention.py and tests/test_torch_train_kernels.py)
+at the card tests' tolerances.
 
 What this checks without a card: the kernels' index arithmetic, that is
 the mma fragment layouts, the permuted k index of the accumulating
 products, the tile and sub-tile skips, the band and validity masks, the
-dropout hash and delta.  The emulated mma multiplies the operands' tf32
+forward's online softmax across passes and tiles, the dropout hash and
+delta.  The emulated mma multiplies the operands' tf32
 bits exactly as the tensor core does, so the 3xTF32 split is checked too.
 Skips where there is no g++.
 """
@@ -50,7 +52,8 @@ def _emulated_source(src):
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
-    """{"fwd", "dq", "dkv"}: the C entry points of the emulated build."""
+    """{"k1", "fwd", "dq", "dkv"}: the C entry points of the emulated
+    build."""
     import ctypes
 
     cxx = shutil.which("g++")
@@ -64,12 +67,14 @@ def emulated(tmp_path_factory):
                     f"-I{Path(__file__).resolve().parent}", "-o", str(lib),
                     str(cpp)], check=True, capture_output=True)
     dll = ctypes.CDLL(str(lib))
-    return {w: ba.train_entry(dll, w) for w in ("fwd", "dq", "dkv")}
+    return {w: ba.kernel_entry(dll, w) for w in ("k1", "fwd", "dq", "dkv")}
 
 
-def _run(fns, q, k, v, valid, dout, seed, start, end, scale, rate):
-    """out, lse, dq, delta, dk, dv of the emulated kernels; the outputs
-    start as NaN, so a value never written shows."""
+def _run(fns, q, k, v, valid, dout, seed, start, end, scale, rate,
+         backward=True):
+    """out, lse, dq, delta, dk, dv of the emulated kernels (K2a only where
+    not ``backward``); the outputs start as NaN, so a value never written
+    shows."""
     bh, s, d = q.shape
     dv = v.shape[-1]
     tail = (bh, s, d, dv, start, end, scale, *ba._dropout_args(seed, rate),
@@ -81,9 +86,36 @@ def _run(fns, q, k, v, valid, dout, seed, start, end, scale, rate):
     calls = (("fwd", (q, k, v, valid, out, lse)),
              ("dq", (q, k, v, dout, out, lse, valid, dq, delta)),
              ("dkv", (q, k, v, dout, lse, delta, valid, dk, dv_out)))
-    for which, tensors in calls:
+    for which, tensors in calls[:None if backward else 1]:
         assert fns[which](*(t.data_ptr() for t in tensors), *tail) == 0
     return out, lse, dq, delta, dk, dv_out
+
+
+def _check_k1(fns, q, k, v, valid, start, end, scale):
+    """The emulated K1 against the plain version; exact zeros on rows with
+    no valid key in band."""
+    bh, s, d = q.shape
+    dv = v.shape[-1]
+    out = torch.full((bh, s, dv), float("nan"))
+    assert fns["k1"](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     valid.data_ptr(), out.data_ptr(), bh, s, d, dv, start,
+                     end, scale, None) == 0
+    want = ba.banded_attention_reference(q, k, v, valid, start, end, scale)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), atol=OUT_ATOL)
+    empty = ~ba._allowed(s, start, end, valid).any(-1)
+    assert (out[empty] == 0).all()
+
+
+def _inputs(case):
+    """Seeded q, k, v, dout and the int32 key mask of ``case``."""
+    s, d, dv, valid, start, end = case
+    bh = valid.shape[0]
+    rng = np.random.default_rng(3)
+    q, k = (torch.from_numpy(rng.normal(size=(bh, s, d)).astype(np.float32))
+            for _ in range(2))
+    v, dout = (torch.from_numpy(rng.normal(size=(bh, s, dv))
+                                .astype(np.float32)) for _ in range(2))
+    return q, k, v, dout, valid.to(torch.int32).contiguous()
 
 
 def _prefix(s, lengths):
@@ -113,17 +145,26 @@ CASES = {
 }
 
 
+def _check_forward(out, lse, out_ref, lse_ref):
+    """K2a's out and lse against the plain version's; lse -inf on the same
+    rows, whose out is exact zeros."""
+    live = torch.isfinite(lse_ref)
+    assert torch.equal(torch.isfinite(lse), live)
+    np.testing.assert_allclose(out.numpy(), out_ref.detach().numpy(),
+                               atol=OUT_ATOL)
+    np.testing.assert_allclose(lse[live].numpy(), lse_ref[live].numpy(),
+                               atol=OUT_ATOL)
+    assert (out[~live] == 0).all()
+
+
 @pytest.mark.parametrize("rate", [0.0, 0.35])
 @pytest.mark.parametrize("case", list(CASES))
 def test_emulated_kernels_match_plain_version(emulated, case, rate):
-    s, d, dv, valid, start, end = CASES[case]
-    bh, scale, seed = valid.shape[0], 0.125, 77
-    rng = np.random.default_rng(3)
-    q, k = (torch.from_numpy(rng.normal(size=(bh, s, d)).astype(np.float32))
-            for _ in range(2))
-    v, dout = (torch.from_numpy(rng.normal(size=(bh, s, dv))
-                                .astype(np.float32)) for _ in range(2))
-    valid = valid.to(torch.int32).contiguous()
+    """K2a, K2b and K2c against autograd of the plain trainable version;
+    K1 (no dropout) against its plain version in the rate-0 instance."""
+    s, d, dv, _, start, end = CASES[case]
+    scale, seed = 0.125, 77
+    q, k, v, dout, valid = _inputs(CASES[case])
     out, lse, dq, delta, dk, dv_out = _run(emulated, q, k, v, valid, dout,
                                            seed, start, end, scale, rate)
 
@@ -131,12 +172,8 @@ def test_emulated_kernels_match_plain_version(emulated, case, rate):
     out_ref, lse_ref = ba.banded_attention_trainable_reference(
         qg, kg, vg, valid, seed, start, end, scale, rate)
     out_ref.backward(dout)
+    _check_forward(out, lse, out_ref, lse_ref)
     live = torch.isfinite(lse_ref)
-    assert torch.equal(torch.isfinite(lse), live)
-    np.testing.assert_allclose(out.numpy(), out_ref.detach().numpy(),
-                               atol=OUT_ATOL)
-    np.testing.assert_allclose(lse[live].numpy(), lse_ref[live].numpy(),
-                               atol=OUT_ATOL)
     np.testing.assert_allclose(
         delta.numpy(), (dout * out_ref.detach()).sum(-1).numpy(),
         atol=GRAD_ATOL)
@@ -145,3 +182,63 @@ def test_emulated_kernels_match_plain_version(emulated, case, rate):
     # exact zeros: rows with no key in band, invalid keys
     assert (dq[~live] == 0).all()
     assert (dk[valid == 0] == 0).all() and (dv_out[valid == 0] == 0).all()
+    if rate == 0.0:
+        _check_k1(emulated, q, k, v, valid, start, end, scale)
+
+
+def _tile_out(s, lengths):
+    """Prefix lengths with the second 64-key tile wholly invalid."""
+    tile = (torch.arange(s) >= 64) & (torch.arange(s) < 128)
+    return _prefix(s, lengths) & ~tile[None]
+
+
+# the forward's own skips: chunks of 8 keys wholly in band beside partial
+# ones (the band test skipped), a whole invalid key tile between valid ones,
+# d % 8 = 4 with dv one 8-column step, and TIMIT's band at its head dim
+FORWARD_CASES = {
+    "band (-40,0): whole and partial chunks":
+        (128, 16, 16, _prefix(128, [128, 90]), -40, 0),
+    "an invalid key tile inside the band":
+        (256, 16, 8, _tile_out(256, [256, 200]), -70, 10),
+    "d 20, dv 4": (128, 20, 4, _prefix(128, [128, 77]), -20, 20),
+    "TIMIT band (-100,0) S 256 d 64":
+        (256, 64, 64, _prefix(256, [256, 180]), -100, 0),
+}
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.35])
+@pytest.mark.parametrize("case", list(FORWARD_CASES))
+def test_emulated_forward_matches_plain_version(emulated, case, rate):
+    """K2a (out, lse) and, in the rate-0 instance, K1 against their plain
+    versions at the cases that reach the forward's skips."""
+    s, d, dv, _, start, end = FORWARD_CASES[case]
+    q, k, v, dout, valid = _inputs(FORWARD_CASES[case])
+    out, lse, *_ = _run(emulated, q, k, v, valid, dout, 77, start, end,
+                        0.125, rate, backward=False)
+    out_ref, lse_ref = ba.banded_attention_trainable_reference(
+        q, k, v, valid, 77, start, end, 0.125, rate)
+    _check_forward(out, lse, out_ref, lse_ref)
+    if rate == 0.0:
+        _check_k1(emulated, q, k, v, valid, start, end, 0.125)
+
+
+def test_emulated_forward_does_not_drift(emulated):
+    """K2a's out against the plain version in float64, at TIMIT's band and
+    head dim: the mean error along each output's sign, over the outputs'
+    mean size.  The tensor core rounds each mma's sum toward zero (so does
+    cuda_emu.h), so products chained onto one accumulator shrink every
+    output by about 1e-6 of its size (-9.2e-7 here), a bias that the
+    cancelling gradient sums of a train step amplify; summed from zero and
+    added in float32, the forward's products leave -8e-8 (the CPU's float32
+    plain version: 6e-9)."""
+    bh, s, d, start, end, scale = 4, 256, 64, -100, 0, 0.125
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.normal(size=(bh, s, d)).astype(np.float32))
+               for _ in range(3))
+    valid = torch.ones((bh, s), dtype=torch.int32)
+    out, *_ = _run(emulated, q, k, v, valid, v, 7, start, end, scale, 0.0,
+                   backward=False)
+    ref, _ = ba.banded_attention_trainable_reference(
+        q.double(), k.double(), v.double(), valid, 7, start, end, scale)
+    bias = float(((out.double() - ref) * ref.sign()).mean() / ref.abs().mean())
+    assert abs(bias) < 3e-7
