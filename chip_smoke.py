@@ -20,16 +20,23 @@ CUDA card: ``python3 chip_smoke.py`` from the root of a checkout.
    the backward pair is timed against SDPA's backward at dropout 0 and at
    the path's rate.
    Bounds take the faster float32 route: the CUDA cores, or for the
-   attention products the TF32 tensor cores at three passes; K3 (fused dropout)
-   forward and backward must match its plain version bit for bit (0 mask
-   mismatches) at the conformer's [51200, 1024] and [51200, 256] for both
-   thresholds at rates 0.1 and 0.35, and at edge cases.
+   attention products the TF32 tensor cores at three passes; K3 (fused
+   dropout) forward and backward, on float32 and on bfloat16, must match its
+   plain version bit for bit (0 mask mismatches) at the conformer's [51200,
+   1024] and [51200, 256] for both thresholds at rates 0.1 and 0.35, and at
+   edge cases (a tail, a non-contiguous and a misaligned input).
 4. TIMIT decode (stage 5): a seeded TIMIT-shaped data dir (16 utterances of
    40-dim features, 150-500 frames, a 52-entry phone vocabulary), the
    port's ``initialize_model`` at the recipe's widths with ``-encoder_type
    banded`` and its ``decode`` on the card with the recipe's stage-5 flags;
    checks the n-best lines and the K1 launches, decodes the first batch
-   again on the CPU and compares, and prints the wall time and RTF.
+   again on the CPU and compares, and prints the wall time, the RTF and
+   the wall time's split (checkpoint and vocabulary loading, data, encoder,
+   search steps, writing).  Then, on the first batch, the fixed-buffer
+   ``beam_search`` against the KV-cached ``fast_beam_search`` (same n-best),
+   and the same decode on a model whose decoder band reaches one token
+   ahead, (-10, 1), which the CLI decodes with the fixed-buffer search
+   (its CPU cross-check on 2 utterances of the first batch).
 5. TIMIT training (stages 3-4): train/dev/test dirs of 300/40/40
    utterances, the ``train`` CLI with the recipe's stage-4 flags for 2
    epochs, then the ``combine`` CLI.  Checks finite losses, the
@@ -47,25 +54,41 @@ CUDA card: ``python3 chip_smoke.py`` from the root of a checkout.
    flags; then ``generate_archive`` (512 per archive) and ``train
    -train_archive_dir`` on 128/16/16 utterances at batch 32 for 2 epochs,
    ``combine``, the exact launch counts, and card against CPU on a batch of
-   4 utterances with dropout on.
+   4 utterances with dropout on.  Then the same for the recipe as it
+   ships, with its bfloat16 residual stream (K3 on bfloat16 at 25 sites per
+   step, on float32 at 46): the card-vs-CPU step and n-best are held
+   against limits set from the stream's own error and from planted faults
+   (``bf16_card_vs_cpu_step``, ``compare_nbest_bf16``).
 8. Prints the ``kernels`` JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.  Any failure raises: the script then
    exits non-zero without the last line.
 
-``python3 chip_smoke.py --train-step TREE [timit|librispeech]`` runs only
-the train step of that recipe's model (default TIMIT; LibriSpeech is the
-conformer at batch 32 x S 1600) with the port in the checkout ``TREE`` (for
-instance a parent commit unpacked with ``git archive`` under ``build/``)
-and prints one ``TRAIN_STEP`` JSON line: five timings of 20 steps and a
+``python3 chip_smoke.py --train-step TREE [CORPUS]`` runs only the train
+step of CORPUS's model (timit, the default; librispeech, the conformer at
+batch 32 x S 1600 with a float32 stream; librispeech_bf16, the same as the
+recipe ships it, with a bfloat16 stream) with the port in the checkout
+``TREE`` (for instance a parent commit unpacked with ``git archive`` under
+``build/``) and prints one ``TRAIN_STEP`` JSON line: five timings of 20 steps and a
 profile with every kernel's launches and the host's busiest operations per
 step; for TIMIT, where the port has K3, also the same step with the
 model's dropout drawn by the port's former draw (``former_draw``),
 alternated with K3 in one process.  Run parent, change, change, parent
 one after another on one card to compare two commits.
 
+``python3 chip_smoke.py --noisy-leaf`` prints one ``NOISY_LEAF`` JSON line:
+the TIMIT leaf whose float32 gate sits at its noise (NOISY_LEAF), its
+distance from a float64 CPU step on the card and on the CPU in float32, at 3
+seeds x 2 batches of the TIMIT training slice.
+
+``python3 chip_smoke.py --bf16-gates`` prints one ``BF16_GATES`` JSON line:
+what the bfloat16 stream's card-vs-CPU gates (the decode's n-best and the
+train step's ratios) read on the conformer recipe's model as it ships,
+sound and with each fault of BF16_FAULTS planted on the card
+(``bf16_gate_readings``); the limits are set between the two.
+
 ``python3 chip_smoke.py --k2-sources A.cu [B.cu ...]`` compares versions
-of ``ops/csrc/banded_attention_train.cu`` (a parent's, or a copy with
-``#define`` lines on top; a parent's ``banded_attention.cu`` for its K1) in
+of ``ops/csrc/banded_attention_train.cu`` (a parent's, or an edited copy;
+a parent's ``banded_attention.cu`` for its K1) in
 one process: each is built with the port's nvcc flags (ptxas's registers
 and spills for each kernel printed), and each kernel a build has is timed
 in turns with the other builds', three rounds, and held against the first
@@ -75,9 +98,11 @@ decode shapes; one ``K2_SOURCES`` JSON line per shape.
 Everything it writes goes under ``build/chip_smoke/`` in the checkout.
 """
 
+import contextlib
 import json
 import math
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -113,6 +138,13 @@ CONFORMER_MODEL = [
     "-en_dropout", "0.1", "-de_dropout", "0.1", "-encoder_type", "conformer",
     "-conformer_stream_dtype", "float32",
 ]
+# the conformer-librispeech recipe as it ships: its residual stream in
+# bfloat16 (run.sh:110, -conformer_stream_dtype ${stream_dtype:-bfloat16})
+CONFORMER_BF16_MODEL = [x if x != "float32" else "bfloat16"
+                        for x in CONFORMER_MODEL]
+# the TIMIT model with a decoder band one token ahead, which takes the
+# fixed-buffer search
+NONCAUSAL_MODEL = [x if x != "(-10,0)" else "(-10,1)" for x in RECIPE_MODEL]
 FEAT_DIM, SEED = 40, 0
 TIMIT = {
     "name": "timit", "model": RECIPE_MODEL, "frames": (150, 500),
@@ -135,6 +167,13 @@ LIBRISPEECH = {
     "train": {"utts": {"train": 128, "dev": 16, "test": 16}, "batch": 32,
               "epochs": 2, "size_archive": 512, "cpu_rows": 4},
 }
+LIBRISPEECH_BF16 = dict(LIBRISPEECH, name="librispeech_bf16",
+                        model=CONFORMER_BF16_MODEL)
+# the CPU cross-check takes 2 utterances of the first batch: the
+# fixed-buffer search decodes the whole buffer at every step, and the CPU
+# took about 87 s for all 8 on the chip machine
+TIMIT_NONCAUSAL = dict(TIMIT, name="timit_noncausal", model=NONCAUSAL_MODEL,
+                       decode=dict(TIMIT["decode"], cpu_utts=2))
 DROPOUT = 0.35  # the K2 checks' attention dropout (the TIMIT recipe's)
 
 KERNEL_ATOL = 2e-5  # float32, summation order differs from the plain version
@@ -145,6 +184,26 @@ STEP_GRAD_RTOL = 1e-4  # of the largest |gradient| of each leaf
 # CPU step than this many times the CPU's own float32 result; the sound runs
 # on the H100 read at most 1.00004 (TIMIT ffn.w1 of layer 2; src_proj.w 0.70)
 FLOAT64_RATIO = 1.25
+# the bfloat16 stream's step, card vs CPU: per leaf (and the loss), the
+# card's distance from the CPU's bfloat16 step over the CPU's bfloat16
+# step's distance from its float32 step (the stream's own error), both over
+# the leaf's largest entry.  A bfloat16 step is chaotic at float32's last
+# bit, so one leaf says little; the median leaf separates: sound card runs
+# read 0.23-0.46 (4 batch/seed draws), the card with a float32 stream
+# 1.000 and with the bfloat16 dropout's scale left unrounded 1.11 (``--bf16-
+# gates``, PERF.md).  Single leaves read up to 1.45 when sound, so the leaf
+# limit only bounds a fault confined to a few leaves.
+BF16_MEDIAN_RATIO = 0.75
+BF16_LEAF_RATIO = 3.0
+# the bfloat16 stream's n-best, card vs CPU, scores within BF16_SCORE_ATOL
+# and words at the float32 gate's WORD_GAP: sound runs read 3.5e-3 and
+# 7.6e-3 (two model seeds), words differing at gaps up to 4.3e-4; the card
+# with a float32 stream 0.63, with the swish rounded once 1.15, and with
+# two-pass layer-norm moments 3.8e-3 but words differing at a gap of 0.013
+# (``--bf16-gates``)
+BF16_SCORE_ATOL = 0.05
+# the TIMIT leaf whose float32 gate sits at its noise (ROADMAP.md queue 3)
+NOISY_LEAF = ("encoder", "layers", 1, "ffn", "w1", "w")
 CPU_SCORE_ATOL = 1e-4  # card vs CPU n-best scores
 WORD_GAP = 1e-3  # words must agree where scores are this far apart
 
@@ -152,7 +211,7 @@ WORD_GAP = 1e-3  # words must agree where scores are this far apart
 PROFILE_NAMES = {
     "K1": "::banded_attention_kernel<", "K2a": "::fwd_kernel<",
     "K2b": "::dq_kernel<", "K2c": "::dkv_kernel<",
-    "K3": "::fused_dropout_kernel",
+    "K3": "::fused_dropout_kernel", "K3_bf16": "::fused_dropout_bf16_kernel",
 }
 
 
@@ -184,24 +243,32 @@ def reset_launch_counts():
     for fn in (ba.banded_attention, ba.banded_attention_fwd,
                ba.banded_attention_dq, ba.banded_attention_dkv):
         fn.launches = 0
-    fd.fused_dropout.launches.update(forward=0, backward=0)
+    for key in fd.fused_dropout.launches:
+        fd.fused_dropout.launches[key] = 0
 
 
 def dropout_sites(cfg):
-    """K3 launches of one train step, each way, counted from the model code
-    (models/transformer.py, models/encoders.py): the encoder's input
-    dropout; per banded layer the attention block's output and the FFN's
-    (and one after the final positions), per conformer layer two in each
-    half-step FFN, one after the MHSA and one after the conv module; the
-    decoder's embedding and output dropouts, and per layer the self- and
-    cross-attention probabilities and outputs and the FFN's output."""
+    """K3 launches of one train step, each way, by dtype ({"float32": n,
+    "bfloat16": m}), counted from the model code (models/transformer.py,
+    models/encoders.py): the encoder's input dropout; per banded layer the
+    attention block's output and the FFN's (and one after the final
+    positions), per conformer layer two in each half-step FFN, one after
+    the MHSA and one after the conv module; the decoder's embedding and
+    output dropouts, and per layer the self- and cross-attention
+    probabilities and outputs and the FFN's output.  A conformer's
+    bfloat16 stream carries the input dropout, each half-step FFN's second
+    and the conv module's: 1 + 3 per layer."""
     if cfg.encoder_type == "banded":
         encoder = 1 + 2 * cfg.en_layers + 1
     elif cfg.encoder_type == "conformer":
         encoder = 1 + 6 * cfg.en_layers
     else:
         raise ValueError(f"no site count for {cfg.encoder_type}")
-    return encoder + 2 + 5 * cfg.de_layers
+    stream = (1 + 3 * cfg.en_layers
+              if cfg.encoder_type == "conformer"
+              and cfg.conformer_stream_dtype == "bfloat16" else 0)
+    return {"float32": encoder - stream + 2 + 5 * cfg.de_layers,
+            "bfloat16": stream}
 
 
 # ---------------------------------------------------------------------------
@@ -824,36 +891,56 @@ def compare_k2_sources(torch, ba, libs, rounds=3):
 K3_SHAPES = ((51200, 1024), (51200, 256))  # the conformer's sites at 32 x 1600
 
 
-def _k3_thresholds(fd, rate):
-    """{name: (threshold, scale)} of the kernel's two users at ``rate``."""
+def _k3_thresholds(torch, fd, rate, dtype):
+    """{name: (threshold, scale)} of the kernel's two users at ``rate`` on
+    ``dtype``: the model's 8-bit draw (on bfloat16 its scale 256/q is
+    rounded to bfloat16, as models/common.py rounds it) and the TPU
+    kernel's exact threshold."""
     q = round((1.0 - rate) * 256)
-    return {"8-bit": ((256 - q) << 24, 256.0 / q),
+    scale8 = 256.0 / q
+    if dtype == torch.bfloat16:
+        scale8 = float(torch.tensor(scale8, dtype=dtype))
+    return {"8-bit": ((256 - q) << 24, scale8),
             "exact": (fd.fused_dropout_threshold(rate), 1.0 / (1.0 - rate))}
 
 
-def check_fused_dropout(torch, fd):
-    """K3 forward and backward against its plain version on the card: the
-    same mask (0 mismatches), outputs and gradients bit-equal, at the
-    conformer's shapes for both thresholds at rates 0.1 and 0.35, and at
-    edge cases.  Returns the max abs error (0 when all is bit-equal)."""
+def _bits(torch, x):
+    """x's bit patterns, so that equal means bit for bit (+0 vs -0 too)."""
+    return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+
+
+def check_fused_dropout(torch, fd, dtype=None):
+    """K3 forward and backward against its plain version on the card, on
+    ``dtype`` (float32 by default, or bfloat16): the same mask (0
+    mismatches), outputs and gradients bit-equal, at the conformer's shapes
+    for both thresholds at rates 0.1 and 0.35, and at edge cases (a size
+    that leaves a tail of the kernel's 16-byte groups, a non-contiguous
+    input, a misaligned view, one row, rate 0).  Returns the max abs error
+    (0 when all is bit-equal)."""
     import numpy as np
 
+    dtype = dtype or torch.float32
     g = torch.Generator(device="cuda").manual_seed(3)
     cases = [(shape, rate, which, "contiguous")
              for shape in K3_SHAPES for rate in (0.1, 0.35)
              for which in ("8-bit", "exact")]
-    cases += [((4097, 3), 0.35, "exact", "size % 4 != 0"),
+    cases += [((4097, 3), 0.35, "exact", "size % 8 != 0"),
               ((1024, 256), 0.1, "8-bit", "non-contiguous"),
+              ((1023, 5), 0.1, "8-bit", "misaligned"),
               ((1, 1024), 0.35, "exact", "one row"),
               ((51200, 256), 0.0, "exact", "rate 0")]
     for shape, rate, which, name in cases:
-        threshold, scale = _k3_thresholds(fd, rate)[which]
+        threshold, scale = _k3_thresholds(torch, fd, rate, dtype)[which]
         scale32 = float(np.float32(scale))
-        x = torch.randn(shape, generator=g, device="cuda")
+        x = torch.randn(shape, generator=g, device="cuda").to(dtype)
         if name == "non-contiguous":
             x = x.t()
+        if name == "misaligned":  # 2 or 4 bytes past a 16-byte boundary
+            x = torch.randn(x.numel() + 1, generator=g, device="cuda").to(
+                dtype)[1:].view(shape)
+            assert x.data_ptr() % 16
         x.requires_grad_()
-        dout = torch.randn(x.shape, generator=g, device="cuda")
+        dout = torch.randn(x.shape, generator=g, device="cuda").to(dtype)
         seed = 20240 + int(rate * 100)
         y = fd.masked_dropout(x, seed, threshold, scale)
         y.backward(dout)
@@ -864,14 +951,19 @@ def check_fused_dropout(torch, fd):
         torch.cuda.synchronize()
         mismatches = int(((y != 0) != (want != 0)).sum())
         kept = float((y != 0).float().mean())
-        print(f"fused_dropout {name} {list(shape)} rate={rate} {which}: "
-              f"mask mismatches={mismatches} keep={kept:.6f} "
-              f"out bit-equal={torch.equal(y, want)} "
-              f"grad bit-equal={torch.equal(x.grad, want_grad)}")
-        if mismatches or not torch.equal(y, want) \
-                or not torch.equal(x.grad, want_grad):
-            raise AssertionError(f"fused_dropout {name} {shape} {rate} "
-                                 f"{which}: kernel and plain version differ")
+        out_equal = torch.equal(_bits(torch, y.contiguous()),
+                                _bits(torch, want.contiguous()))
+        grad_equal = torch.equal(_bits(torch, x.grad.contiguous()),
+                                 _bits(torch, want_grad.contiguous()))
+        print(f"fused_dropout {str(dtype)[6:]} {name} {list(shape)} "
+              f"rate={rate} {which}: mask mismatches={mismatches} "
+              f"keep={kept:.6f} out bit-equal={out_equal} "
+              f"grad bit-equal={grad_equal}")
+        if mismatches or not out_equal or not grad_equal \
+                or y.dtype != dtype or x.grad.dtype != dtype:
+            raise AssertionError(f"fused_dropout {dtype} {name} {shape} "
+                                 f"{rate} {which}: kernel and plain version "
+                                 f"differ")
     if fd.fused_dropout(x, 0.0, 1, True) is not x:
         raise AssertionError("fused_dropout at rate 0 is not the identity")
     return 0.0
@@ -897,7 +989,7 @@ def k3_host_us(torch, fd, rate=0.1, shape=(64, 256), n=2000):
     x = torch.randn(shape, device="cuda", requires_grad=True)
     dout = torch.ones(shape, device="cuda")
     xd, out = x.detach(), torch.empty(shape, device="cuda")
-    threshold, scale = _k3_thresholds(fd, rate)["8-bit"]
+    threshold, scale = _k3_thresholds(torch, fd, rate, torch.float32)["8-bit"]
     q = round((1.0 - rate) * 256)
     gen = torch.Generator(device="cuda").manual_seed(2)
     launch = fd._kernel_fn()
@@ -937,15 +1029,17 @@ def k3_host_us(torch, fd, rate=0.1, shape=(64, 256), n=2000):
     return us
 
 
-def time_fused_dropout(torch, fd, shape=K3_SHAPES[0], rate=0.1):
-    """K3 (the model's 8-bit threshold), its plain version, ``F.dropout``
-    (the same bytes, another generator) and the port's former 8-bit draw
-    (``former_draw``, five launches) at ``shape``."""
+def time_fused_dropout(torch, fd, shape=K3_SHAPES[0], rate=0.1, dtype=None):
+    """K3 (the model's 8-bit threshold) on ``dtype`` (float32 by default),
+    its plain version and ``F.dropout`` on the same tensor (the same bytes,
+    another generator) at ``shape``; on float32 also the port's former
+    8-bit draw (``former_draw``, five launches) and K3's host cost."""
     import torch.nn.functional as F
 
+    dtype = dtype or torch.float32
     x = torch.randn(shape, generator=torch.Generator(device="cuda")
-                    .manual_seed(1), device="cuda")
-    threshold, scale = _k3_thresholds(fd, rate)["8-bit"]
+                    .manual_seed(1), device="cuda").to(dtype)
+    threshold, scale = _k3_thresholds(torch, fd, rate, dtype)["8-bit"]
     q = round((1.0 - rate) * 256)
     gen = torch.Generator(device="cuda").manual_seed(2)
 
@@ -954,17 +1048,21 @@ def time_fused_dropout(torch, fd, shape=K3_SHAPES[0], rate=0.1):
     plain_ms = time_ms(torch, lambda: fd.fused_dropout_reference(
         x, 7, threshold, scale), iters=10, warmup=2)
     library_ms = time_ms(torch, lambda: F.dropout(x, rate, training=True))
-    former_ms = time_ms(torch, lambda: former_draw(torch, x, q, gen))
-    bound_ms, bound_by = _bound(8 * x.numel(), x.numel())
-    print(f"fused_dropout timing: {list(shape)} rate={rate} (8-bit) "
-          f"kernel_ms={kernel_ms:.6f} plain_ms={plain_ms:.6f} "
-          f"F.dropout_ms={library_ms:.6f} former_draw_ms={former_ms:.6f} "
+    n_bytes = 2 * x.element_size() * x.numel()
+    bound_ms, bound_by = _bound(n_bytes, x.numel())
+    out = {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": library_ms}
+    if dtype == torch.float32:
+        out["former_draw_ms"] = time_ms(torch, lambda: former_draw(
+            torch, x, q, gen))
+        out["host_us"] = k3_host_us(torch, fd, rate)
+    print(f"fused_dropout timing: {str(dtype)[6:]} {list(shape)} rate={rate} "
+          f"(8-bit) kernel_ms={kernel_ms:.6f} plain_ms={plain_ms:.6f} "
+          f"F.dropout_ms={library_ms:.6f} "
+          f"former_draw_ms={out.get('former_draw_ms')} "
           f"bound_ms={bound_ms:.6f} ({bound_by}) "
-          f"achieved_GB/s={8 * x.numel() / kernel_ms / 1e6:.1f}")
-    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms,
-            "former_draw_ms": former_ms,
-            "host_us": k3_host_us(torch, fd, rate)}
+          f"achieved_GB/s={n_bytes / kernel_ms / 1e6:.1f}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -982,9 +1080,9 @@ def _utterance_frames(rng, corpus):
 
 def write_data_dir(data_dir, kaldi_io, torch, corpus, n_utts, seed=SEED):
     """A seeded data dir of ``corpus``'s shape: feats.ark/scp, text and
-    vocab.txt (4 control words + the corpus's words).  TIMIT keeps the
-    generator of earlier runs (torch), so its data stay the same.  Returns
-    the number of frames."""
+    vocab.txt (4 control words + the corpus's words).  TIMIT's shape (no
+    lognormal lengths) keeps the generator of earlier runs (torch), so its
+    data stay the same.  Returns the number of frames."""
     import numpy as np
 
     data_dir.mkdir(parents=True)
@@ -992,7 +1090,7 @@ def write_data_dir(data_dir, kaldi_io, torch, corpus, n_utts, seed=SEED):
     with open(data_dir / "vocab.txt", "w") as f:
         for i, word in enumerate(["<blank>", "<unk>", "<s>", "</s>"] + words):
             f.write(f"{word} {i}\n")
-    if corpus is TIMIT:
+    if "lognormal" not in corpus:
         g = torch.Generator().manual_seed(seed)
         lo, hi = corpus["frames"]
 
@@ -1035,9 +1133,9 @@ def read_nbest(path):
     return out
 
 
-def compare_nbest(gpu, cpu):
-    """Scores within CPU_SCORE_ATOL lane by lane; words identical wherever
-    a hypothesis's score is more than WORD_GAP from its neighbours'."""
+def compare_nbest(gpu, cpu, atol=CPU_SCORE_ATOL, word_gap=WORD_GAP):
+    """Scores within ``atol`` lane by lane; words identical wherever a
+    hypothesis's score is more than ``word_gap`` from its neighbours'."""
     worst = 0.0
     for key, hyps in cpu.items():
         ref = gpu[key]
@@ -1046,15 +1144,42 @@ def compare_nbest(gpu, cpu):
         scores = [s for s, _ in ref]
         for i, ((s_g, w_g), (s_c, w_c)) in enumerate(zip(ref, hyps)):
             worst = max(worst, abs(s_g - s_c))
-            if abs(s_g - s_c) > CPU_SCORE_ATOL:
+            if abs(s_g - s_c) > atol:
                 raise AssertionError(f"{key} rank {i}: score {s_g} (card) "
                                      f"vs {s_c} (cpu)")
             gaps = [abs(scores[i] - scores[j]) for j in (i - 1, i + 1)
                     if 0 <= j < len(scores)]
-            if min(gaps, default=math.inf) > WORD_GAP and w_g != w_c:
+            if min(gaps, default=math.inf) > word_gap and w_g != w_c:
                 raise AssertionError(f"{key} rank {i}: words differ: "
                                      f"{w_g!r} vs {w_c!r}")
     return worst
+
+
+def nbest_distance(gpu, cpu):
+    """Two n-best files' largest score difference, rank by rank, and the
+    largest gap between a hypothesis's score and its neighbours' at which
+    their words differ (0.0 where the words agree throughout)."""
+    worst = word_gap = 0.0
+    for key, hyps in cpu.items():
+        scores = [s for s, _ in gpu[key]]
+        for i, ((s_g, w_g), (s_c, w_c)) in enumerate(zip(gpu[key], hyps)):
+            worst = max(worst, abs(s_g - s_c))
+            if w_g != w_c:
+                word_gap = max(word_gap, min(
+                    (abs(scores[i] - scores[j]) for j in (i - 1, i + 1)
+                     if 0 <= j < len(scores)), default=math.inf))
+    return worst, word_gap
+
+
+def compare_nbest_bf16(gpu, cpu, cpu32):
+    """The bfloat16 stream's n-best, card vs CPU: scores within
+    BF16_SCORE_ATOL, words identical wherever a score is more than
+    WORD_GAP from its neighbours'.  Returns (largest card-vs-CPU score
+    difference, the stream's own: the CPU's bfloat16 scores against its
+    float32 ones, rank by rank)."""
+    own, _ = nbest_distance(cpu32, cpu)
+    worst = compare_nbest(gpu, cpu, atol=BF16_SCORE_ATOL)
+    return worst, own
 
 
 def _sync(torch, device):
@@ -1063,8 +1188,9 @@ def _sync(torch, device):
 
 def run_slice(torch, corpus=TIMIT, device="cuda", model_args=None):
     """Stage 3 and stage 5 of ``corpus``'s recipe with the port on
-    ``device``, then the first decode batch again on the CPU.  Returns the
-    run's numbers; ``launches`` are the decode's."""
+    ``device``, then the first decode batch again on the CPU (its first
+    ``cpu_utts`` utterances where the corpus's decode sets it).  Returns
+    the run's numbers; ``launches`` are the decode's."""
     from pytorch_kaldi_asr_tpu_torch.data import read_vocab
     from pytorch_kaldi_asr_tpu_torch.data.loader import make_batch_loader
     from pytorch_kaldi_asr_tpu_torch.io import kaldi_io
@@ -1083,7 +1209,7 @@ def run_slice(torch, corpus=TIMIT, device="cuda", model_args=None):
         str(data / "vocab.txt"), "-seed", str(SEED),
         "-save_model_file", str(model), *(model_args or corpus["model"])])
 
-    def decode_args(data_dir, out, device):
+    def decode_args(data_dir, out, device, model=model):
         return ["-read_data_dir", str(data_dir), "-read_vocab_file",
                 str(data / "vocab.txt"), "-load_model_file", str(model),
                 "-save_result_file", str(out), "-device", device,
@@ -1093,14 +1219,18 @@ def run_slice(torch, corpus=TIMIT, device="cuda", model_args=None):
                 str(spec["max_tokens"])]
 
     sync = _sync(torch, device)
-    # the main path: every launch count at 0 just before, read just after
+    # the main path: every launch count at 0 just before, read just after;
+    # the wall time split by the CLI (load, data, encoder, search, write)
     reset_launch_counts()
+    split = {}
     sync()
     t0 = time.perf_counter()
-    decode.main(decode_args(data, work / "decode.txt", device))
+    decode.main(decode_args(data, work / "decode.txt", device),
+                timings=split)
     sync()
     decode_s = time.perf_counter() - t0
     launches = launch_counts()
+    split["other_s"] = decode_s - sum(split.values())
 
     t0 = time.perf_counter()
     decode.main(decode_args(data, work / "decode_again.txt", device))
@@ -1120,6 +1250,7 @@ def run_slice(torch, corpus=TIMIT, device="cuda", model_args=None):
     # the first decode batch again, on the CPU
     first = next(iter(loader))
     keys = [key for key, ok in zip(first.keys, first.valid) if ok]
+    keys = keys[:spec.get("cpu_utts", len(keys))]
     sub = work / "data_first_batch"
     sub.mkdir()
     scp = dict(kaldi_io.scp_entries(str(data / "feats.scp")))
@@ -1133,22 +1264,91 @@ def run_slice(torch, corpus=TIMIT, device="cuda", model_args=None):
     cpu = read_nbest(work / "decode_cpu.txt")
     if sorted(cpu) != sorted(keys):
         raise AssertionError("the CPU decode covered other utterances")
-    score_err = compare_nbest(gpu, cpu)
+    bf16_error = None
+    config = json.loads((model / "config.json").read_text())
+    if config["conformer_stream_dtype"] == "bfloat16":
+        # the same weights with a float32 stream: the bfloat16 stream's own
+        # error is the card's yardstick
+        model32 = work / "model_f32"
+        shutil.copytree(model, model32)
+        config["conformer_stream_dtype"] = "float32"
+        (model32 / "config.json").write_text(json.dumps(config))
+        decode.main(decode_args(sub, work / "decode_cpu_f32.txt", "cpu",
+                                model32))
+        score_err, bf16_error = compare_nbest_bf16(
+            gpu, cpu, read_nbest(work / "decode_cpu_f32.txt"))
+    else:
+        score_err = compare_nbest(gpu, cpu)
 
     audio_s = frames * 0.010
     return {
         "corpus": corpus["name"], "utterances": spec["utts"],
         "frames": frames, "batches": len(loader), "launches": launches,
         "decode_s": decode_s, "rtf": decode_s / audio_s,
+        "time_split_s": split, "model": str(model),
+        "first_batch_keys": keys,
         "decode_again_s": decode_again_s,
         "rtf_again": decode_again_s / audio_s,
         "cpu_first_batch_s": cpu_s, "cpu_vs_card_max_score_err": score_err,
+        "cpu_bf16_vs_f32_max_score_diff": bf16_error,
     }
 
 
-def _step_on(torch, device, params, cfg, batch, dtype=None):
+def check_fixed_buffer_search(torch, corpus, summary, device="cuda"):
+    """On the first decode batch of ``corpus`` (run_slice's ``summary``:
+    its checkpoint, data and first batch), the fixed-buffer ``beam_search``
+    against the KV-cached ``fast_beam_search`` on the card: the same
+    n-best tokens, scores within CPU_SCORE_ATOL.  Returns both searches'
+    times (the card synchronised) and the largest score difference."""
+    from pytorch_kaldi_asr_tpu_torch.data import read_vocab
+    from pytorch_kaldi_asr_tpu_torch.data.loader import make_batch_loader, to_device
+    from pytorch_kaldi_asr_tpu_torch.decode.beam import beam_search
+    from pytorch_kaldi_asr_tpu_torch.decode.fast_beam import fast_beam_search
+    from pytorch_kaldi_asr_tpu_torch.decode.runner import nbest_from_result
+    from pytorch_kaldi_asr_tpu_torch.train import load_checkpoint
+
+    spec = corpus["decode"]
+    data = Path(summary["model"]).parent / "data"
+    ckpt = load_checkpoint(summary["model"], device=device)
+    loader = make_batch_loader(str(data), read_vocab(str(data / "vocab.txt")),
+                               spec["batch"], mode="all", shuffle=False,
+                               num_buckets=spec["buckets"])
+    b = to_device(next(iter(loader)), device)
+    kw = dict(beam_size=spec["beam"], max_len=spec["max_tokens"])
+    sync = _sync(torch, device)
+    results, times = {}, {}
+    for search in (fast_beam_search, beam_search, fast_beam_search,
+                   beam_search):
+        sync()
+        t0 = time.perf_counter()
+        results[search.__name__] = search(ckpt["params"], ckpt["cfg"], b.src,
+                                          b.src_mask, **kw)
+        sync()
+        times[search.__name__] = time.perf_counter() - t0  # the second run
+    fast, fixed = (nbest_from_result(results[n], spec["nbest"])
+                   for n in ("fast_beam_search", "beam_search"))
+    worst = 0.0
+    for utt, (hyps_f, hyps_b) in enumerate(zip(fast, fixed)):
+        for rank, ((seq_f, s_f), (seq_b, s_b)) in enumerate(zip(hyps_f,
+                                                                hyps_b)):
+            worst = max(worst, abs(s_f - s_b))
+            if seq_f != seq_b or abs(s_f - s_b) > CPU_SCORE_ATOL:
+                raise AssertionError(
+                    f"{corpus['name']} utterance {utt} rank {rank}: "
+                    f"beam_search {seq_b} {s_b} vs fast_beam_search "
+                    f"{seq_f} {s_f}")
+    out = {"fast_beam_search_s": times["fast_beam_search"],
+           "beam_search_s": times["beam_search"],
+           "max_score_diff": worst, "utterances": len(fast)}
+    print(f"{corpus['name']}: beam_search = fast_beam_search on the first "
+          f"decode batch: " + json.dumps(out))
+    return out
+
+
+def _step_on(torch, device, params, cfg, batch, dtype=None, seed=0):
     """One train step from ``params`` on ``device`` (in ``dtype``, default
-    float32); returns (loss, {leaf path: gradient on the CPU in float64})."""
+    float32; dropout masks from ``seed``); returns (loss, {leaf path:
+    gradient on the CPU in float64})."""
     from pytorch_kaldi_asr_tpu_torch.data.loader import to_device
     from pytorch_kaldi_asr_tpu_torch.models.transformer import tree_map
     from pytorch_kaldi_asr_tpu_torch.train import create_train_state, train_step
@@ -1156,7 +1356,8 @@ def _step_on(torch, device, params, cfg, batch, dtype=None):
 
     dtype = dtype or torch.float32
     state = create_train_state(
-        tree_map(lambda t: t.detach().to(device, dtype, copy=True), params))
+        tree_map(lambda t: t.detach().to(device, dtype, copy=True), params),
+        seed=seed)
     b = to_device(batch, device)
     metrics = train_step(state, cfg, b.src.to(dtype), b.src_mask, b.tgt,
                          b.tgt_mask)
@@ -1208,6 +1409,102 @@ def card_vs_cpu_step(torch, device, params, cfg, batch):
                     f"{errs[k]:.2e} of its max; against float64 the card is "
                     f"off by {card:.2e}, the CPU by {cpu:.2e}")
     return out
+
+
+def bf16_step_ratios(torch, dev, cpu16, cpu32):
+    """For the loss and each gradient leaf, the distance of the step
+    ``dev`` from the CPU's bfloat16 step ``cpu16`` over the bfloat16
+    stream's own error, ``cpu16``'s distance from the float32 step
+    ``cpu32`` (each a ``_step_on`` result): per leaf over its largest entry
+    (``largest``) and over its mean (``mean``), the loss at least to the
+    float32 gate's STEP_LOSS_RTOL.  Adds the median leaf and the largest
+    of each."""
+    (loss_dev, g_dev), (loss16, g16), (loss32, g32) = dev, cpu16, cpu32
+
+    def ratio(k, stat):
+        num, den = (float(stat((a[k] - b[k]).abs()))
+                    for a, b in ((g_dev, g16), (g16, g32)))
+        return num / den if den > 0 else (0.0 if num == 0 else math.inf)
+
+    # the loss's bfloat16 error is a few float32 ulps (its rounding errors
+    # cancel over the tokens): it is held to the float32 gate's tolerance
+    # where that is the larger
+    out = {"loss_ratio": abs(loss_dev - loss16) / max(
+        abs(loss16 - loss32), STEP_LOSS_RTOL * abs(loss16) / BF16_LEAF_RATIO)}
+    for name, stat in (("largest", torch.max), ("mean", torch.mean)):
+        leaves = {str(k): ratio(k, stat) for k in g16}
+        worst = max(leaves, key=leaves.get)
+        out.update({name: leaves, f"{name}_median_leaf":
+                    statistics.median(leaves.values()),
+                    f"{name}_worst_leaf": worst,
+                    f"{name}_worst": leaves[worst]})
+    return out
+
+
+def bf16_card_vs_cpu_step(torch, device, params, cfg, batch):
+    """One train step of the bfloat16-stream model with dropout on, three
+    times with the same masks: on ``device``, on the CPU, and on the CPU
+    with the float32 stream.  By ``bf16_step_ratios`` over the leaves'
+    largest entries, the median leaf must be at most BF16_MEDIAN_RATIO and
+    the loss and every leaf at most BF16_LEAF_RATIO.  Asserts that the
+    encoder's output on the card is bfloat16.  Returns every ratio."""
+    from pytorch_kaldi_asr_tpu_torch.data.loader import to_device
+    from pytorch_kaldi_asr_tpu_torch.models.transformer import encode, tree_map
+
+    b = to_device(batch, device)
+    with torch.no_grad():
+        enc, _ = encode(tree_map(lambda t: t.to(device), params), cfg, b.src,
+                        b.src_mask)
+    if enc.dtype != torch.bfloat16:
+        raise AssertionError(f"the bfloat16 stream encoded to {enc.dtype}")
+    dev = _step_on(torch, device, params, cfg, batch)
+    t0 = time.perf_counter()
+    cpu16 = _step_on(torch, "cpu", params, cfg, batch)
+    cpu32 = _step_on(torch, "cpu", params,
+                     cfg.replace(conformer_stream_dtype="float32"), batch)
+    r = bf16_step_ratios(torch, dev, cpu16, cpu32)
+    out = {"loss": dev[0], "loss_cpu_bf16": cpu16[0], "loss_cpu_f32": cpu32[0],
+           "cpu_steps_s": time.perf_counter() - t0, **r}
+    print("bfloat16 train step ratios: median leaf "
+          f"{r['largest_median_leaf']:.3f} (means {r['mean_median_leaf']:.3f}"
+          f"), loss {r['loss_ratio']:.3f}; largest entries: " + json.dumps(
+              sorted(r["largest"].items(), key=lambda kv: -kv[1])[:12]))
+    if not all(math.isfinite(v)
+               for v in (r["loss_ratio"], *r["largest"].values())):
+        raise AssertionError(f"bfloat16 train step {device} vs cpu: a "
+                             f"ratio is not finite")
+    if r["largest_median_leaf"] > BF16_MEDIAN_RATIO:
+        raise AssertionError(
+            f"bfloat16 train step {device} vs cpu: the median leaf at "
+            f"{r['largest_median_leaf']:.3f} of the stream's own error "
+            f"(gate {BF16_MEDIAN_RATIO})")
+    worst, value = max(
+        (("loss", r["loss_ratio"]),
+         (r["largest_worst_leaf"], r["largest_worst"])), key=lambda kv: kv[1])
+    if value > BF16_LEAF_RATIO:
+        raise AssertionError(f"bfloat16 train step {device} vs cpu: {worst} "
+                             f"at {value:.3f} of the stream's own error "
+                             f"(gate {BF16_LEAF_RATIO})")
+    return out
+
+
+def noisy_leaf_spread(torch, device, params, cfg, batches, seeds=(0, 1, 2)):
+    """The TIMIT leaf NOISY_LEAF's distance from a float64 CPU step (over
+    its largest entry), for the card and the CPU in float32, at each of
+    ``seeds`` (the dropout masks) and ``batches``: the spread the float32
+    gate's FLOAT64_RATIO is read against."""
+    rows = []
+    for seed in seeds:
+        for i, batch in enumerate(batches):
+            g = {name: _step_on(torch, dev, params, cfg, batch, dtype,
+                                seed)[1][NOISY_LEAF]
+                 for name, dev, dtype in (("card", device, None),
+                                          ("cpu", "cpu", None),
+                                          ("f64", "cpu", torch.float64))}
+            rows.append({"seed": seed, "batch": i,
+                         "card_vs_float64": _rel_err(g["card"], g["f64"]),
+                         "cpu_vs_float64": _rel_err(g["cpu"], g["f64"])})
+    return rows
 
 
 def run_train(torch, corpus=TIMIT, device="cuda", model_args=None, utts=None,
@@ -1316,8 +1613,14 @@ def run_train(torch, corpus=TIMIT, device="cuda", model_args=None, utts=None,
                                    batch, mode="drop")
     first = next(iter(loader))
     rows = spec["cpu_rows"] or batch
-    check = card_vs_cpu_step(torch, device, ckpt["params"], ckpt["cfg"],
-                             type(first)(*(x[:rows] for x in first)))
+    rows_of_first = type(first)(*(x[:rows] for x in first))
+    bf16 = ckpt["cfg"].conformer_stream_dtype == "bfloat16"
+    if bf16:
+        check = bf16_card_vs_cpu_step(torch, device, ckpt["params"],
+                                      ckpt["cfg"], rows_of_first)
+    else:
+        check = card_vs_cpu_step(torch, device, ckpt["params"], ckpt["cfg"],
+                                 rows_of_first)
     print(f"{corpus['name']}: one train step of {rows} utterances at dropout "
           f"{ckpt['cfg'].en_dropout}/{ckpt['cfg'].de_dropout}, {device} vs "
           f"cpu: " + json.dumps(check))
@@ -1508,14 +1811,205 @@ def train_step_only(torch, corpus=TIMIT):
     return out
 
 
+def noisy_leaf_only(torch):
+    """``--noisy-leaf``: the TIMIT model from seed 0 at the recipe's widths
+    and the first two batches of run_train's train set (batch 100), and
+    NOISY_LEAF's distance from a float64 CPU step on the card and on the
+    CPU in float32 at 3 seeds x 2 batches (``noisy_leaf_spread``; about 6
+    minutes on the chip machine's CPU)."""
+    from pytorch_kaldi_asr_tpu_torch.data import read_vocab
+    from pytorch_kaldi_asr_tpu_torch.data.loader import make_batch_loader
+    from pytorch_kaldi_asr_tpu_torch.io import kaldi_io
+    from pytorch_kaldi_asr_tpu_torch.recipes import initialize_model
+    from pytorch_kaldi_asr_tpu_torch.train import load_checkpoint
+
+    spec = TIMIT["train"]
+    work = WORK / "noisy_leaf"
+    if work.exists():
+        shutil.rmtree(work)
+    data = work / "train"
+    write_data_dir(data, kaldi_io, torch, TIMIT, spec["utts"]["train"],
+                   seed=1)
+    initialize_model.main([
+        "-read_feats_scp_file", str(data / "feats.scp"),
+        "-lda_mat_file", "identity", "-read_vocab_file",
+        str(data / "vocab.txt"), "-seed", str(SEED), "-save_model_file",
+        str(work / "model.init"), *TIMIT["model"]])
+    ckpt = load_checkpoint(str(work / "model.init"))
+    batches = iter(make_batch_loader(str(data),
+                                     read_vocab(str(data / "vocab.txt")),
+                                     spec["batch"], mode="drop"))
+    return noisy_leaf_spread(torch, "cuda", ckpt["params"], ckpt["cfg"],
+                             [next(batches), next(batches)])
+
+
+BF16_FAULTS = ("dropout_scale_unrounded", "swish_rounded_once",
+               "layer_norm_two_pass", "float32_stream")
+
+
+@contextlib.contextmanager
+def planted_fault(torch, name):
+    """One fault of the bfloat16 stream planted in the port's modules in
+    memory, for ``--bf16-gates``, and taken out again on exit: dropout on
+    bfloat16 scaled by the exact 256/q instead of the reference's bfloat16
+    rounding of it; the conv module's swish as ``F.silu`` on bfloat16 (one
+    rounding, not the reference's three); layer norm on bfloat16 with the
+    float32 path's two-pass moments instead of the reference's one-pass
+    ones.  ``None`` and ``float32_stream`` plant nothing here (for the
+    latter the caller runs the model with a float32 stream)."""
+    import torch.nn.functional as F
+
+    from pytorch_kaldi_asr_tpu_torch.models import common, encoders, transformer
+    from pytorch_kaldi_asr_tpu_torch.ops.fused_dropout import masked_dropout
+
+    def dropout_scale_unrounded(x, rate, seed, train):
+        if x.dtype != torch.bfloat16:
+            return common.dropout(x, rate, seed, train)
+        q = round((1.0 - rate) * 256)
+        return masked_dropout(x, seed, (256 - q) << 24, 256.0 / q)
+
+    def layer_norm_two_pass(z, gamma, beta, **kw):
+        return common.layer_norm(z.float(), gamma, beta, **kw).to(z.dtype)
+
+    module, attr, fault = {
+        "dropout_scale_unrounded": (transformer, "dropout",
+                                    dropout_scale_unrounded),
+        "swish_rounded_once": (encoders, "_swish",
+                               lambda h: F.silu(h).float()),
+        "layer_norm_two_pass": (encoders, "layer_norm", layer_norm_two_pass),
+    }.get(name, (None, None, None))
+    if module is None:
+        yield
+        return
+    sound = getattr(module, attr)
+    setattr(module, attr, fault)
+    try:
+        yield
+    finally:
+        setattr(module, attr, sound)
+
+
+def bf16_gate_readings(torch, device="cuda", model_args=None):
+    """``--bf16-gates``: what the bfloat16 stream's card-vs-CPU gates read
+    on the conformer recipe's model as it ships, sound and with each of
+    BF16_FAULTS planted on the card.  Decode: 16 LibriSpeech-shaped
+    utterances with the recipe's stage-5 flags, the card's n-best against
+    the CPU's bfloat16 one (``nbest_distance``), for the models of seeds 0
+    and 1 (sound) and seed 0 (each fault).  Train step: 4 utterances at the
+    recipe's dropout from model.init (``bf16_step_ratios``), sound at two
+    batches and two dropout seeds, each fault at the first, and there the
+    CPU's own step with every weight one float32 ulp off.  About 10
+    minutes on the chip machine, most of it the CPU's steps.  ``device``
+    and ``model_args`` (the corpus's flags by default) rehearse it off the
+    card at a small width."""
+    from pytorch_kaldi_asr_tpu_torch.data import read_vocab
+    from pytorch_kaldi_asr_tpu_torch.data.loader import make_batch_loader
+    from pytorch_kaldi_asr_tpu_torch.io import kaldi_io
+    from pytorch_kaldi_asr_tpu_torch.models.transformer import tree_map
+    from pytorch_kaldi_asr_tpu_torch.recipes import decode, initialize_model
+    from pytorch_kaldi_asr_tpu_torch.train import load_checkpoint
+
+    corpus, spec = LIBRISPEECH_BF16, LIBRISPEECH_BF16["decode"]
+    work = WORK / "bf16_gates"
+    if work.exists():
+        shutil.rmtree(work)
+    data = work / "data"
+    write_data_dir(data, kaldi_io, torch, corpus, spec["utts"])
+
+    def init(seed, stream="bfloat16"):
+        model = work / f"model_{seed}_{stream}"
+        initialize_model.main([
+            "-read_feats_scp_file", str(data / "feats.scp"), "-lda_mat_file",
+            "identity", "-read_vocab_file", str(data / "vocab.txt"), "-seed",
+            str(seed), "-save_model_file", str(model),
+            *[x if x != "bfloat16" else stream
+              for x in model_args or corpus["model"]]])
+        return model
+
+    def nbest(model, device, fault=None):
+        out = work / f"decode_{model.name}_{device}_{fault}.txt"
+        with planted_fault(torch, fault):
+            decode.main([
+                "-read_data_dir", str(data), "-read_vocab_file",
+                str(data / "vocab.txt"), "-load_model_file", str(model),
+                "-save_result_file", str(out), "-device", device,
+                "-batch_size", str(spec["batch"]), "-num_buckets",
+                str(spec["buckets"]), "-beam_size", str(spec["beam"]),
+                "-nbest", str(spec["nbest"]), "-max_token_seq_len",
+                str(spec["max_tokens"])])
+        return read_nbest(out)
+
+    def distance(gpu, cpu):
+        score, gap = nbest_distance(gpu, cpu)
+        return {"max_score_diff": score, "largest_gap_words_differ": gap}
+
+    readings = {"decode": {}, "step": {}}
+    for seed in (0, 1):
+        model, model32 = init(seed), init(seed, "float32")
+        cpu = nbest(model, "cpu")
+        readings["decode"][f"own_seed{seed}"] = distance(
+            nbest(model32, "cpu"), cpu)
+        readings["decode"][f"sound_seed{seed}"] = distance(
+            nbest(model, device), cpu)
+        if seed == 0:
+            for fault in BF16_FAULTS:
+                readings["decode"][fault] = distance(
+                    nbest(model32 if fault == "float32_stream" else model,
+                          device, fault), cpu)
+    print("BF16_GATES decode " + json.dumps(readings["decode"]))
+
+    ckpt = load_checkpoint(str(work / "model_0_bfloat16"))
+    params, cfg = ckpt["params"], ckpt["cfg"]
+    cfg32 = cfg.replace(conformer_stream_dtype="float32")
+    loader = iter(make_batch_loader(str(data),
+                                    read_vocab(str(data / "vocab.txt")),
+                                    corpus["train"]["cpu_rows"], mode="drop"))
+    batches = [next(loader), next(loader)]
+
+    def summary(r, dev, cpu16, cpu32):
+        return {"losses": [dev[0], cpu16[0], cpu32[0]],
+                **{k: v for k, v in r.items() if k not in ("largest", "mean")}}
+
+    for i, seed in ((0, 0), (0, 1), (1, 0)):
+        batch = batches[i]
+        cpu16 = _step_on(torch, "cpu", params, cfg, batch, seed=seed)
+        cpu32 = _step_on(torch, "cpu", params, cfg32, batch, seed=seed)
+        dev = _step_on(torch, device, params, cfg, batch, seed=seed)
+        readings["step"][f"sound_batch{i}_seed{seed}"] = summary(
+            bf16_step_ratios(torch, dev, cpu16, cpu32), dev, cpu16, cpu32)
+        if (i, seed) == (0, 0):
+            for fault in BF16_FAULTS:
+                with planted_fault(torch, fault):
+                    dev = _step_on(torch, device, params,
+                                   cfg32 if fault == "float32_stream" else cfg,
+                                   batch, seed=seed)
+                readings["step"][fault] = summary(
+                    bf16_step_ratios(torch, dev, cpu16, cpu32), dev, cpu16,
+                    cpu32)
+            # the noise: the CPU's own step, every weight one float32 ulp
+            # off (random signs)
+            signs = torch.Generator().manual_seed(9)
+            moved = tree_map(lambda t: t * (1 + (torch.randint(
+                0, 2, t.shape, generator=signs) * 2 - 1) * 2.0 ** -23),
+                params)
+            dev = _step_on(torch, "cpu", moved, cfg, batch, seed=seed)
+            readings["step"]["cpu_one_ulp"] = summary(
+                bf16_step_ratios(torch, dev, cpu16, cpu32), dev, cpu16,
+                cpu32)
+        print(f"BF16_GATES step batch {i} seed {seed} done")
+    return readings
+
+
 def check_train_launches(training):
     """K2a-c at exactly en_layers x steps, K3 at exactly (dropout sites) x
-    steps each way, and K1 in the evaluations."""
+    steps each way for each dtype, and K1 in the evaluations."""
     launches, steps = training["launches"], training["train_steps"]
+    sites = training["dropout_sites"]
     want = {f"banded_attention_{k}": training["en_layers"] * steps
             for k in ("fwd", "dq", "dkv")}
-    want.update({f"fused_dropout_{k}": training["dropout_sites"] * steps
-                 for k in ("forward", "backward")})
+    for way in ("forward", "backward"):
+        want[f"fused_dropout_{way}"] = sites["float32"] * steps
+        want[f"fused_dropout_{way}_bf16"] = sites["bfloat16"] * steps
     for name, n in want.items():
         if launches[name] != n:
             raise AssertionError(f"{training['corpus']}: {name} launched "
@@ -1536,6 +2030,8 @@ def main():
               file=sys.stderr)
         return 2
     step_only = sys.argv[1:2] == ["--train-step"]
+    noisy_leaf = sys.argv[1:2] == ["--noisy-leaf"]
+    bf16_gates = sys.argv[1:2] == ["--bf16-gates"]
     sources = ([Path(p).resolve() for p in sys.argv[2:]]
                if sys.argv[1:2] == ["--k2-sources"] else None)
     if sources == []:
@@ -1543,11 +2039,12 @@ def main():
               file=sys.stderr)
         return 2
     tree = Path(sys.argv[2]).resolve() if step_only else REPO
-    corpus = {"timit": TIMIT, "librispeech": LIBRISPEECH}.get(
-        sys.argv[3] if step_only and len(sys.argv) > 3 else "timit")
+    name = sys.argv[3] if step_only and len(sys.argv) > 3 else "timit"
+    corpus = next((c for c in (TIMIT, LIBRISPEECH, LIBRISPEECH_BF16)
+                   if c["name"] == name), None)
     if corpus is None:
-        print(f"chip_smoke: --train-step takes timit or librispeech, got "
-              f"{sys.argv[3]}", file=sys.stderr)
+        print(f"chip_smoke: --train-step takes timit, librispeech or "
+              f"librispeech_bf16, got {name}", file=sys.stderr)
         return 2
     if not (tree / "pytorch_kaldi_asr_tpu_torch").is_dir():
         print(f"chip_smoke: {tree} is not a checkout of the repository",
@@ -1579,6 +2076,15 @@ def main():
             print("K2_SOURCES " + json.dumps(
                 {"card": card, "shape": shape, "builds": row}))
         return 0
+    if noisy_leaf:
+        print("NOISY_LEAF " + json.dumps(
+            {"card": card, "leaf": ".".join(map(str, NOISY_LEAF)),
+             "distance_from_float64": noisy_leaf_only(torch)}))
+        return 0
+    if bf16_gates:
+        print("BF16_GATES " + json.dumps({"card": card,
+                                          **bf16_gate_readings(torch)}))
+        return 0
     if step_only:
         print("TRAIN_STEP " + json.dumps(
             {"tree": str(tree), "card": card, "corpus": corpus["name"],
@@ -1593,16 +2099,22 @@ def main():
     check_forward_launches(torch, ba)
     check_backward_launches(torch, ba)
     k3_err = check_fused_dropout(torch, fd)
+    k3_bf16_err = check_fused_dropout(torch, fd, torch.bfloat16)
     timing = {shape: time_banded_attention(torch, ba, shape)
               for shape in ("timit_decode", "conformer_decode")}
     train_timing = {shape: time_trainable_attention(torch, ba, shape)
                     for shape in TRAIN_TIMING_SHAPES}
     k3_timing = time_fused_dropout(torch, fd)
+    k3_bf16_timing = {
+        str(list(shape)): time_fused_dropout(torch, fd, shape,
+                                             dtype=torch.bfloat16)
+        for shape in reversed(K3_SHAPES)}
     torch.cuda.empty_cache()
     print(f"kernel phase done at {time.perf_counter() - t_start:.1f} s")
 
     decodes, trainings = {}, {}
-    for corpus in (TIMIT, LIBRISPEECH):
+
+    def decode_path(corpus):
         name = corpus["name"]
         summary = run_slice(torch, corpus)
         en_layers = int(corpus["model"][corpus["model"].index("-en_layers")
@@ -1615,8 +2127,13 @@ def main():
                 f"decode, expected {expected}")
         summary["card"] = card
         print(f"{name} decode: " + json.dumps(summary))
+        print(f"{name} decode time split (s): "
+              + json.dumps(summary["time_split_s"]))
         decodes[name] = summary
+        return summary
 
+    def train_path(corpus):
+        name = corpus["name"]
         training = run_train(torch, corpus)
         check_train_launches(training)
         training["card"] = card
@@ -1631,6 +2148,21 @@ def main():
         trainings[name] = training
         torch.cuda.empty_cache()
         print(f"{name} done at {time.perf_counter() - t_start:.1f} s")
+
+    timit = decode_path(TIMIT)
+    searches = check_fixed_buffer_search(torch, TIMIT, timit)
+    decode_path(TIMIT_NONCAUSAL)  # the fixed-buffer search through the CLI
+    train_path(TIMIT)
+    for corpus in (LIBRISPEECH, LIBRISPEECH_BF16):
+        decode_path(corpus)
+        train_path(corpus)
+    for name in ("librispeech", "librispeech_bf16"):
+        profile = trainings[name]["step_profile"]
+        print(f"conformer train step, {name}: "
+              f"{trainings[name]['step_ms']:.3f} ms, "
+              f"{trainings[name]['frames_per_s']:.0f} real frames/s, "
+              f"{profile['device_ms_per_step']:.2f} ms of device time, idle "
+              f"share {profile['idle_share']:.3f}")
 
     def total(name, paths):
         return sum(p["launches"][name] for p in paths)
@@ -1649,15 +2181,19 @@ def main():
             launches=total(f"banded_attention_{name}", paths),
             max_abs_err=train_errs[name],
             **train_timing["conformer_train"][name]))
-    kernels.append(dict(
-        name="fused_dropout", route="cuda",
-        source="pytorch_kaldi_asr_tpu_torch/ops/csrc/fused_dropout.cu",
-        replaces="pytorch_kaldi_asr_tpu/ops/fused_dropout.py:34",
-        launches=total("fused_dropout_forward", paths)
-        + total("fused_dropout_backward", paths),
-        max_abs_err=k3_err,
-        **{k: k3_timing[k] for k in ("ms", "plain_ms", "bound_ms",
-                                     "bound_by", "library_ms")}))
+    row_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for name, suffix, err_k3, timed in (
+            ("fused_dropout", "", k3_err, k3_timing),
+            ("fused_dropout_bf16", "_bf16", k3_bf16_err,
+             k3_bf16_timing[str(list(K3_SHAPES[1]))])):
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="pytorch_kaldi_asr_tpu_torch/ops/csrc/fused_dropout.cu",
+            replaces="pytorch_kaldi_asr_tpu/ops/fused_dropout.py:34",
+            launches=total(f"fused_dropout_forward{suffix}", paths)
+            + total(f"fused_dropout_backward{suffix}", paths),
+            max_abs_err=err_k3, **{k: timed[k] for k in row_keys}))
+    print("fixed-buffer search on the card: " + json.dumps(searches))
     print(f"whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,4 +1,5 @@
-"""Beam-search state and the beam step shared by the searches.
+"""Beam-search state, the beam step shared by the searches, and the
+fixed-buffer search.
 
 Hypotheses live in ``[B·beam, T+1]`` lanes; the reference's competition rule
 (finished hypotheses stay in the pool and compete with every extension of
@@ -11,8 +12,14 @@ Ties: ``jax.lax.top_k`` returns the lowest index among equal scores, and
 every step, so the port takes a stable descending sort and keeps the first
 ``beam`` entries, which reproduces the JAX order.
 
-The JAX package's fixed-buffer ``beam_search`` (the search for a non-causal
-decoder band) is not ported yet; see ROADMAP.md.
+``beam_search`` is the JAX package's fixed-buffer search, the one that
+serves any decoder band (decode/fast_beam.py's KV-cached search needs a
+causal one): hypotheses live in a ``[B·beam, max_len + 1]`` token buffer,
+and every step decodes the whole buffer and reads the logits at the step's
+position.  Positions after t hold PAD; with a causal band they cannot reach
+position t, with a non-causal one they do, exactly as in the JAX package.
+Pinned against the JAX ``beam_search``, ``fast_beam_search`` and the
+``Lattice`` oracle by tests/test_torch_beam_search.py.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from typing import NamedTuple
 
 import torch
 
+from pytorch_kaldi_asr_tpu_torch.models.transformer import decode_logits, encode
 from pytorch_kaldi_asr_tpu_torch.utils import constants
 
 
@@ -73,3 +81,56 @@ def _advance(state, word_lk, t, beam_size, vocab):
     new_lengths = torch.where(now_eos, torch.full_like(parent_lengths, t + 2),
                               parent_lengths)
     return (tokens, top_scores, new_finished, new_lengths), parent
+
+
+@torch.no_grad()
+def beam_search(params, cfg, src, src_mask, *, beam_size, max_len):
+    """Encode a batch and beam-search it over the fixed token buffer.
+    ``max_len`` is the reference's ``max_token_seq_len``: at most that many
+    steps, and the decoder never sees more than ``max_len`` positions.
+    Every step runs (a finished beam's steps are exact no-ops), so the loop
+    counter is the only host-side state: no step waits on the card."""
+    enc_output, src_mask_f = encode(params, cfg, src, src_mask)
+    return beam_search_memory(params, cfg, enc_output, src_mask_f,
+                              beam_size=beam_size, max_len=max_len)
+
+
+@torch.no_grad()
+def beam_search_memory(params, cfg, enc_output, src_mask_f, *, beam_size,
+                       max_len):
+    """:func:`beam_search` over encoder memory (``encode``'s output and
+    folded mask)."""
+    if max_len > cfg.decoder_max_len:
+        raise ValueError("max_len exceeds the decoder position table")
+    b = enc_output.shape[0]
+    vocab = cfg.vocab_size
+    device = enc_output.device
+    enc_rep = torch.repeat_interleave(enc_output, beam_size, dim=0)
+    srcm_rep = torch.repeat_interleave(src_mask_f, beam_size, dim=0)
+
+    n = b * beam_size
+    tokens = torch.zeros((n, max_len + 1), dtype=torch.int64, device=device)
+    tokens[:, 0] = constants.BOS
+    scores = torch.full((b, beam_size), float("-inf"), device=device)
+    scores[:, 0] = 0.0
+    finished = torch.zeros((b, beam_size), dtype=torch.bool, device=device)
+    lengths = torch.full((b, beam_size), max_len + 1, dtype=torch.int64,
+                         device=device)
+    ones_mask = torch.ones((n, max_len), dtype=torch.uint8, device=device)
+
+    # step 0 decodes the length-1 buffer [BOS]: the reference runs the
+    # decoder on a sequence of length 1 here, where layer norm is skipped
+    logits = decode_logits(params, cfg, tokens[:, :1], ones_mask[:, :1],
+                           srcm_rep, enc_rep)
+    state, _ = _advance((tokens, scores, finished, lengths),
+                        torch.log_softmax(logits[:, 0], dim=-1), 0,
+                        beam_size, vocab)
+    for t in range(1, max_len):
+        logits = decode_logits(params, cfg, state[0][:, :max_len], ones_mask,
+                               srcm_rep, enc_rep)
+        state, _ = _advance(state, torch.log_softmax(logits[:, t], dim=-1),
+                            t, beam_size, vocab)
+
+    tokens, scores, finished, lengths = state
+    return BeamResult(tokens=tokens.reshape(b, beam_size, max_len + 1),
+                      scores=scores, lengths=lengths, finished=finished)

@@ -150,8 +150,18 @@ def fast_beam_search(params, cfg, src, src_mask, *, beam_size, max_len):
     [B, S, D] float32 and ``src_mask`` [B, S] on the params' device."""
     _check_search_cfg(cfg, max_len)
     enc_output, src_mask_f = encode(params, cfg, src, src_mask)
-    prefix = torch.zeros((src.shape[0], 0), dtype=torch.int64,
-                         device=src.device)
+    return fast_beam_search_memory(params, cfg, enc_output, src_mask_f,
+                                   beam_size=beam_size, max_len=max_len)
+
+
+@torch.no_grad()
+def fast_beam_search_memory(params, cfg, enc_output, src_mask_f, *,
+                            beam_size, max_len):
+    """:func:`fast_beam_search` over encoder memory (``encode``'s output
+    and folded mask)."""
+    _check_search_cfg(cfg, max_len)
+    prefix = torch.zeros((enc_output.shape[0], 0), dtype=torch.int64,
+                         device=enc_output.device)
     return _search_from_memory(params, cfg, enc_output, src_mask_f, prefix,
                                beam_size=beam_size, max_len=max_len)
 
@@ -171,7 +181,9 @@ def _search_from_memory(params, cfg, enc_output, src_mask_f, prefix, *,
         raise ValueError(f"prefix length {P} leaves no room under "
                          f"max_len {max_len}")
 
-    enc_proj = enc_output @ dec["enc_dec_proj"]["w"]  # [B, S, de_d]
+    # [B, S, de_d] in the weights' dtype, whatever the encoder stream's
+    w = dec["enc_dec_proj"]["w"]
+    enc_proj = enc_output.to(w.dtype) @ w
     cross_k, cross_v = project_cross_kv(dec, enc_proj, beam_size)
     src_valid = torch.repeat_interleave(src_mask_f > 0, beam_size, dim=0)
     pos_table = position_encoding_table(cfg.decoder_max_len, cfg.de_d_model,

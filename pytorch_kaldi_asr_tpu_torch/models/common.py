@@ -12,9 +12,15 @@ of them moves WER without an error:
   and is the identity when the sequence axis has length 1 (``skip_len1``);
 - frame folding subsamples the mask at ``[fold-1::fold]``;
 - dropout keeps each element with probability q/256,
-  ``q = round((1 - rate) * 256)``, and scales kept values by exactly 256/q.
+  ``q = round((1 - rate) * 256)``, and scales kept values by exactly 256/q
+  (on bfloat16, by 256/q rounded to bfloat16: 1.109375 at rate 0.1, not
+  1.1130, as the JAX package's weak-typed Python float rounds it);
+- layer norm on bfloat16 takes its statistics in float32 from one-pass
+  moments, ``var = max(Σz² - n·mu², 0) / (n - 1)``, and rounds its output
+  back to bfloat16.
 
-Only the float32 path is ported: the port computes in float32 throughout.
+The port computes in float32; the conformer's residual stream (and so
+layer norm and dropout on it) may be bfloat16.
 """
 
 from __future__ import annotations
@@ -84,17 +90,25 @@ def masked_softmax(logits, blocked):
 def layer_norm(z, gamma, beta, eps=1e-3, skip_len1=True):
     """Reference-style layer norm over the last axis of [B, L, D]: unbiased
     std (÷(N-1)), ``eps`` added to the std, identity when L == 1 and
-    ``skip_len1``."""
+    ``skip_len1``.  A bfloat16 ``z`` is normalised in float32 with the
+    one-pass moments and the result rounded back to bfloat16."""
     if skip_len1 and z.shape[1] == 1:
         return z
     n = z.shape[-1]
-    mu = z.mean(dim=-1, keepdim=True)
-    var = ((z - mu) ** 2).sum(dim=-1, keepdim=True) / (n - 1)
+    if z.dtype == torch.bfloat16:
+        zf = z.float()
+        mu = zf.sum(dim=-1, keepdim=True) / n
+        s2 = (zf * zf).sum(dim=-1, keepdim=True)
+        var = torch.clamp_min(s2 - n * mu * mu, 0.0) / (n - 1)
+    else:
+        zf = z
+        mu = z.mean(dim=-1, keepdim=True)
+        var = ((z - mu) ** 2).sum(dim=-1, keepdim=True) / (n - 1)
     # safe sqrt: the same value, but a constant row (var == 0) gets a zero
     # gradient instead of inf * 0 = NaN
     safe = var > 0
     sigma = torch.where(safe, torch.sqrt(torch.where(safe, var, 1.0)), 0.0)
-    return (z - mu) / (sigma + eps) * gamma + beta
+    return ((zf - mu) / (sigma + eps) * gamma + beta).to(z.dtype)
 
 
 def splice_frames(x, context):
@@ -150,15 +164,20 @@ def dropout(x, rate, seed, train):
     scaled by 256/q, so the estimate stays unbiased.  The mask comes from
     the fused-dropout kernel (ops/fused_dropout.py) keyed by ``seed``: kept
     iff its 32-bit word is at least ``(256 - q) * 2**24``, which has
-    probability exactly q/256.  Identity when not training, when
-    ``rate == 0``, without a seed, or when q >= 256."""
+    probability exactly q/256.  On bfloat16 the scale is 256/q rounded to
+    bfloat16, as the JAX package's weak-typed Python float is, so kept
+    values are ``bf16(float(x) * bf16(256/q))``.  Identity when not
+    training, when ``rate == 0``, without a seed, or when q >= 256."""
     if not train or rate == 0.0 or seed is None:
         return x
     q = round((1.0 - rate) * 256)
     if q >= 256:
         return x
     q = max(q, 1)
-    return masked_dropout(x, seed, (256 - q) << 24, 256.0 / q)
+    scale = 256.0 / q
+    if x.dtype == torch.bfloat16:
+        scale = float(torch.tensor(scale, dtype=torch.bfloat16))
+    return masked_dropout(x, seed, (256 - q) << 24, scale)
 
 
 def xavier_normal(generator, shape, fan_in, fan_out):

@@ -23,8 +23,15 @@ short banded sequences through masked full attention with ``jax.random``
 dropout and the conformer through its blocked XLA attention, the port always
 through the trainable kernel's path (the JAX package's own function, taken
 there when its kernel is on; the same function as the blocked path at
-dropout 0).  The conformer's residual stream is float32 only
-(models/transformer.py refuses another ``conformer_stream_dtype``).
+dropout 0).
+
+The conformer's residual stream is ``conformer_stream_dtype``: float32, or
+bfloat16 as the conformer recipe ships it.  The casts sit where the JAX
+package writes them: the stream is rounded after the input positions, after
+the MHSA's residual sum (taken in float32), after each half-step FFN's
+second projection and after the conv module's depthwise conv and its second
+projection; layer norm and the dropouts on the stream run in its dtype, the
+matrix products, the attention and the other dropouts in float32.
 """
 
 from __future__ import annotations
@@ -79,9 +86,10 @@ def _banded_self_attention(p, x, src_mask, cfg, rate, rngs, train):
     b, s, d_model = x.shape
     h = p["w_qs"].shape[0]
     start, end = cfg.encoder_sub_sequence
-    qs = torch.einsum("bld,hdk->bhlk", x, p["w_qs"]).reshape(b * h, s, -1)
-    ks = torch.einsum("bld,hdk->bhlk", x, p["w_ks"]).reshape(b * h, s, -1)
-    vs = torch.einsum("bld,hdv->bhlv", x, p["w_vs"]).reshape(b * h, s, -1)
+    xf = x.to(p["w_qs"].dtype)  # a bfloat16 stream attends in float32
+    qs = torch.einsum("bld,hdk->bhlk", xf, p["w_qs"]).reshape(b * h, s, -1)
+    ks = torch.einsum("bld,hdk->bhlk", xf, p["w_ks"]).reshape(b * h, s, -1)
+    vs = torch.einsum("bld,hdv->bhlv", xf, p["w_vs"]).reshape(b * h, s, -1)
     key_valid = torch.repeat_interleave(src_mask.to(torch.int32), h, dim=0)
     scale = 1.0 / float(d_model) ** 0.5
     if train:
@@ -95,8 +103,9 @@ def _banded_self_attention(p, x, src_mask, cfg, rate, rngs, train):
     out = out.reshape(b, h, s, -1).transpose(1, 2).reshape(b, s, -1)
     out = out @ p["proj"]["w"] + p["proj"]["b"]
     out = _drop(out, rate, rngs, train)
-    return layer_norm(out + x, p["ln"]["gamma"], p["ln"]["beta"],
-                      skip_len1=cfg.ln_skip_len1)
+    # the residual sum in float32, rounded once to the stream's dtype
+    return layer_norm((out + x).to(x.dtype), p["ln"]["gamma"],
+                      p["ln"]["beta"], skip_len1=cfg.ln_skip_len1)
 
 
 def banded_encode(params, cfg, src_seq, src_mask, *, train=False, rngs=None):
@@ -153,12 +162,13 @@ def init_conformer_encoder(generator, cfg):
 
 def _half_ffn(p, x, cfg, rate, rngs, train):
     """Macaron half-step FFN: x + 0.5·FFN(LN(x)) (pre-LN, swish), dropout
-    after the swish and after the second projection."""
+    after the swish (float32) and after the second projection (in the
+    stream's dtype)."""
     h = layer_norm(x, p["ln"]["gamma"], p["ln"]["beta"], skip_len1=False)
-    h = F.silu(h @ p["w1"]["w"] + p["w1"]["b"])
+    h = F.silu(h.to(p["w1"]["w"].dtype) @ p["w1"]["w"] + p["w1"]["b"])
     h = _drop(h, rate, rngs, train)
     h = h @ p["w2"]["w"] + p["w2"]["b"]
-    h = _drop(h, rate, rngs, train)
+    h = _drop(h.to(x.dtype), rate, rngs, train)
     return x + 0.5 * h
 
 
@@ -168,9 +178,11 @@ def _conv_module(p, x, mask, cfg, rate, rngs, train):
     above it is position-wise) keeps valid frames pad-invariant.  The
     depthwise conv is ``F.conv1d`` with one group per channel (the JAX
     package leaves it to XLA too): centered SAME padding, or causal (past
-    frames only) with ``conformer_causal_conv``."""
+    frames only) with ``conformer_causal_conv``.  The depthwise conv's
+    output is rounded to the stream's dtype, and its layer norm, swish and
+    final dropout run there."""
     h = layer_norm(x, p["ln"]["gamma"], p["ln"]["beta"], skip_len1=False)
-    h = h @ p["pw1"]["w"] + p["pw1"]["b"]
+    h = h.to(p["pw1"]["w"].dtype) @ p["pw1"]["w"] + p["pw1"]["b"]
     a, b = h.chunk(2, dim=-1)
     h = (a * torch.sigmoid(b)) * mask[..., None].to(h.dtype)  # GLU, mask
     kernel = p["dw"]["w"]  # [K, D]
@@ -178,10 +190,40 @@ def _conv_module(p, x, mask, cfg, rate, rngs, train):
     pad = k - 1 if cfg.conformer_causal_conv else (k - 1) // 2
     h = F.conv1d(F.pad(h.transpose(1, 2), (pad, k - 1 - pad)),
                  kernel.t()[:, None, :], groups=d).transpose(1, 2)
-    h = layer_norm(h + p["dw"]["b"], p["norm"]["gamma"], p["norm"]["beta"],
-                   skip_len1=False)
-    h = F.silu(h) @ p["pw2"]["w"] + p["pw2"]["b"]
-    return x + _drop(h, rate, rngs, train)
+    h = layer_norm((h + p["dw"]["b"]).to(x.dtype), p["norm"]["gamma"],
+                   p["norm"]["beta"], skip_len1=False)
+    h = _swish(h) @ p["pw2"]["w"] + p["pw2"]["b"]
+    return x + _drop(h.to(x.dtype), rate, rngs, train)
+
+
+class _SwishBF16(torch.autograd.Function):
+    """``jax.nn.swish`` on bfloat16 with the JAX package's gradient, every
+    step rounded to bfloat16 as XLA computes it on the CPU with each
+    written rounding kept: forward ``s = 1 / (1 + exp(-h))`` (its three
+    steps rounded), ``h * s``; backward ``g s + (g h) (s (1 - s))``, the
+    VJPs of the product and of ``lax.logistic``.  (Autograd of the forward's
+    steps rounds other intermediates: the step's gradients then sat up to
+    0.92 of the bfloat16 stream's own error from JAX's, against 0.02 with
+    this backward; tests/test_torch_bf16_stream.py.)"""
+
+    @staticmethod
+    def forward(ctx, h):
+        s = torch.reciprocal(torch.exp(-h) + 1)
+        ctx.save_for_backward(h, s)
+        return h * s
+
+    @staticmethod
+    def backward(ctx, g):
+        h, s = ctx.saved_tensors
+        return g * s + (g * h) * (s * (1 - s))
+
+
+def _swish(h):
+    """The conv module's swish, in float32: on a bfloat16 ``h``,
+    :class:`_SwishBF16` (``F.silu`` on bfloat16 rounds once)."""
+    if h.dtype == torch.bfloat16:
+        return _SwishBF16.apply(h).float()
+    return F.silu(h)
 
 
 def conformer_encode(params, cfg, src_seq, src_mask, *, train=False,
@@ -191,7 +233,8 @@ def conformer_encode(params, cfg, src_seq, src_mask, *, train=False,
     # closed-form sinusoids: sequences past encoder_max_len extrapolate
     pos = position_encoding_table(max(cfg.encoder_max_len, s), cfg.en_d_model,
                                   device=src_seq.device)[:s]
-    x = src_seq @ params["src_proj"]["w"] + pos[None]
+    stream = getattr(torch, cfg.conformer_stream_dtype)
+    x = (src_seq @ params["src_proj"]["w"]).to(stream) + pos[None].to(stream)
     x = _drop(x, rate, rngs, train)
     for layer in params["layers"]:
         x = _half_ffn(layer["ffn1"], x, cfg, rate, rngs, train)

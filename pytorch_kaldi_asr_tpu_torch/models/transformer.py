@@ -47,14 +47,17 @@ from pytorch_kaldi_asr_tpu_torch.models.common import (
 
 # ROADMAP.md items named by the errors of what this slice leaves out
 ROADMAP_ENCODERS = "ROADMAP.md queue 1, 'Encoder zoo'"
-ROADMAP_DTYPES = "ROADMAP.md queue 1, 'bfloat16 compute'"
+ROADMAP_DTYPES = ("ROADMAP.md, 'Next': compute_dtype=bfloat16 with bfloat16 "
+                  "attention kernels")
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """Model hyperparameters; field for field the JAX package's
     ``TransformerConfig`` (same order, same defaults), so ``config.json``
-    round-trips.  Dtypes are stored by name.  ``use_banded_kernel`` is kept
+    round-trips.  Dtypes are stored by name: ``compute_dtype`` is float32
+    (the port computes in float32), ``conformer_stream_dtype`` float32 or
+    bfloat16 (the conformer recipe's default).  ``use_banded_kernel`` is kept
     only for that round trip: the port routes nothing by it (a CUDA tensor
     always takes the banded kernel, a CPU tensor its plain version)."""
 
@@ -97,12 +100,10 @@ class TransformerConfig:
             raise NotImplementedError(
                 f"compute_dtype={self.compute_dtype!r} is not ported yet: "
                 f"the port computes in float32 ({ROADMAP_DTYPES})")
-        if (self.encoder_type == "conformer"
-                and self.conformer_stream_dtype != "float32"):
-            raise NotImplementedError(
-                f"conformer_stream_dtype={self.conformer_stream_dtype!r} is "
-                f"not ported yet: the conformer's residual stream is float32 "
-                f"({ROADMAP_DTYPES})")
+        if self.conformer_stream_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"conformer_stream_dtype="
+                             f"{self.conformer_stream_dtype!r}: float32 or "
+                             f"bfloat16")
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
@@ -324,7 +325,8 @@ def decode_logits(params, cfg: TransformerConfig, tgt_seq, tgt_mask,
 
     pos_table = position_encoding_table(cfg.decoder_max_len, cfg.de_d_model,
                                         device=device)
-    enc = enc_output @ p["enc_dec_proj"]["w"]
+    # a bfloat16 encoder stream enters the float32 decoder here
+    enc = enc_output.to(p["enc_dec_proj"]["w"].dtype) @ p["enc_dec_proj"]["w"]
     x = p["embed"][tgt_seq] + pos_table[:t][None, :, :]
 
     slf_blocked = padding_attn_mask(tgt_mask, tgt_mask) | banded_attn_mask(

@@ -60,9 +60,8 @@
 // 8-key chunk of P.V is summed from zero and added to S or O in float32
 // (mma_3xtf32's kFresh): chained on one accumulator, the tensor core's
 // rounding toward zero shrank every output by about 1e-6 of its size, a bias
-// that failed a train step against the CPU (PERF.md).  The backward's
-// accumulators still take long chains (a drift of -1.3e-6 to -2.1e-6 in
-// dq, dk and dv under cuda_emu.h's model of the rounding).
+// that failed a train step against the CPU (PERF.md).  The backward sums
+// every product the same way (mma_bwd).
 //
 // What hides latency (measured on the H100, see PERF.md): the 3xTF32 split by
 // integer ops rather than conversions, the products in passes over
@@ -222,6 +221,20 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[M][4], const Frag& a, cons
                                            int step, int off, Live live) {
   mma_3xtf32_n<N0, G, kFresh>(c, a, b, step, off, live);
   if constexpr (N0 + G < M) mma_3xtf32<M, kFresh, G, N0 + G>(c, a, b, step, off, live);
+}
+
+// The backward's products (S, dP and dq in K2b; S^T, dP^T, dv and dk in
+// K2c), each summed from zero and added in float32 as the forward's are,
+// kBwdGroup accumulators at a time: the group sets how many fresh sums are
+// live at once, so it trades registers for independent mmas (1 and 4 ran
+// slower on the H100, PERF.md).  (Chained on one accumulator, dq, dk and dv
+// drifted by -1.3e-6 to -2.1e-6 of their size under cuda_emu.h's model of
+// the tensor core's rounding.)
+constexpr int kBwdGroup = 2;
+template <int M, class Live>
+__device__ __forceinline__ void mma_bwd(float (&c)[M][4], const Frag& a, const float* b,
+                                        int step, int off, Live live) {
+  mma_3xtf32<M, true, (M < kBwdGroup ? M : kBwdGroup)>(c, a, b, step, off, live);
 }
 
 constexpr float kLog2e = 1.4426950408889634f;
@@ -690,12 +703,12 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int ks = 0; ks < MAXD8; ++ks) {
           if (ks < d8) {
             const float4 a = own_q[(warp * d8 + ks) * 32 + lane];
-            mma_3xtf32(sc, split_frag(a.x, a.y, a.z, a.w),
+            mma_bwd(sc, split_frag(a.x, a.y, a.z, a.w),
                        kt + (8 * n0 + g) * ldk + 8 * ks + t, 8 * ldk, 4, chunk_live);
           }
           if (ks < dv8) {
             const float4 a = own_do[(warp * dv8 + ks) * 32 + lane];
-            mma_3xtf32(dp, split_frag(a.x, a.y, a.z, a.w),
+            mma_bwd(dp, split_frag(a.x, a.y, a.z, a.w),
                        vt + (8 * n0 + g) * ldv + 8 * ks + t, 8 * ldv, 4, chunk_live);
           }
         }
@@ -728,7 +741,7 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int j = 0; j < kPass; ++j) {
           if (!c_live[j]) continue;
-          mma_3xtf32(acc, split_frag(sc[j][0], sc[j][2], sc[j][1], sc[j][3]),
+          mma_bwd(acc, split_frag(sc[j][0], sc[j][2], sc[j][1], sc[j][3]),
                      kt + (8 * (n0 + j) + 2 * t) * ldk + g, 8, ldk,
                      [&](int n) { return n < d8; });
         }
@@ -760,7 +773,10 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // K2c: dk and dv
 // ---------------------------------------------------------------------------
 
-// One CTA per (bh, 64-key tile); as K2b, MAXD8 bounds d8 and dv8.
+// One CTA per (bh, 64-key tile); as K2b, MAXD8 bounds d8 and dv8, with
+// registers capped for 3 CTAs per SM up to d = 64.  There the fresh sums
+// spill (about 0.5 KB a thread), and still run faster than spill-free at 2
+// CTAs (PERF.md); above d = 64 they spill at one CTA too (untimed).
 template <int MAXD8>
 __global__ void __launch_bounds__(kThreads, MAXD8 > 8 ? 1 : 3)
 dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -870,12 +886,12 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int ks = 0; ks < MAXD8; ++ks) {
           if (ks < d8) {
             const float4 a = own_k[(warp * d8 + ks) * 32 + lane];
-            mma_3xtf32(sc, split_frag(a.x, a.y, a.z, a.w),
+            mma_bwd(sc, split_frag(a.x, a.y, a.z, a.w),
                        qt + (8 * n0 + g) * ldk + 8 * ks + t, 8 * ldk, 4, chunk_live);
           }
           if (ks < dv8) {
             const float4 a = own_v[(warp * dv8 + ks) * 32 + lane];
-            mma_3xtf32(pa, split_frag(a.x, a.y, a.z, a.w),
+            mma_bwd(pa, split_frag(a.x, a.y, a.z, a.w),
                        dot + (8 * n0 + g) * ldv + 8 * ks + t, 8 * ldv, 4, chunk_live);
           }
         }
@@ -911,9 +927,9 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int j = 0; j < kPass; ++j) {
           if (!c_live[j]) continue;
           const int r = 8 * (n0 + j) + 2 * t;
-          mma_3xtf32(dv_acc, split_frag(pa[j][0], pa[j][2], pa[j][1], pa[j][3]),
+          mma_bwd(dv_acc, split_frag(pa[j][0], pa[j][2], pa[j][1], pa[j][3]),
                      dot + r * ldv + g, 8, ldv, [&](int n) { return n < dv8; });
-          mma_3xtf32(dk_acc, split_frag(sc[j][0], sc[j][2], sc[j][1], sc[j][3]),
+          mma_bwd(dk_acc, split_frag(sc[j][0], sc[j][2], sc[j][1], sc[j][3]),
                      qt + r * ldk + g, 8, ldk, [&](int n) { return n < d8; });
         }
       }

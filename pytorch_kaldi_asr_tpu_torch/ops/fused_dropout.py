@@ -3,17 +3,21 @@ PyTorch version.
 
 Inverted dropout with the mask drawn inside the pass: element ``i`` of the
 tensor (its flat row-major index) is kept, and scaled by ``scale``, iff the
-32-bit word ``bits(seed, i) >= threshold``.  ``bits`` is lane ``i % 4`` of
+32-bit word ``bits(seed, i) >= threshold``.  float32 and bfloat16 tensors
+each have a kernel; a kept bfloat16 value is ``float(x) * scale`` rounded
+once to bfloat16.  ``bits`` is lane ``i % 4`` of
 Philox4x32-10 (the counter-based generator cuRAND and PyTorch's CUDA
 dropout use) with key = the 64-bit seed and counter = ``i // 4``.  The mask
 depends only on (seed, i), never on the launch shape or the device, so the
 kernel, its backward and the plain version all draw the same mask, bit for
-bit, and no mask is ever stored.
+bit, and no mask is ever stored.  The mask does not depend on the dtype
+either: a bfloat16 tensor draws the float32 kernel's bits.
 
 :func:`dropout_mask_pass` is one pass over a tensor: a CUDA tensor launches
-the kernel of ``csrc/fused_dropout.cu``, a CPU tensor takes
+the kernel of ``csrc/fused_dropout.cu`` for its dtype, a CPU tensor takes
 :func:`fused_dropout_reference`; ``fused_dropout.launches`` counts kernel
-launches, forward and backward apart.  :func:`masked_dropout` makes it
+launches, forward and backward apart, under ``forward``/``backward`` for
+float32 and ``forward_bf16``/``backward_bf16`` for bfloat16.  :func:`masked_dropout` makes it
 differentiable through one ``torch.autograd.Function`` whose backward is
 the same pass on the cotangent with the same seed, so nothing but the seed
 is saved.  Two thresholds use it:
@@ -23,7 +27,8 @@ is saved.  Two thresholds use it:
   ``float32(1 / (1 - rate))``;
 - ``models.common.dropout``, the JAX package's default 8-bit draw: keep
   probability exactly q/256 with ``threshold = (256 - q) * 2**24``, scale
-  256/q.
+  256/q (on bfloat16, 256/q rounded to bfloat16, as the JAX package's weak
+  Python float is).
 
 The bits are not the TPU's (``pltpu.prng_random_bits`` is TPU hardware) nor
 ``jax.random``'s: the packages agree in distribution, not in masks.
@@ -81,10 +86,13 @@ def dropout_bits(seed, n, device=None):
 
 
 def fused_dropout_reference(x, seed, threshold, scale):
-    """Plain version of the kernel: ``x * scale`` where the element's word
-    is at least ``threshold``, else 0, in x's shape and dtype."""
+    """Plain version of the kernels: ``x * scale`` in float32 where the
+    element's word is at least ``threshold``, else 0, rounded once to x's
+    dtype, in x's shape."""
     keep = dropout_bits(seed, x.numel(), x.device) >= int(threshold)
     flat = x.reshape(-1)
+    if flat.dtype == torch.bfloat16:
+        flat = flat.float()
     return torch.where(keep, flat * float(scale), 0.0).to(x.dtype) \
         .reshape(x.shape)
 
@@ -97,13 +105,13 @@ def dropout_mask_pass(x, seed, threshold, scale, *, direction="forward"):
         return fused_dropout_reference(x, seed, threshold, scale)
     if not x.is_cuda:
         raise ValueError(f"fused_dropout: unsupported device {x.device}")
-    if x.dtype != torch.float32:
-        raise TypeError("fused_dropout kernel takes float32 tensors")
+    if x.dtype not in _ENTRY:
+        raise TypeError(f"fused_dropout has no kernel for {x.dtype}")
     if not 0 <= int(threshold) <= _M32:
         raise ValueError(f"threshold {threshold} is not a 32-bit word")
     x = x.contiguous()
     if x.data_ptr() % 16:
-        x = x.clone()  # the kernel reads float4
+        x = x.clone()  # the kernels read 16 bytes at a time
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
@@ -113,30 +121,43 @@ def dropout_mask_pass(x, seed, threshold, scale, *, direction="forward"):
     # every dropout site of a train step launches here twice: the device
     # guard (about 10 us of host time per call on the H100's host) only
     # where the tensor is not on the current device
+    entry, suffix = _ENTRY[x.dtype]
     if x.device.index == torch.cuda.current_device():
-        err = _kernel_fn()(*args)
+        err = _kernel_fn(entry)(*args)
     else:
         with torch.cuda.device(x.device):
-            err = _kernel_fn()(*args)
+            err = _kernel_fn(entry)(*args)
     if err != 0:
         raise RuntimeError(f"fused_dropout kernel launch failed: CUDA error "
                            f"{err}")
-    fused_dropout.launches[direction] += 1
+    fused_dropout.launches[direction + suffix] += 1
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel_fn():
-    """The C entry point, built at first use, with its signature:
-    (x, out, n, key_lo, key_hi, threshold, scale, stream)."""
-    from pytorch_kaldi_asr_tpu_torch.ops import _build
+# dtype → (C entry point, suffix of its launch counts)
+_ENTRY = {torch.float32: ("fused_dropout_f32", ""),
+          torch.bfloat16: ("fused_dropout_bf16", "_bf16")}
 
-    fn = _build.load("fused_dropout").fused_dropout_f32
+
+def kernel_entry(library, entry):
+    """The C entry point ``entry`` (``fused_dropout_f32`` or
+    ``fused_dropout_bf16``) of a ``ctypes.CDLL`` built from
+    csrc/fused_dropout.cu, signature set: (x, out, n, key_lo, key_hi,
+    threshold, scale, stream)."""
+    fn = getattr(library, entry)
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                    ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,
                    ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_fn(entry="fused_dropout_f32"):
+    """The C entry point ``entry``, built at first use."""
+    from pytorch_kaldi_asr_tpu_torch.ops import _build
+
+    return kernel_entry(_build.load("fused_dropout"), entry)
 
 
 class _MaskedDropout(torch.autograd.Function):
@@ -178,4 +199,5 @@ def fused_dropout(x, rate, seed, train):
                           1.0 / (1.0 - rate))
 
 
-fused_dropout.launches = {"forward": 0, "backward": 0}
+fused_dropout.launches = {"forward": 0, "backward": 0, "forward_bf16": 0,
+                          "backward_bf16": 0}

@@ -4,9 +4,16 @@ dataset on the card, write the n-best ``decode.txt``.
 Same flags as ``pytorch_kaldi_asr_tpu.recipes.decode`` plus ``-device``
 (``cuda`` by default; ``cpu`` on request).  Without a visible card and
 without ``-device cpu`` it raises rather than fall back.  ``-use_gpu`` is
-accepted for recipe compatibility."""
+accepted for recipe compatibility.  The search is the KV-cached one where
+the model's decoder band is causal, else the fixed-buffer one.  A caller
+in Python may pass ``timings={}`` to :func:`main` to get the wall seconds
+of the checkpoint and vocabulary loading (``load_s``) and of each part of
+the decode (``runner.decode_dataset``)."""
 
 import argparse
+import time
+
+import torch
 
 from pytorch_kaldi_asr_tpu_torch.data import read_vocab
 from pytorch_kaldi_asr_tpu_torch.data.loader import make_batch_loader
@@ -16,7 +23,7 @@ from pytorch_kaldi_asr_tpu_torch.utils.device import disable_tf32, resolve_devic
 from pytorch_kaldi_asr_tpu_torch.utils.logging import info
 
 
-def main(argv=None):
+def main(argv=None, *, timings=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("-read_data_dir", required=True)
     parser.add_argument("-read_vocab_file", required=True)
@@ -55,17 +62,23 @@ def main(argv=None):
 
     device = resolve_device(opt.device)
     disable_tf32()
+    t0 = time.perf_counter()
     ckpt = load_checkpoint(opt.load_model_file, device=device)
     info("loading model with parameter: %s", ckpt["cfg"])
     vocab = read_vocab(opt.read_vocab_file)
     loader = make_batch_loader(opt.read_data_dir, vocab, opt.batch_size,
                                mode="all", shuffle=False,
                                num_buckets=opt.num_buckets)
+    if timings is not None:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        timings["load_s"] = time.perf_counter() - t0
     decode_dataset(
         ckpt["params"], ckpt["cfg"], loader, vocab,
         beam_size=opt.beam_size, nbest=opt.nbest,
         max_token_seq_len=opt.max_token_seq_len,
         save_result_file=opt.save_result_file, device=device,
+        timings=timings,
     )
     return 0
 

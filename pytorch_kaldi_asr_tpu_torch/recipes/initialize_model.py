@@ -6,9 +6,8 @@ vocabulary size from the vocab file), the frozen LDA affine from
 ``lda.mat`` (or identity), hyperparameters from the flags with the TIMIT
 defaults.  Weights are drawn on the CPU from ``torch.Generator`` seeded by
 ``-seed`` and saved in the JAX package's checkpoint layout.  The ``tdnn``,
-``banded`` and ``conformer`` encoder families are ported; the conformer
-with a float32 residual stream only (``-conformer_stream_dtype bfloat16``
-raises).
+``banded`` and ``conformer`` encoder families are ported; the conformer's
+residual stream is float32 or bfloat16 (``-conformer_stream_dtype``).
 """
 
 import argparse
@@ -93,8 +92,9 @@ def main(argv=None):
                              "banded and conformer are ported")
     parser.add_argument("-conformer_stream_dtype", default="float32",
                         choices=["float32", "bfloat16"],
-                        help="Conformer residual-stream dtype; the port "
-                             "takes float32 only (bfloat16 raises)")
+                        help="Conformer residual-stream dtype (the "
+                             "conformer recipe's default is bfloat16); "
+                             "compute stays float32")
     parser.add_argument("-seed", type=int, default=0)
     parser.add_argument("-init_compat", default="native",
                         choices=["native", "torch"],

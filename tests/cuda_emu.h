@@ -1,11 +1,12 @@
-// CPU emulation of the few CUDA features that
-// pytorch_kaldi_asr_tpu_torch/ops/csrc/banded_attention_train.cu uses, so
-// its kernels compile with g++ and run on the CPU
-// (tests/test_torch_k2_emulated.py): one std::thread per CUDA thread, one
-// CTA at a time; barriers for __syncthreads and the warp collectives; and
+// CPU emulation of the few CUDA features that the port's kernels
+// (pytorch_kaldi_asr_tpu_torch/ops/csrc/*.cu) use, so they compile with g++
+// and run on the CPU (tests/test_torch_k2_emulated.py,
+// tests/test_torch_k3_emulated.py): one std::thread per CUDA thread, one
+// CTA at a time; barriers for __syncthreads and the warp collectives;
 // mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 by its PTX fragment
 // layout, with the tensor core's rounding (exact products, their sum with c
-// rounded toward zero).  Shared memory starts filled with NaN, so a read of a word never
+// rounded toward zero); and __nv_bfloat16 with its conversions (to float
+// exact, from float rounded to nearest even).  Shared memory starts filled with NaN, so a read of a word never
 // written shows in the results.
 #pragma once
 #include <algorithm>
@@ -29,14 +30,25 @@ using std::min;
 struct Dim { unsigned x = 0, y = 0, z = 0; };
 inline thread_local Dim threadIdx;
 inline Dim blockIdx;
+inline Dim gridDim;
 struct float4 { float x, y, z, w; };
 struct float2 { float x, y; };
 struct int2 { int x, y; };
+struct uint4 { uint32_t x, y, z, w; };
+inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) { return {a, b, c, d}; }
+inline uint32_t __umulhi(uint32_t a, uint32_t b) { return uint32_t((uint64_t(a) * b) >> 32); }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 inline float2 make_float2(float a, float b) { return {a, b}; }
 inline float __uint_as_float(uint32_t x) { float f; std::memcpy(&f, &x, 4); return f; }
 inline uint32_t __float_as_uint(float f) { uint32_t x; std::memcpy(&x, &f, 4); return x; }
 inline size_t __cvta_generic_to_shared(const void* p) { return (size_t)p; }
+struct __nv_bfloat16 { uint16_t bits; };
+inline float __bfloat162float(__nv_bfloat16 h) { return __uint_as_float(uint32_t(h.bits) << 16); }
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+  const uint32_t u = __float_as_uint(f);
+  if (std::isnan(f)) return {uint16_t((u >> 16) | 0x40)};
+  return {uint16_t((u + 0x7FFFu + ((u >> 16) & 1u)) >> 16)};
+}
 typedef int cudaError_t;
 const int cudaSuccess = 0, cudaErrorInvalidValue = 1;
 const int cudaFuncAttributeMaxDynamicSharedMemorySize = 8;
@@ -145,6 +157,7 @@ void emu_launch(dim3 grid, int block, size_t smem_bytes, cudaStream_t, F f) {
     g_cta = &cta;
     g_block = block;
     blockIdx.x = b;
+    gridDim.x = grid.x;
     std::vector<std::thread> threads;
     for (int i = 0; i < block; ++i)
       threads.emplace_back([i, &f] { threadIdx.x = i; f(); });

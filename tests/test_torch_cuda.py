@@ -251,25 +251,33 @@ def _thresholds(rate):
             (fd.fused_dropout_threshold(rate), 1.0 / (1.0 - rate))]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
 @pytest.mark.parametrize("which", [0, 1], ids=["8-bit", "exact"])
 @pytest.mark.parametrize("shape", [(512, 1024), (33, 7), (1, 256),
                                    (3, 5, 11), (0, 4)])
 def test_fused_dropout_kernel_matches_plain_version(cuda_device, shape,
-                                                    which):
-    """K3 forward and backward against the plain version on the card: the
-    same mask bit for bit, outputs and gradients bit-equal, one launch each
-    way; a non-contiguous input is masked in its logical order."""
+                                                    which, dtype):
+    """K3 forward and backward against the plain version on the card, on
+    float32 and on bfloat16: the same mask bit for bit, outputs and
+    gradients bit-equal, one launch each way counted under the dtype's
+    keys; a non-contiguous input is masked in its logical order."""
     threshold, scale = _thresholds(0.35)[which]
     g = torch.Generator().manual_seed(len(shape))
-    x = torch.randn(shape, generator=g).to(cuda_device).requires_grad_()
-    dout = torch.randn(shape, generator=g).to(cuda_device)
+    x = torch.randn(shape, generator=g).to(cuda_device, dtype)
+    x.requires_grad_()
+    dout = torch.randn(shape, generator=g).to(cuda_device, dtype)
     before = dict(fd.fused_dropout.launches)
     y = fd.masked_dropout(x, 77, threshold, scale)
     y.backward(dout)
     torch.cuda.synchronize()
     launched = 0 if x.numel() == 0 else 1
+    suffix = "_bf16" if dtype == torch.bfloat16 else ""
     assert fd.fused_dropout.launches == {
-        k: v + launched for k, v in before.items()}
+        k: v + (launched if k in ("forward" + suffix, "backward" + suffix)
+                else 0)
+        for k, v in before.items()}
+    assert y.dtype == x.grad.dtype == dtype
     scale32 = float(np.float32(scale))
     want = fd.fused_dropout_reference(x.detach(), 77, threshold, scale32)
     assert torch.equal(y.detach(), want)
@@ -286,6 +294,8 @@ def test_fused_dropout_kernel_refuses_what_it_cannot_take(cuda_device):
     x = torch.ones(8, device=cuda_device)
     with pytest.raises(TypeError):
         fd.dropout_mask_pass(x.double(), 1, 2**31, 2.0)
+    with pytest.raises(TypeError):
+        fd.dropout_mask_pass(x.half(), 1, 2**31, 2.0)
     with pytest.raises(ValueError, match="32-bit"):
         fd.dropout_mask_pass(x, 1, 2**32, 2.0)
 
@@ -325,7 +335,62 @@ def test_conformer_train_step_with_dropout_matches_the_cpu(cuda_device):
         results[str(device)] = (float(m["loss"]), [
             p.grad.cpu() for p in trainable_leaves(state.params)], launched)
     (loss_c, grads_c, n_c), (loss_g, grads_g, n_g) = results.values()
-    assert n_c == [0, 0, 0] and n_g == [cfg.en_layers, sites, sites]
+    assert n_c == [0] * 5 and n_g == [cfg.en_layers, sites, sites, 0, 0]
     assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c)
     for a, b in zip(grads_g, grads_c):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def test_bf16_conformer_train_step_matches_the_cpu(cuda_device):
+    """The conformer with the recipe's bfloat16 residual stream, one train
+    step with dropout on, on the card and on the CPU (same masks), and on
+    the CPU with the float32 stream.  Per gradient leaf, the card's
+    distance from the CPU's bfloat16 step over the bfloat16 step's distance
+    from the float32 one (each over its largest entry): at most 0.75 at
+    the median leaf and 3 at every leaf and the loss, chip_smoke.py's
+    BF16_MEDIAN_RATIO and BF16_LEAF_RATIO (on the H100 this test read a
+    median of 0.057 and a largest leaf of 0.569).  K3 launches on bfloat16 at the
+    stream's sites (input, and three per layer)."""
+    from pytorch_kaldi_asr_tpu_torch.train import create_train_state, train_step
+    from pytorch_kaldi_asr_tpu_torch.train.optim import trainable_leaves
+
+    cfg = TransformerConfig(
+        src_dim=40, vocab_size=52, encoder_max_len=128, decoder_max_len=20,
+        encoder_sub_sequence=(-32, 32), decoder_sub_sequence=(-10, 0),
+        en_layers=2, de_layers=2, n_head=2, en_d_model=64, de_d_model=32,
+        d_k=16, d_v=16, en_dropout=0.1, de_dropout=0.1,
+        encoder_type="conformer", conformer_stream_dtype="bfloat16")
+    params = init_transformer(torch.Generator().manual_seed(0), cfg)
+    g = torch.Generator().manual_seed(3)
+    src = torch.randn((3, 120, 40), generator=g)
+    mask = torch.ones((3, 120), dtype=torch.uint8)
+    mask[2, 70:] = 0
+    tgt = torch.tensor([[2, 5, 9, 3, 0], [2, 7, 3, 0, 0], [2, 4, 4, 6, 3]])
+    batch = (src, mask, tgt, (tgt != 0).to(torch.uint8))
+    stream_sites = 1 + 3 * cfg.en_layers
+    results = {}
+    for name, device, c in (
+            ("card", cuda_device, cfg), ("cpu", "cpu", cfg),
+            ("cpu32", "cpu", cfg.replace(conformer_stream_dtype="float32"))):
+        k3 = dict(fd.fused_dropout.launches)
+        state = create_train_state(tree_map(
+            lambda x: x.detach().to(device, copy=True), params))
+        m = train_step(state, c, *(x.to(device) for x in batch))
+        launched = {k: fd.fused_dropout.launches[k] - k3[k] for k in k3}
+        results[name] = (float(m["loss"]), [
+            p.grad.cpu() for p in trainable_leaves(state.params)], launched)
+    (loss_g, grads_g, n_g), (loss_c, grads_c, _), (loss_32, grads_32, _) = (
+        results["card"], results["cpu"], results["cpu32"])
+    assert n_g["forward_bf16"] == n_g["backward_bf16"] == stream_sites
+    # a single leaf is chaotic at float32's last bit (the CPU's own step
+    # with the weights one ulp off lands up to 0.76 of the stream's error
+    # away); the loss at least to 1e-5 relative
+    assert abs(loss_g - loss_c) <= max(3.0 * abs(loss_c - loss_32),
+                                       1e-5 * abs(loss_c))
+    ratios = [float((a - b).abs().max()) / float((b - c).abs().max())
+              if (b - c).abs().max() > 0 else float((a - b).abs().max()) * 1e30
+              for a, b, c in zip(grads_g, grads_c, grads_32)]
+    print(f"bfloat16 step, card vs cpu over the stream's own error: median "
+          f"leaf {np.median(ratios):.3f}, largest {max(ratios):.3f}")
+    assert np.median(ratios) <= 0.75
+    assert max(ratios) <= 3.0

@@ -242,3 +242,28 @@ def test_emulated_forward_does_not_drift(emulated):
         q.double(), k.double(), v.double(), valid, 7, start, end, scale)
     bias = float(((out.double() - ref) * ref.sign()).mean() / ref.abs().mean())
     assert abs(bias) < 3e-7
+
+
+def test_emulated_backward_does_not_drift(emulated):
+    """The backward twin of test_emulated_forward_does_not_drift: K2b's dq
+    and K2c's dk and dv against autograd of the plain version in float64,
+    as the mean error along each gradient's sign over its mean size.
+    Chained on one accumulator, the backward's products drift toward zero
+    by -1.3e-6 to -2.1e-6 here; each product summed from zero and added in
+    float32 stays well under 3e-7."""
+    bh, s, d, start, end, scale = 4, 256, 64, -100, 0, 0.125
+    rng = np.random.default_rng(0)
+    q, k, v, dout = (torch.from_numpy(rng.normal(size=(bh, s, d))
+                                      .astype(np.float32)) for _ in range(4))
+    valid = torch.ones((bh, s), dtype=torch.int32)
+    _, _, dq, _, dk, dv = _run(emulated, q, k, v, valid, dout, 7, start, end,
+                               scale, 0.0)
+    qg, kg, vg = (x.double().requires_grad_() for x in (q, k, v))
+    out, _ = ba.banded_attention_trainable_reference(qg, kg, vg, valid, 7,
+                                                     start, end, scale)
+    out.backward(dout.double())
+    for name, got, ref in (("dq", dq, qg.grad), ("dk", dk, kg.grad),
+                           ("dv", dv, vg.grad)):
+        bias = float(((got.double() - ref) * ref.sign()).mean()
+                     / ref.abs().mean())
+        assert abs(bias) < 3e-7, (name, bias)

@@ -5,11 +5,14 @@
   files with the same keys and words line by line, scores within 1e-4.
 - With the imports of jax, flax, optax, msgpack and the JAX package blocked,
   every port module (the training slice's train/, recipes.train and
-  recipes.combine, the fused dropout and the archives included) and
-  chip_smoke.py import, and the port's own initialize_model + decode run
-  end to end on the CPU, for the banded encoder and for a conformer trained
-  with dropout from archives (tests/test_torch_train_slice.py runs train
-  and combine so).
+  recipes.combine, the fused dropout, the archives, the reference-checkpoint
+  import and the Lattice oracle included) and chip_smoke.py import, and the
+  port's own initialize_model + decode run end to end on the CPU, for the
+  banded encoder and for a conformer with the recipe's bfloat16 residual
+  stream trained with dropout from archives (tests/test_torch_train_slice.py
+  runs train and combine so).
+- A decoder band that is not causal decodes through the fixed-buffer
+  search: the two packages' decode CLIs agree as above.
 - The entry points refuse what they cannot do: no card without
   ``-device cpu``, and the options not ported yet.
 """
@@ -24,7 +27,6 @@ import torch
 
 from pytorch_kaldi_asr_tpu.recipes import decode as jax_decode
 from pytorch_kaldi_asr_tpu.recipes import initialize_model as jax_init
-from pytorch_kaldi_asr_tpu_torch.decode.runner import decode_dataset
 from pytorch_kaldi_asr_tpu_torch.models.transformer import (
     TransformerConfig as PortConfig,
 )
@@ -99,7 +101,8 @@ _NO_JAX = textwrap.dedent("""
     for name in ("train.loop", "train.state", "train.optim", "train.loss",
                  "recipes.train", "recipes.combine", "utils.metrics",
                  "ops.fused_dropout", "data.archive",
-                 "recipes.generate_archive"):
+                 "recipes.generate_archive", "models.torch_import",
+                 "decode.lattice"):
         assert pkg.__name__ + "." + name in names, name
     importlib.import_module("chip_smoke")
 
@@ -139,6 +142,7 @@ _NO_JAX = textwrap.dedent("""
         "-de_layers", "1", "-n_head", "2", "-en_d_model", "16",
         "-de_d_model", "8", "-d_k", "4", "-d_v", "4", "-en_dropout", "0.1",
         "-de_dropout", "0.1", "-encoder_type", "conformer",
+        "-conformer_stream_dtype", "bfloat16",
         "-save_model_file", str(work / "c")])
     generate_archive.main(["-read_data_dir", str(work), *data,
                            "-save_archive_dir", str(work / "ar"),
@@ -168,7 +172,7 @@ def test_port_runs_with_jax_blocked(tmp_path):
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     last = proc.stdout.strip().splitlines()[-1].split()
-    assert last[0] == "modules" and int(last[1]) >= 33
+    assert last[0] == "modules" and int(last[1]) >= 35
     assert last[2:] == ["lines", "6", "conformer", "6"]
 
 
@@ -181,9 +185,30 @@ def test_entry_points_refuse_what_they_cannot_do(tmp_path, monkeypatch):
         decode.main(args + ["-quantize_weights"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         decode.main(args + ["-nlm_model_dir", str(tmp_path)])
-    # the fixed-buffer search for a non-causal decoder band is not ported
-    cfg = PortConfig(src_dim=4, vocab_size=6, decoder_sub_sequence=(-3, 2))
+    # compute_dtype=bfloat16 needs bfloat16 attention kernels
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        decode_dataset({}, cfg, [], {}, beam_size=2, nbest=1,
-                       max_token_seq_len=4, device="cpu",
-                       save_result_file=str(tmp_path / "none.txt"))
+        PortConfig(src_dim=4, vocab_size=6, compute_dtype="bfloat16")
+
+
+def test_non_causal_band_decodes_like_jax(tmp_path):
+    """A decoder band that reaches one token ahead, (-3, 1): both packages'
+    decode CLIs take their fixed-buffer search and write the same lines."""
+    data = write_data_dir(tmp_path / "data", n_utts=5, seed=6)
+    model = tmp_path / "model"
+    flags = [f if f != "(-3,0)" else "(-3,1)" for f in MODEL_FLAGS]
+    assert jax_init.main([
+        "-read_feats_scp_file", str(data / "feats.scp"), "-lda_mat_file",
+        "identity", "-read_vocab_file", str(data / "vocab.txt"), "-seed", "5",
+        "-save_model_file", str(model), *flags]) == 0
+    assert jax_decode.main(_decode_args(data, model, tmp_path / "jax.txt")) == 0
+    timings = {}
+    assert decode.main(_decode_args(data, model, tmp_path / "port.txt")
+                       + ["-device", "cpu"], timings=timings) == 0
+    assert set(timings) == {"load_s", "data_s", "encoder_s", "search_s",
+                            "write_s"}
+
+    want, got = _lines(tmp_path / "jax.txt"), _lines(tmp_path / "port.txt")
+    assert len(got) == len(want) == 5 * 3
+    for (gk, gs, gw), (wk, ws, ww) in zip(got, want):
+        assert (gk, gw) == (wk, ww)
+        assert abs(float(gs) - float(ws)) <= SCORE_ATOL
