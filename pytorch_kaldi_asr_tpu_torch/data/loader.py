@@ -282,22 +282,24 @@ def make_batch_loader(data_dir, vocab, batch_size, mode="drop", **kwargs):
     return BatchLoader(triples, batch_size, mode=mode, **kwargs)
 
 
-def to_device(batch, device):
-    """The batch's arrays as tensors on ``device``: features float32, masks
-    uint8, labels int64.  CUDA copies go through pinned host memory and do
-    not block the host."""
+def to_device(batch, device, src_dtype=None):
+    """The batch's arrays as tensors on ``device``: features float32 (or
+    cast to ``src_dtype`` on the host), masks uint8, labels int64.  CUDA
+    copies go through pinned host memory and do not block the host."""
     device = torch.device(device)
     pin = device.type == "cuda"
 
-    def put(a):
+    def put(a, dtype=None):
         t = torch.from_numpy(np.ascontiguousarray(a))
+        if dtype is not None:
+            t = t.to(dtype)
         if pin:
             t = t.pin_memory()
         return t.to(device, non_blocking=pin)
 
     return Batch(
         keys=batch.keys,
-        src=put(batch.src),
+        src=put(batch.src, src_dtype),
         src_mask=put(batch.src_mask),
         tgt=put(batch.tgt.astype(np.int64)),
         tgt_mask=put(batch.tgt_mask),

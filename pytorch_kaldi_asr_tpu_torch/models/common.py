@@ -17,10 +17,14 @@ of them moves WER without an error:
   1.1130, as the JAX package's weak-typed Python float rounds it);
 - layer norm on bfloat16 takes its statistics in float32 from one-pass
   moments, ``var = max(Σz² - n·mu², 0) / (n - 1)``, and rounds its output
-  back to bfloat16.
+  back to bfloat16;
+- a product with a bias in bfloat16 compute rounds twice, as XLA computes
+  JAX's ``x @ w + b`` on bfloat16: the product, then the sum (``linear``;
+  ``F.linear`` and ``addmm`` add the bias in float32 and round once).
 
-The port computes in float32; the conformer's residual stream (and so
-layer norm and dropout on it) may be bfloat16.
+The products run in float32 or, with ``compute_dtype=bfloat16``, in
+bfloat16 (``cast``, ``linear``, ``spliced_linear``); the conformer's
+residual stream (and so layer norm and dropout on it) may be bfloat16.
 """
 
 from __future__ import annotations
@@ -123,11 +127,29 @@ def splice_frames(x, context):
     return torch.cat(pieces, dim=2)
 
 
-def spliced_linear(x, w, b, context):
+def cast(x, dtype):
+    """``x`` in ``dtype``; ``x`` itself where ``dtype`` is None (float32
+    compute keeps the tensors' own dtype)."""
+    return x if dtype is None else x.to(dtype)
+
+
+def linear(x, w, b, dtype=None):
+    """``x @ w + b`` in ``dtype`` (None: ``w``'s dtype), as the JAX package
+    writes it: on bfloat16 the product is rounded to bfloat16 (its sum
+    taken in float32) and the bias add rounded again.  ``b`` may be
+    None."""
+    out = cast(x, dtype or w.dtype) @ cast(w, dtype)
+    return out if b is None else out + cast(b, dtype)
+
+
+def spliced_linear(x, w, b, context, dtype=None):
     """``splice_frames(x, context) @ w + b`` without building the spliced
     tensor when the context is evenly spaced: a dilated 1-D convolution.
+    In ``dtype`` as :func:`linear` (the JAX package's ``dtype=``): x, w and
+    b cast, the convolution rounded, then the bias add.
 
     x: [B, T, D]; w: [D·K, D_out] with row blocks in context order."""
+    x, w = cast(x, dtype), cast(w, dtype)
     context = list(context)
     k = len(context)
     steps = [context[i + 1] - context[i] for i in range(k - 1)]
@@ -140,7 +162,7 @@ def spliced_linear(x, w, b, context):
     else:
         out = splice_frames(x, context) @ w
     if b is not None:
-        out = out + b
+        out = out + cast(b, dtype)
     return out
 
 

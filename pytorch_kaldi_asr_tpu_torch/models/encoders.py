@@ -31,7 +31,18 @@ package writes them: the stream is rounded after the input positions, after
 the MHSA's residual sum (taken in float32), after each half-step FFN's
 second projection and after the conv module's depthwise conv and its second
 projection; layer norm and the dropouts on the stream run in its dtype, the
-matrix products, the attention and the other dropouts in float32.
+matrix products, the attention and the other dropouts in the compute dtype.
+
+With ``compute_dtype=bfloat16`` every product (the projections, q/k/v, the
+FFNs, the conv module's pointwise and depthwise convolutions) is bfloat16
+with the JAX package's casts, and the attention takes bfloat16 q, k, v
+through the bfloat16 kernels.  The banded encoder keeps its float32 stream
+(the JAX package's ``x.astype(float32) + pos``); its attention block
+follows the JAX package's ``multi_head_attention`` casts around the
+kernel, whose scale multiplies the float32 scores (JAX off the TPU trains
+it through masked XLA attention, whose logits are rounded to bfloat16 and
+divided by a bfloat16 sqrt(d_model): a deliberate difference, ROADMAP.md
+queue 3).
 """
 
 from __future__ import annotations
@@ -40,7 +51,9 @@ import torch
 import torch.nn.functional as F
 
 from pytorch_kaldi_asr_tpu_torch.models.common import (
+    cast,
     layer_norm,
+    linear,
     position_encoding_table,
     xavier_normal,
 )
@@ -49,6 +62,7 @@ from pytorch_kaldi_asr_tpu_torch.models.transformer import (
     _drop,
     _init_ffn,
     _init_mha,
+    compute_dtype,
     feed_forward,
 )
 from pytorch_kaldi_asr_tpu_torch.ops.banded_attention import (
@@ -86,10 +100,11 @@ def _banded_self_attention(p, x, src_mask, cfg, rate, rngs, train):
     b, s, d_model = x.shape
     h = p["w_qs"].shape[0]
     start, end = cfg.encoder_sub_sequence
-    xf = x.to(p["w_qs"].dtype)  # a bfloat16 stream attends in float32
-    qs = torch.einsum("bld,hdk->bhlk", xf, p["w_qs"]).reshape(b * h, s, -1)
-    ks = torch.einsum("bld,hdk->bhlk", xf, p["w_ks"]).reshape(b * h, s, -1)
-    vs = torch.einsum("bld,hdv->bhlv", xf, p["w_vs"]).reshape(b * h, s, -1)
+    dtype = compute_dtype(cfg)
+    # float32 compute: a bfloat16 stream attends in float32
+    xf = x.to(dtype or p["w_qs"].dtype)
+    qs, ks, vs = (torch.einsum("bld,hdk->bhlk", xf, cast(p[w], dtype))
+                  .reshape(b * h, s, -1) for w in ("w_qs", "w_ks", "w_vs"))
     key_valid = torch.repeat_interleave(src_mask.to(torch.int32), h, dim=0)
     scale = 1.0 / float(d_model) ** 0.5
     if train:
@@ -101,7 +116,7 @@ def _banded_self_attention(p, x, src_mask, cfg, rate, rngs, train):
         out = banded_attention(qs, ks, vs, key_valid, start=start, end=end,
                                scale=scale)
     out = out.reshape(b, h, s, -1).transpose(1, 2).reshape(b, s, -1)
-    out = out @ p["proj"]["w"] + p["proj"]["b"]
+    out = linear(out, p["proj"]["w"], p["proj"]["b"], dtype)
     out = _drop(out, rate, rngs, train)
     # the residual sum in float32, rounded once to the stream's dtype
     return layer_norm((out + x).to(x.dtype), p["ln"]["gamma"],
@@ -115,7 +130,9 @@ def banded_encode(params, cfg, src_seq, src_mask, *, train=False, rngs=None):
     # encoder_max_len extrapolate exactly
     pos = position_encoding_table(max(cfg.encoder_max_len, s), cfg.en_d_model,
                                   device=src_seq.device)[:s]
-    x = src_seq @ params["src_proj"]["w"] + pos[None]
+    dtype = compute_dtype(cfg)
+    x = linear(src_seq, params["src_proj"]["w"], None, dtype)
+    x = (x if dtype is None else x.float()) + pos[None]
     x = _drop(x, rate, rngs, train)
     for layer in params["layers"]:
         x = _banded_self_attention(layer["slf"], x, src_mask, cfg, rate, rngs,
@@ -162,12 +179,13 @@ def init_conformer_encoder(generator, cfg):
 
 def _half_ffn(p, x, cfg, rate, rngs, train):
     """Macaron half-step FFN: x + 0.5·FFN(LN(x)) (pre-LN, swish), dropout
-    after the swish (float32) and after the second projection (in the
-    stream's dtype)."""
+    after the swish (the compute dtype) and after the second projection (in
+    the stream's dtype)."""
+    dtype = compute_dtype(cfg)
     h = layer_norm(x, p["ln"]["gamma"], p["ln"]["beta"], skip_len1=False)
-    h = F.silu(h.to(p["w1"]["w"].dtype) @ p["w1"]["w"] + p["w1"]["b"])
+    h = _swish(linear(h, p["w1"]["w"], p["w1"]["b"], dtype))
     h = _drop(h, rate, rngs, train)
-    h = h @ p["w2"]["w"] + p["w2"]["b"]
+    h = linear(h, p["w2"]["w"], p["w2"]["b"], dtype)
     h = _drop(h.to(x.dtype), rate, rngs, train)
     return x + 0.5 * h
 
@@ -180,19 +198,22 @@ def _conv_module(p, x, mask, cfg, rate, rngs, train):
     package leaves it to XLA too): centered SAME padding, or causal (past
     frames only) with ``conformer_causal_conv``.  The depthwise conv's
     output is rounded to the stream's dtype, and its layer norm, swish and
-    final dropout run there."""
+    final dropout run there.  In bfloat16 compute the GLU, its sigmoid
+    (``_SigmoidBF16``) and the depthwise conv are bfloat16 too, the conv
+    rounded and then its bias add, as XLA computes JAX's on bfloat16."""
+    dtype = compute_dtype(cfg)
     h = layer_norm(x, p["ln"]["gamma"], p["ln"]["beta"], skip_len1=False)
-    h = h.to(p["pw1"]["w"].dtype) @ p["pw1"]["w"] + p["pw1"]["b"]
+    h = linear(h, p["pw1"]["w"], p["pw1"]["b"], dtype)
     a, b = h.chunk(2, dim=-1)
-    h = (a * torch.sigmoid(b)) * mask[..., None].to(h.dtype)  # GLU, mask
-    kernel = p["dw"]["w"]  # [K, D]
+    h = (a * _sigmoid(b)) * mask[..., None].to(h.dtype)  # GLU, mask
+    kernel = cast(p["dw"]["w"], dtype)  # [K, D]
     k, d = kernel.shape
     pad = k - 1 if cfg.conformer_causal_conv else (k - 1) // 2
     h = F.conv1d(F.pad(h.transpose(1, 2), (pad, k - 1 - pad)),
                  kernel.t()[:, None, :], groups=d).transpose(1, 2)
-    h = layer_norm((h + p["dw"]["b"]).to(x.dtype), p["norm"]["gamma"],
-                   p["norm"]["beta"], skip_len1=False)
-    h = _swish(h) @ p["pw2"]["w"] + p["pw2"]["b"]
+    h = layer_norm((h + cast(p["dw"]["b"], dtype)).to(x.dtype),
+                   p["norm"]["gamma"], p["norm"]["beta"], skip_len1=False)
+    h = linear(_swish(h), p["pw2"]["w"], p["pw2"]["b"], dtype)
     return x + _drop(h.to(x.dtype), rate, rngs, train)
 
 
@@ -219,11 +240,37 @@ class _SwishBF16(torch.autograd.Function):
 
 
 def _swish(h):
-    """The conv module's swish, in float32: on a bfloat16 ``h``,
-    :class:`_SwishBF16` (``F.silu`` on bfloat16 rounds once)."""
+    """``jax.nn.swish`` in ``h``'s dtype: on bfloat16 :class:`_SwishBF16`
+    (``F.silu`` on bfloat16 rounds once)."""
     if h.dtype == torch.bfloat16:
-        return _SwishBF16.apply(h).float()
+        return _SwishBF16.apply(h)
     return F.silu(h)
+
+
+class _SigmoidBF16(torch.autograd.Function):
+    """``jax.nn.sigmoid`` (``lax.logistic``) on bfloat16 as XLA computes it
+    on the CPU with each written rounding kept: ``1 / (1 + exp(-b))``, its
+    three steps rounded to bfloat16; backward ``g (s (1 - s))``, the VJP of
+    ``lax.logistic`` (the sigmoid of :class:`_SwishBF16`)."""
+
+    @staticmethod
+    def forward(ctx, b):
+        s = torch.reciprocal(torch.exp(-b) + 1)
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        (s,) = ctx.saved_tensors
+        return g * (s * (1 - s))
+
+
+def _sigmoid(b):
+    """The GLU's sigmoid in ``b``'s dtype: on bfloat16
+    :class:`_SigmoidBF16`."""
+    if b.dtype == torch.bfloat16:
+        return _SigmoidBF16.apply(b)
+    return torch.sigmoid(b)
 
 
 def conformer_encode(params, cfg, src_seq, src_mask, *, train=False,
@@ -234,7 +281,8 @@ def conformer_encode(params, cfg, src_seq, src_mask, *, train=False,
     pos = position_encoding_table(max(cfg.encoder_max_len, s), cfg.en_d_model,
                                   device=src_seq.device)[:s]
     stream = getattr(torch, cfg.conformer_stream_dtype)
-    x = (src_seq @ params["src_proj"]["w"]).to(stream) + pos[None].to(stream)
+    x = linear(src_seq, params["src_proj"]["w"], None, compute_dtype(cfg))
+    x = x.to(stream) + pos[None].to(stream)
     x = _drop(x, rate, rngs, train)
     for layer in params["layers"]:
         x = _half_ffn(layer["ffn1"], x, cfg, rate, rngs, train)

@@ -23,6 +23,13 @@ order, each site with its own seed from the ``DropoutRngs`` of
 models/common.py passed as ``rngs``; with ``rngs=None`` every dropout is the
 identity.  The masks come from the fused-dropout kernel's Philox, not from
 ``jax.random``, so the packages are compared with dropout off.
+
+``compute_dtype="bfloat16"`` (the configuration the JAX package's bench
+trains) runs every product in bfloat16 with the JAX package's casts, cast
+for cast (``common.linear``: the product rounded, then the bias add rounded
+again); the softmax, layer norm, residual sums and logits stay float32, and
+so do the parameters, their gradients and Adam's state.  The attention
+logits divide by ``sqrt(d_model)`` computed in bfloat16 (11.3125 for 128).
 """
 
 from __future__ import annotations
@@ -35,9 +42,11 @@ import torch
 from pytorch_kaldi_asr_tpu_torch.models import common
 from pytorch_kaldi_asr_tpu_torch.models.common import (
     banded_attn_mask,
+    cast,
     dropout,
     fold_seq_and_mask,
     layer_norm,
+    linear,
     masked_softmax,
     padding_attn_mask,
     position_encoding_table,
@@ -45,21 +54,20 @@ from pytorch_kaldi_asr_tpu_torch.models.common import (
     xavier_normal,
 )
 
-# ROADMAP.md items named by the errors of what this slice leaves out
+# the ROADMAP.md item named by the errors of what this slice leaves out
 ROADMAP_ENCODERS = "ROADMAP.md queue 1, 'Encoder zoo'"
-ROADMAP_DTYPES = ("ROADMAP.md, 'Next': compute_dtype=bfloat16 with bfloat16 "
-                  "attention kernels")
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """Model hyperparameters; field for field the JAX package's
     ``TransformerConfig`` (same order, same defaults), so ``config.json``
-    round-trips.  Dtypes are stored by name: ``compute_dtype`` is float32
-    (the port computes in float32), ``conformer_stream_dtype`` float32 or
-    bfloat16 (the conformer recipe's default).  ``use_banded_kernel`` is kept
-    only for that round trip: the port routes nothing by it (a CUDA tensor
-    always takes the banded kernel, a CPU tensor its plain version)."""
+    round-trips.  Dtypes are stored by name: ``compute_dtype`` float32 or
+    bfloat16 (the dtype of the products), ``conformer_stream_dtype`` float32
+    or bfloat16 (the conformer recipe's default).  ``use_banded_kernel`` is
+    kept only for that round trip: the port routes nothing by it (a CUDA
+    tensor always takes the banded kernel, a CPU tensor its plain
+    version)."""
 
     src_dim: int
     vocab_size: int
@@ -96,10 +104,9 @@ class TransformerConfig:
     use_banded_kernel: object = None
 
     def __post_init__(self):
-        if self.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={self.compute_dtype!r} is not ported yet: "
-                f"the port computes in float32 ({ROADMAP_DTYPES})")
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype={self.compute_dtype!r}: float32 "
+                             f"or bfloat16")
         if self.conformer_stream_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"conformer_stream_dtype="
                              f"{self.conformer_stream_dtype!r}: float32 or "
@@ -246,24 +253,46 @@ def _drop(x, rate, rngs, train):
     return dropout(x, rate, rngs.seed(), train)
 
 
+def compute_dtype(cfg):
+    """The dtype the products run in: None for float32 (the weights'
+    dtype), or torch.bfloat16."""
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
+
+
+def logit_divisor(d_model, dtype):
+    """sqrt(d_model) as the JAX package divides the attention logits by it:
+    in float32, or on bfloat16 ``sqrt(bf16(d_model))`` rounded to bfloat16
+    (11.3125 for 128, not 11.3137)."""
+    if dtype is None:
+        return np.sqrt(np.float32(d_model))
+    return float(torch.sqrt(torch.tensor(float(d_model), dtype=dtype)))
+
+
 def multi_head_attention(p, q, k, v, blocked, cfg, rate=0.0, rngs=None,
                          train=False):
     """Post-LN multi-head attention.  ``blocked`` is [B, Lq, Lk] bool.
     Scale divisor is sqrt(d_model), not sqrt(d_k).  Training drops the
-    attention probabilities and the projected output."""
+    attention probabilities and the projected output.  In bfloat16 compute
+    the projections, logits and probabilities are bfloat16 (the softmax
+    float32, the probabilities dropped after the cast) and the residual sum
+    float32."""
+    dtype = compute_dtype(cfg)
     residual = q
     scale = q.shape[-1]
-    qs = torch.einsum("bld,hdk->bhlk", q, p["w_qs"])
-    ks = torch.einsum("bld,hdk->bhlk", k, p["w_ks"])
-    vs = torch.einsum("bld,hdv->bhlv", v, p["w_vs"])
-    logits = torch.einsum("bhqk,bhlk->bhql", qs, ks) / np.sqrt(
-        np.float32(scale))
-    attn = masked_softmax(logits, blocked[:, None, :, :])
+    qs = torch.einsum("bld,hdk->bhlk", cast(q, dtype), cast(p["w_qs"], dtype))
+    ks = torch.einsum("bld,hdk->bhlk", cast(k, dtype), cast(p["w_ks"], dtype))
+    vs = torch.einsum("bld,hdv->bhlv", cast(v, dtype), cast(p["w_vs"], dtype))
+    logits = torch.einsum("bhqk,bhlk->bhql", qs, ks) / logit_divisor(scale,
+                                                                      dtype)
+    if dtype is None:
+        attn = masked_softmax(logits, blocked[:, None, :, :])
+    else:
+        attn = masked_softmax(logits.float(), blocked[:, None, :, :]).to(dtype)
     attn = _drop(attn, rate, rngs, train)
     out = torch.einsum("bhql,bhlv->bhqv", attn, vs)
     b, h, lq, dv = out.shape
     out = out.transpose(1, 2).reshape(b, lq, h * dv)
-    out = out @ p["proj"]["w"] + p["proj"]["b"]
+    out = linear(out, p["proj"]["w"], p["proj"]["b"], dtype)
     out = _drop(out, rate, rngs, train)
     return layer_norm(out + residual, p["ln"]["gamma"], p["ln"]["beta"],
                       skip_len1=cfg.ln_skip_len1)
@@ -271,9 +300,11 @@ def multi_head_attention(p, q, k, v, blocked, cfg, rate=0.0, rngs=None,
 
 def feed_forward(p, x, cfg, rate=0.0, rngs=None, train=False):
     """Position-wise FFN with ReLU and post-LN residual; training drops the
-    FFN's output."""
-    h = torch.relu(x @ p["w1"]["w"] + p["w1"]["b"])
-    out = h @ p["w2"]["w"] + p["w2"]["b"]
+    FFN's output.  In bfloat16 compute both products are bfloat16 and the
+    residual sum float32."""
+    dtype = compute_dtype(cfg)
+    h = torch.relu(linear(x, p["w1"]["w"], p["w1"]["b"], dtype))
+    out = linear(h, p["w2"]["w"], p["w2"]["b"], dtype)
     out = _drop(out, rate, rngs, train)
     return layer_norm(out + x, p["ln"]["gamma"], p["ln"]["beta"],
                       skip_len1=cfg.ln_skip_len1)
@@ -287,7 +318,8 @@ def encode(params, cfg: TransformerConfig, src_seq, src_mask, *,
     ``tdnn``: splice → frozen LDA → projection → TDNN stack → +positions
     (position indices shifted by ``pos_offset``, saturating at the table
     end), with dropout after the projection, each TDNN layer and the
-    positions when training."""
+    positions when training.  In bfloat16 compute the LDA, the projection
+    and the TDNN stack are bfloat16, the positions added in float32."""
     src_seq, src_mask = fold_seq_and_mask(src_seq, src_mask, cfg.src_fold)
     if cfg.encoder_type != "tdnn":
         from pytorch_kaldi_asr_tpu_torch.models.encoders import encoder_apply
@@ -298,13 +330,17 @@ def encode(params, cfg: TransformerConfig, src_seq, src_mask, *,
 
     p = params["encoder"]
     rate = cfg.en_dropout
+    dtype = compute_dtype(cfg)
     x = common.spliced_linear(src_seq, p["lda"]["w"], p["lda"]["b"],
-                              cfg.lda_context)
-    x = x @ p["src_proj"]["w"]
+                              cfg.lda_context, dtype)
+    x = linear(x, p["src_proj"]["w"], None, dtype)
     x = _drop(x, rate, rngs, train)
     for ctx, layer in zip(cfg.tdnn_contexts, p["tdnn"]):
-        x = torch.relu(common.spliced_linear(x, layer["w"], layer["b"], ctx))
+        x = torch.relu(common.spliced_linear(x, layer["w"], layer["b"], ctx,
+                                             dtype))
         x = _drop(x, rate, rngs, train)
+    if dtype is not None:
+        x = x.float()
 
     pos_table = position_encoding_table(cfg.encoder_max_len, cfg.en_d_model,
                                         device=x.device)
@@ -317,16 +353,19 @@ def encode(params, cfg: TransformerConfig, src_seq, src_mask, *,
 
 def decode_logits(params, cfg: TransformerConfig, tgt_seq, tgt_mask,
                   src_mask, enc_output, *, train=False, rngs=None):
-    """Teacher-forced decoder: returns [B, T, vocab] logits."""
+    """Teacher-forced decoder: returns [B, T, vocab] logits (float32; in
+    bfloat16 compute the encoder projection and the vocabulary projection
+    are bfloat16 products)."""
     p = params["decoder"]
     t = tgt_seq.shape[1]
     device = enc_output.device
     rate = cfg.de_dropout
+    dtype = compute_dtype(cfg)
 
     pos_table = position_encoding_table(cfg.decoder_max_len, cfg.de_d_model,
                                         device=device)
     # a bfloat16 encoder stream enters the float32 decoder here
-    enc = enc_output.to(p["enc_dec_proj"]["w"].dtype) @ p["enc_dec_proj"]["w"]
+    enc = linear(enc_output, p["enc_dec_proj"]["w"], None, dtype).float()
     x = p["embed"][tgt_seq] + pos_table[:t][None, :, :]
 
     slf_blocked = padding_attn_mask(tgt_mask, tgt_mask) | banded_attn_mask(
@@ -342,7 +381,7 @@ def decode_logits(params, cfg: TransformerConfig, tgt_seq, tgt_mask,
                                  cfg, rate, rngs, train)
         x = feed_forward(layer["ffn"], x, cfg, rate, rngs, train)
     x = _drop(x, rate, rngs, train)
-    return x @ p["word_proj"]["w"]
+    return linear(x, p["word_proj"]["w"], None, dtype).float()
 
 
 def transformer_forward(params, cfg: TransformerConfig, src_seq, src_mask,

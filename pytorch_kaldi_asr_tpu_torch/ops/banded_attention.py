@@ -26,6 +26,15 @@ version, and counts its kernel launches in ``.launches``.  The dropout
 mask is :func:`dropout_keep`, the JAX package's hash, bit for bit, so a
 run is reproducible across the two packages and the kernels regenerate the
 forward's mask in the backward.
+
+Every function takes float32 or bfloat16 q, k, v (and dout, out), all of
+one dtype; lse and delta are float32.  On bfloat16 the kernels and the
+plain versions compute the JAX package's Pallas kernels' function on
+bfloat16 inputs: scores, softmax statistics and sums in float32, the
+second product's operand (the dropped probabilities, dS) rounded to
+bfloat16 where the Pallas kernels round it, the outputs rounded once to
+bfloat16.  A bfloat16 CUDA tensor runs the kernels' bfloat16
+instantiations (``launches_bf16`` counts them), never the float32 ones.
 """
 
 from __future__ import annotations
@@ -43,7 +52,12 @@ MAX_HEAD_DIM = 128  # largest d and dv the kernel takes
 
 
 def banded_attention_reference(q, k, v, key_valid, start, end, scale):
-    """Plain PyTorch version: full [BH, S, S] scores + band/validity mask."""
+    """Plain PyTorch version: full [BH, S, S] scores + band/validity mask.
+    On bfloat16, the Pallas kernel's function: K2a's plain version at rate 0
+    (the unnormalised probabilities rounded to bfloat16 before p.v)."""
+    if q.dtype == torch.bfloat16:
+        return banded_attention_trainable_reference(q, k, v, key_valid, 0,
+                                                    start, end, scale)[0]
     s = q.shape[1]
     logits = torch.einsum("bqd,bkd->bqk", q, k) * scale
     pos = torch.arange(s, device=q.device)
@@ -93,24 +107,46 @@ def banded_attention(q, k, v, key_valid, *, start, end, scale):
 
 
 banded_attention.launches = 0
+banded_attention.launches_bf16 = 0
 
 
-def _kernel_operands(name, floats, ints=()):
-    """Checks shared by every kernel wrapper: one device, float32 vectors
-    whose head dims the kernels take, then contiguous copies, the vectors
-    16-byte aligned (the kernels read rows as float4)."""
-    tensors = (*floats, *ints)
+def _kernel_operands(name, vectors, rows=(), ints=()):
+    """Checks shared by every kernel wrapper: one device; ``vectors`` (q, k,
+    v, dout, out) all float32 or all bfloat16, with head dims the kernels
+    take (multiples of 4, or of 8 on bfloat16: 16 bytes a load); ``rows``
+    (lse, delta) float32.  Then contiguous copies, the floating ones 16-byte
+    aligned (the kernels read rows 16 bytes at a time).  Returns (vectors,
+    rows, ints)."""
+    tensors = (*vectors, *rows, *ints)
     if any(t.device != tensors[0].device for t in tensors):
         raise ValueError(f"{name}: inputs on different devices")
-    if any(t.dtype != torch.float32 for t in floats):
-        raise TypeError(f"{name} kernel takes float32 tensors")
-    dims = {t.shape[-1] for t in floats if t.dim() == 3}
-    if any(x % 4 or x > MAX_HEAD_DIM for x in dims):
-        raise ValueError(f"{name} kernel needs d, dv multiples of 4 and <= "
-                         f"{MAX_HEAD_DIM}, got {sorted(dims)}")
-    floats = [t.contiguous() for t in floats]
-    floats = [t if t.data_ptr() % 16 == 0 else t.clone() for t in floats]
-    return floats, [t.contiguous() for t in ints]
+    dtype = vectors[0].dtype
+    if dtype not in (torch.float32, torch.bfloat16) \
+            or any(t.dtype != dtype for t in vectors):
+        raise TypeError(f"{name} kernel takes q, k, v (and dout, out) all "
+                        f"float32 or all bfloat16, got "
+                        f"{[t.dtype for t in vectors]}")
+    if any(t.dtype != torch.float32 for t in rows):
+        raise TypeError(f"{name} kernel takes float32 lse and delta")
+    step = 4 if dtype == torch.float32 else 8
+    dims = {t.shape[-1] for t in vectors}
+    if any(x % step or x > MAX_HEAD_DIM for x in dims):
+        raise ValueError(f"{name} kernel needs d, dv multiples of {step} and "
+                         f"<= {MAX_HEAD_DIM} on {dtype}, got {sorted(dims)}")
+    vectors, rows = ([t.contiguous() for t in ts] for ts in (vectors, rows))
+    floats = [t if t.data_ptr() % 16 == 0 else t.clone()
+              for t in (*vectors, *rows)]
+    return floats[:len(vectors)], floats[len(vectors):], [
+        t.contiguous() for t in ints]
+
+
+def _count(wrapper, dtype):
+    """One more launch of ``wrapper``'s kernel on ``dtype``."""
+    if dtype == torch.bfloat16:
+        wrapper.launches_bf16 += 1
+    else:
+        wrapper.launches += 1
+
 
 
 def _run(name, fn, device, *args):
@@ -124,41 +160,43 @@ def _run(name, fn, device, *args):
 
 def _launch(q, k, v, key_valid, start, end, scale):
     """Run the CUDA kernel on PyTorch's current stream; S % BLOCK == 0."""
-    (q, k, v), (key_valid,) = _kernel_operands("banded_attention", (q, k, v),
-                                               (key_valid,))
+    (q, k, v), _, (key_valid,) = _kernel_operands(
+        "banded_attention", (q, k, v), ints=(key_valid,))
     bh, s, d = q.shape
     dv = v.shape[-1]
     out = torch.empty((bh, s, dv), dtype=q.dtype, device=q.device)
-    _run("banded_attention", _kernel_fn("k1"), q.device, q.data_ptr(),
-         k.data_ptr(), v.data_ptr(), key_valid.data_ptr(), out.data_ptr(),
-         bh, s, d, dv, int(start), int(end), float(scale))
-    banded_attention.launches += 1
+    _run("banded_attention", _kernel_fn("k1", q.dtype), q.device,
+         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(),
+         out.data_ptr(), bh, s, d, dv, int(start), int(end), float(scale))
+    _count(banded_attention, q.dtype)
     return out
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_fn(which):
-    """:func:`kernel_entry` ``which`` of csrc/banded_attention_train.cu,
-    built at first use."""
+def _kernel_fn(which, dtype=torch.float32):
+    """:func:`kernel_entry` ``which`` on ``dtype`` of
+    csrc/banded_attention_train.cu, built at first use."""
     from pytorch_kaldi_asr_tpu_torch.ops import _build
 
-    return kernel_entry(_build.load("banded_attention_train"), which)
+    return kernel_entry(_build.load("banded_attention_train"), which, dtype)
 
 
-def kernel_entry(library, which):
+def kernel_entry(library, which, dtype=torch.float32):
     """The C entry point of K1 (``which`` "k1": ``banded_attention_f32``)
     or of K2a/K2b/K2c ("fwd", "dq", "dkv": ``banded_attention_{which}_f32``)
-    of a ``ctypes.CDLL`` built from csrc/banded_attention_train.cu (or a
-    version of it), signature set: pointers, then (bh, s, d, dv, start, end)
-    ints, scale, then for K2 the dropout (seed, threshold as uint32, keep
-    probability, on), and the stream."""
+    on float32, or its ``_bf16`` twin on bfloat16, of a ``ctypes.CDLL``
+    built from csrc/banded_attention_train.cu (or a version of it),
+    signature set: pointers, then (bh, s, d, dv, start, end) ints, scale,
+    then for K2 the dropout (seed, threshold as uint32, keep probability,
+    on), and the stream."""
+    suffix = {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
     if which == "k1":
-        fn = library.banded_attention_f32
+        fn = getattr(library, f"banded_attention_{suffix}")
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                        + [ctypes.c_float, ctypes.c_void_p])
     else:
         n_ptr = {"fwd": 6, "dq": 9, "dkv": 9}[which]
-        fn = getattr(library, f"banded_attention_{which}_f32")
+        fn = getattr(library, f"banded_attention_{which}_{suffix}")
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6
                        + [ctypes.c_float, ctypes.c_uint32, ctypes.c_uint32,
                           ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
@@ -228,6 +266,17 @@ def _drop(x, keep, rate):
     return x if keep is None else torch.where(keep, x, 0.0) / (1.0 - rate)
 
 
+def _up(x):
+    """A bfloat16 ``x`` in float32 (exact); any other ``x`` as it is."""
+    return x.float() if x.dtype == torch.bfloat16 else x
+
+
+def _rounded(x, dtype):
+    """x rounded to ``dtype`` and back to float32 (the Pallas kernels'
+    ``.astype(v.dtype)`` before a product); x itself on float32."""
+    return x if dtype != torch.bfloat16 else x.to(dtype).float()
+
+
 def banded_attention_trainable_reference(q, k, v, key_valid, seed, start,
                                          end, scale, dropout_rate=0.0):
     """Plain, autograd-differentiable version of K2a: returns (out, lse).
@@ -235,7 +284,13 @@ def banded_attention_trainable_reference(q, k, v, key_valid, seed, start,
     ``out = drop(p) @ v / l`` with ``p = exp(s - m)`` over the band's valid
     keys and ``l`` the sum of the UNdropped p, so the dropout acts on the
     normalised probabilities; ``lse = m + log(l)``, -inf for a row with no
-    key (whose output is exact zeros)."""
+    key (whose output is exact zeros).
+
+    On bfloat16: q, k, v in float32 (a product of two bfloat16 is exact
+    there), the dropped p rounded to bfloat16 before p @ v, out rounded to
+    bfloat16."""
+    dtype = q.dtype
+    q, k, v = _up(q), _up(k), _up(v)
     bh, s, _ = q.shape
     allowed = _allowed(s, start, end, key_valid)
     logits = torch.einsum("bqd,bkd->bqk", q, k) * scale
@@ -245,13 +300,13 @@ def banded_attention_trainable_reference(q, k, v, key_valid, seed, start,
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(logits - m)
     l = p.sum(dim=-1, keepdim=True)
-    p = _drop(p, _keep_mask(seed, bh, s, dropout_rate, q.device),
-              dropout_rate)
+    p = _rounded(_drop(p, _keep_mask(seed, bh, s, dropout_rate, q.device),
+                       dropout_rate), dtype)
     out = torch.einsum("bqk,bkd->bqd", p, v) / torch.where(
         l == 0.0, torch.ones_like(l), l)
     lse = torch.where(l > 0.0, m + torch.log(torch.where(l > 0.0, l, 1.0)),
                       float("-inf"))
-    return out, lse[..., 0].detach()
+    return out.to(dtype), lse[..., 0].detach()
 
 
 def _probs(q, k, key_valid, lse, start, end, scale):
@@ -267,25 +322,47 @@ def _probs(q, k, key_valid, lse, start, end, scale):
 def banded_attention_dq_reference(q, k, v, key_valid, dout, out, lse, seed,
                                   start, end, scale, dropout_rate=0.0):
     """Plain version of K2b: (dq, delta) with delta = rowsum(dout * out) and
-    dq = scale * (a * (drop(dout v^T) - delta)) k."""
+    dq = scale * (a * (drop(dout v^T) - delta)) k.  On bfloat16, computed
+    in float32 with dS rounded to bfloat16 before dS k, dq rounded."""
+    dtype = q.dtype
+    q, k, v, dout, out = (_up(x) for x in (q, k, v, dout, out))
     delta = (dout * out).sum(dim=-1)
     a = _probs(q, k, key_valid, lse, start, end, scale)
     keep = _keep_mask(seed, q.shape[0], q.shape[1], dropout_rate, q.device)
     dp = _drop(torch.einsum("bqd,bkd->bqk", dout, v), keep, dropout_rate)
-    ds = a * (dp - delta[..., None])
-    return torch.einsum("bqk,bkd->bqd", ds, k) * scale, delta
+    ds = _rounded(a * (dp - delta[..., None]), dtype)
+    return (torch.einsum("bqk,bkd->bqd", ds, k) * scale).to(dtype), delta
 
 
 def banded_attention_dkv_reference(q, k, v, key_valid, dout, lse, delta,
                                    seed, start, end, scale, dropout_rate=0.0):
     """Plain version of K2c: (dk, dv) with dv = drop(a)^T dout and
-    dk = scale * (a * (drop(dout v^T) - delta))^T q."""
+    dk = scale * (a * (drop(dout v^T) - delta))^T q.  On bfloat16, computed
+    in float32 with drop(a) and dS rounded to bfloat16 before their
+    products, dk and dv rounded."""
+    dtype = q.dtype
+    q, k, v, dout = (_up(x) for x in (q, k, v, dout))
     a = _probs(q, k, key_valid, lse, start, end, scale)
     keep = _keep_mask(seed, q.shape[0], q.shape[1], dropout_rate, q.device)
-    dv = torch.einsum("bqk,bqd->bkd", _drop(a, keep, dropout_rate), dout)
+    dv = torch.einsum("bqk,bqd->bkd",
+                      _rounded(_drop(a, keep, dropout_rate), dtype), dout)
     dp = _drop(torch.einsum("bqd,bkd->bqk", dout, v), keep, dropout_rate)
-    ds = a * (dp - delta[..., None])
-    return torch.einsum("bqk,bqd->bkd", ds, q) * scale, dv
+    ds = _rounded(a * (dp - delta[..., None]), dtype)
+    return ((torch.einsum("bqk,bqd->bkd", ds, q) * scale).to(dtype),
+            dv.to(dtype))
+
+
+def bf16_ulps(got, want):
+    """|got - want| in bfloat16 ulps of each entry's scale: the larger of
+    its row's largest |want| and 1/64 of the tensor's largest.  The
+    tolerance metric of the bfloat16 kernels against their plain versions:
+    an attention output or gradient row sums terms of its row's scale, so
+    its rounding errors are of that size however small the entry is (a row
+    that cancels to about 0 has errors of the tensor's scale)."""
+    got, want = got.double(), want.double()
+    scale = torch.maximum(want.abs().amax(-1, keepdim=True),
+                          want.abs().max() / 64).clamp_min(1e-30)
+    return (got - want).abs() / torch.exp2(torch.floor(torch.log2(scale)) - 7)
 
 
 def _dropout_args(seed, rate):
@@ -303,17 +380,17 @@ def banded_attention_fwd(q, k, v, key_valid, seed, *, start, end, scale,
         out, lse = banded_attention_trainable_reference(
             q, k, v, key_valid, seed, start, end, scale, dropout_rate)
         return out.detach(), lse
-    (q, k, v), (key_valid,) = _kernel_operands("banded_attention_fwd",
-                                               (q, k, v), (key_valid,))
+    (q, k, v), _, (key_valid,) = _kernel_operands(
+        "banded_attention_fwd", (q, k, v), ints=(key_valid,))
     bh, s, d = q.shape
     dv = v.shape[-1]
     out = torch.empty((bh, s, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((bh, s), dtype=torch.float32, device=q.device)
-    _run("banded_attention_fwd", _kernel_fn("fwd"), q.device,
+    _run("banded_attention_fwd", _kernel_fn("fwd", q.dtype), q.device,
          q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(),
          out.data_ptr(), lse.data_ptr(), bh, s, d, dv, int(start), int(end),
          float(scale), *_dropout_args(seed, dropout_rate))
-    banded_attention_fwd.launches += 1
+    _count(banded_attention_fwd, q.dtype)
     return out, lse
 
 
@@ -326,18 +403,18 @@ def banded_attention_dq(q, k, v, key_valid, dout, out, lse, seed, *, start,
         return banded_attention_dq_reference(q, k, v, key_valid, dout, out,
                                              lse, seed, start, end, scale,
                                              dropout_rate)
-    (q, k, v, dout, out, lse), (key_valid,) = _kernel_operands(
-        "banded_attention_dq", (q, k, v, dout, out, lse), (key_valid,))
+    (q, k, v, dout, out), (lse,), (key_valid,) = _kernel_operands(
+        "banded_attention_dq", (q, k, v, dout, out), (lse,), (key_valid,))
     bh, s, d = q.shape
     dv = v.shape[-1]
     dq = torch.empty_like(q)
     delta = torch.empty_like(lse)
-    _run("banded_attention_dq", _kernel_fn("dq"), q.device,
+    _run("banded_attention_dq", _kernel_fn("dq", q.dtype), q.device,
          q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
          out.data_ptr(), lse.data_ptr(), key_valid.data_ptr(), dq.data_ptr(),
          delta.data_ptr(), bh, s, d, dv, int(start), int(end), float(scale),
          *_dropout_args(seed, dropout_rate))
-    banded_attention_dq.launches += 1
+    _count(banded_attention_dq, q.dtype)
     return dq, delta
 
 
@@ -349,24 +426,25 @@ def banded_attention_dkv(q, k, v, key_valid, dout, lse, delta, seed, *,
         return banded_attention_dkv_reference(q, k, v, key_valid, dout, lse,
                                               delta, seed, start, end, scale,
                                               dropout_rate)
-    (q, k, v, dout, lse, delta), (key_valid,) = _kernel_operands(
-        "banded_attention_dkv", (q, k, v, dout, lse, delta), (key_valid,))
+    (q, k, v, dout), (lse, delta), (key_valid,) = _kernel_operands(
+        "banded_attention_dkv", (q, k, v, dout), (lse, delta), (key_valid,))
     bh, s, d = q.shape
     dv = v.shape[-1]
     dk = torch.empty_like(k)
     dv_out = torch.empty_like(v)
-    _run("banded_attention_dkv", _kernel_fn("dkv"), q.device,
+    _run("banded_attention_dkv", _kernel_fn("dkv", q.dtype), q.device,
          q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
          lse.data_ptr(), delta.data_ptr(), key_valid.data_ptr(), dk.data_ptr(),
          dv_out.data_ptr(), bh, s, d, dv, int(start), int(end), float(scale),
          *_dropout_args(seed, dropout_rate))
-    banded_attention_dkv.launches += 1
+    _count(banded_attention_dkv, q.dtype)
     return dk, dv_out
 
 
-banded_attention_fwd.launches = 0
-banded_attention_dq.launches = 0
-banded_attention_dkv.launches = 0
+for _wrapper in (banded_attention_fwd, banded_attention_dq,
+                 banded_attention_dkv):
+    _wrapper.launches = 0
+    _wrapper.launches_bf16 = 0
 
 
 class _BandedAttentionTrainable(torch.autograd.Function):

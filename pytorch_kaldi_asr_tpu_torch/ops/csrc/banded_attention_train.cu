@@ -1,6 +1,7 @@
-// Banded (time-restricted) attention, float32, for Hopper (sm_90a): the
-// inference forward, the trainable forward with its log-sum-exp and
-// attention-probability dropout, and the two backward kernels.
+// Banded (time-restricted) attention, float32 and bfloat16, for Hopper
+// (sm_90a): the inference forward, the trainable forward with its
+// log-sum-exp and attention-probability dropout, and the two backward
+// kernels.
 //
 // Replaces the TPU kernels K1, K2a, K2b and K2c of the JAX package:
 //   pytorch_kaldi_asr_tpu/ops/banded_attention.py
@@ -27,15 +28,27 @@
 //
 // Layout: q, k, dq, dk [BH, S, D]; v, out, dout, dv [BH, S, Dv]; key_valid
 // [BH, S] int32; lse, delta [BH, S] float32; all contiguous.  S is a multiple
-// of 64 (the wrapper pads with invalid keys); D and Dv are multiples of 4, at
-// most 128.
+// of 64 (the wrapper pads with invalid keys); D and Dv are multiples of 4
+// (float32) or of 8 (bfloat16), at most 128.
 //
-// All four kernels run their tile products on the tensor cores at float32
-// accuracy: mma.sync m16n8k8 in TF32 with the 3xTF32 split (x = big + small,
-// a.b ~ big.big + big.small + small.big).  A CTA of 4 warps owns a 64-row
-// tile, 16 rows per warp (the mma's m): K1, K2a and K2b a query tile (K2b's
-// rows q and dout; it also computes delta and writes it for K2c), K2c a key
-// tile (k, v; one CTA per key tile, so no atomics and deterministic dk/dv).
+// Each kernel is one template over the element type T of q, k, v, dout and
+// the outputs (float or __nv_bfloat16); lse, delta, the scores, the softmax
+// statistics and every sum stay float32.  On bfloat16 the kernels compute
+// the Pallas kernels' function on bfloat16 inputs: products of bfloat16
+// operands summed in float32 (mma.sync m16n8k16, one mma per 16-deep step),
+// and the second product's A operand rounded to bfloat16 where the Pallas
+// kernels round it (`p.astype(v.dtype)`, `ds.astype(k.dtype)`,
+// `a_drop.astype(do.dtype)`, `ds.astype(q.dtype)`), nowhere else; the
+// outputs are rounded once to bfloat16.  The float32 path is described
+// first; the bfloat16 machinery follows it below.
+//
+// On float32 all four kernels run their tile products on the tensor cores
+// at float32 accuracy: mma.sync m16n8k8 in TF32 with the 3xTF32 split (x =
+// big + small, a.b ~ big.big + big.small + small.big).  A CTA of 4 warps
+// owns a 64-row tile, 16 rows per warp (the mma's m): K1, K2a and K2b a
+// query tile (K2b's rows q and dout; it also computes delta and writes it
+// for K2c), K2c a key tile (k, v; one CTA per key tile, so no atomics and
+// deterministic dk/dv).
 // The owned rows wait in shared memory in the mma's fragment order; the
 // other side's 64-row tiles stream through a ring of one or two stages
 // filled with cp.async.  Each warp computes its scores 32 streamed rows at a
@@ -84,10 +97,16 @@
 //   K1 at the conformer decode shape (BH 32, S 1600, 19e6 pairs): 0.030 ms by
 //   operations; at TIMIT's (BH 16, S 504, padded to 512): 0.0025 ms by bytes,
 //   one wave of 128 CTAs, so its launch and latency set its time.
+// On bfloat16 (989 TFLOP/s dense, half the bytes) all four are bound by
+// their bytes at these shapes: the conformer's K2a 0.032 ms, K2b and K2c
+// 0.048 ms, K1 0.0079 ms.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -237,6 +256,121 @@ __device__ __forceinline__ void mma_bwd(float (&c)[M][4], const Frag& a, const f
   mma_3xtf32<M, true, (M < kBwdGroup ? M : kBwdGroup)>(c, a, b, step, off, live);
 }
 
+// ---------------------------------------------------------------------------
+// the bfloat16 tile machinery (mma.sync m16n8k16: bf16 operands, f32 sums)
+// ---------------------------------------------------------------------------
+//
+// One mma per 16-deep step, where float32 takes three per 8-deep step.
+// Register layouts (lane = 4g + t; each register holds two bfloat16, the
+// lower index in its low half): A (16 x 16) a0 = (g, 2t..2t+1), a1 = (g + 8,
+// 2t..2t+1), a2 = (g, 2t+8..2t+9), a3 = (g + 8, 2t+8..2t+9); B (16 x 8, k x
+// n) b0 = (2t..2t+1, g), b1 = (2t+8..2t+9, g); C as m16n8k8's: c0, c1 =
+// (g, 2t..2t+1), c2, c3 = (g + 8, 2t..2t+1).  So the accumulators of two
+// adjacent 8-wide chunks of S, rounded in pairs, are the A operand of the
+// 16-deep product that follows, with no permutation of k: chunk j gives a0
+// and a1, chunk j + 1 a2 and a3.  The first products' B (rows of k, v, q or
+// dout) is one 32-bit load per register; the second's (columns of v, k,
+// dout or q) two 16-bit loads.  The products chain on their accumulators
+// (one mma per 16 products; their drift under cuda_emu.h's model of the
+// tensor core's rounding is in PERF.md).
+
+// element traits: the mma's depth per step, and an owned A fragment (16
+// bytes a lane per step)
+template <class T>
+struct Elem;
+template <>
+struct Elem<float> {
+  static constexpr int kK = 8;
+  using Own = float4;
+};
+template <>
+struct Elem<__nv_bfloat16> {
+  static constexpr int kK = 16;
+  using Own = uint4;
+};
+
+template <class T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats as one register's bfloat16 pair, each rounded to nearest even
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// two consecutive bfloat16 (4-byte aligned) as one register
+__device__ __forceinline__ uint32_t word_bf16(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// two bfloat16 of different rows as one register
+__device__ __forceinline__ uint32_t pair_bf16(const __nv_bfloat16* lo, const __nv_bfloat16* hi) {
+  return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(lo)) |
+         (static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(hi)) << 16);
+}
+
+// two adjacent outputs, rounded once to bfloat16 where they are bfloat16
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+}
+
+// a register's two bfloat16 as floats (exact)
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xFFFF0000u); }
+
+// c[n] += a.B_n for n < M where live(n), B_n's rows read along the
+// streamed tile's rows: `b` is element (g, 16 ks + 2t) of row 8n's block,
+// rows `ld` apart (the first products: S, dP and their transposes)
+template <int M, class Live>
+__device__ __forceinline__ void mma_bf16_rows(float (&c)[M][4], const uint4& a,
+                                              const __nv_bfloat16* b, int ld, Live live) {
+  const uint32_t af[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+  for (int n = 0; n < M; ++n) {
+    if (!live(n)) continue;
+    const __nv_bfloat16* r = b + 8 * n * ld;
+    mma_bf16(c[n], af, word_bf16(r), word_bf16(r + 8));
+  }
+}
+
+// c[n] += A.B_n for n < M where live(n), A the bfloat16 rounding of the
+// accumulators `lo` and `hi` of two adjacent 8-wide chunks, B_n read down
+// the streamed tile's columns: `b` is element (2t, g) of the 16 rows, rows
+// `ld` apart, column 8n + g (the second products: P.V, dS.K, P^T.dO,
+// dS^T.Q)
+template <int M, class Live>
+__device__ __forceinline__ void mma_bf16_cols(float (&c)[M][4], const float (&lo)[4],
+                                              const float (&hi)[4], const __nv_bfloat16* b,
+                                              int ld, Live live) {
+  const uint32_t a[4] = {pack_bf16(lo[0], lo[1]), pack_bf16(lo[2], lo[3]),
+                         pack_bf16(hi[0], hi[1]), pack_bf16(hi[2], hi[3])};
+#pragma unroll
+  for (int n = 0; n < M; ++n) {
+    if (!live(n)) continue;
+    const __nv_bfloat16* p = b + 8 * n;
+    mma_bf16(c[n], a, pair_bf16(p, p + ld), pair_bf16(p + 8 * ld, p + 9 * ld));
+  }
+}
+
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -254,12 +388,14 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
-// 64 rows of `w` floats (w % 4 == 0; source rows packed) into shared memory
-// rows `ld` floats apart
-__device__ __forceinline__ void tile_async(float* dst, int ld, const float* src, int w) {
-  const int w4 = w / 4;
+// 64 rows of `w` elements (16 bytes a multiple of them; source rows packed)
+// into shared memory rows `ld` elements apart
+template <class T>
+__device__ __forceinline__ void tile_async(T* dst, int ld, const T* src, int w) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int w4 = w / kVec;
   for (int i = threadIdx.x; i < kBlock * w4; i += kThreads) {
-    const int r = i / w4, c = (i % w4) * 4;
+    const int r = i / w4, c = (i % w4) * kVec;
     cp_async16(dst + r * ld + c, src + static_cast<size_t>(r) * w + c);
   }
 }
@@ -289,30 +425,56 @@ __device__ void stage_owned(float4* dst, const float* x, int w, int w8, float mu
   }
 }
 
+// The same on bfloat16 (w % 8 == 0): uint4 (a0, a1, a2, a3) of (warp, step,
+// lane) at (warp * w16 + step) * 32 + lane, per 16-column step; columns from
+// w up to 16 * w16 are zero.  No scaling: a bfloat16 operand is used as it
+// is given.
+__device__ void stage_owned(uint4* dst, const __nv_bfloat16* x, int w, int w16) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const __nv_bfloat16* r0 = x + static_cast<size_t>(warp * 16 + g) * w;
+  const __nv_bfloat16* r1 = r0 + 8 * w;
+  for (int ks = 0; ks < w16; ++ks) {
+    const int c0 = ks * 16 + 2 * t, c1 = c0 + 8;
+    dst[(warp * w16 + ks) * 32 + lane] =
+        make_uint4(c0 < w ? word_bf16(r0 + c0) : 0u, c0 < w ? word_bf16(r1 + c0) : 0u,
+                   c1 < w ? word_bf16(r0 + c1) : 0u, c1 < w ? word_bf16(r1 + c1) : 0u);
+  }
+}
+
 // columns [w, wp) of a 64-row tile whose rows are `ld` apart
-__device__ void zero_columns(float* tile, int ld, int w, int wp) {
+template <class T>
+__device__ void zero_columns(T* tile, int ld, int w, int wp) {
   for (int i = threadIdx.x; i < kBlock * (wp - w); i += kThreads)
-    tile[(i / (wp - w)) * ld + w + i % (wp - w)] = 0.f;
+    tile[(i / (wp - w)) * ld + w + i % (wp - w)] = from_float<T>(0.f);
 }
 
-// Zero-fill rows [row0, row0 + 64) of x ([.., w], w % 4 == 0).
-__device__ void zero_rows(float* x, size_t row0, int w) {
+// Zero-fill rows [row0, row0 + 64) of x ([.., w], 16 bytes a multiple of w).
+template <class T>
+__device__ void zero_rows(T* x, size_t row0, int w) {
   float4* p = reinterpret_cast<float4*>(x + row0 * w);
-  for (int i = threadIdx.x; i < kBlock * w / 4; i += kThreads) p[i] = zero4();
+  for (int i = threadIdx.x; i < kBlock * w / (16 / static_cast<int>(sizeof(T)));
+       i += kThreads)
+    p[i] = zero4();
 }
 
-// Shared memory of every kernel, in floats: the owned rows' fragments (64 x
-// 8 * d8, and 64 x 8 * dv8 more where a kernel owns a second operand: the
-// backward), then `stages` ring stages of two tiles (rows padded to 8 * w8 +
-// 4 floats, which spreads a fragment's reads over all 32 banks) and
-// `extra_rows` 64-value rows, then one int per candidate tile.  One stage is
-// 68 KB in the backward at d = dv = 64 (three CTAs share an SM), 51 KB in
-// the forward.
+// Shared memory of every kernel, in 4-byte words, for elements of `esize`
+// bytes and mma steps `kk` deep: the owned rows' fragments (64 x kk * dk
+// elements, and 64 x kk * dvk more where a kernel owns a second operand:
+// the backward), then `stages` ring stages of two tiles (rows padded by 16
+// bytes to ldk and ldv elements, which spreads a fragment's reads over all
+// 32 banks) and `extra_rows` 64-value rows, then one int per candidate
+// tile.  dk and dvk count the mma steps over d and dv (8 columns on
+// float32, 16 on bfloat16).  On float32 one stage is 68 KB in the backward
+// at d = dv = 64 (three CTAs share an SM), 51 KB in the forward; on
+// bfloat16 about half.
 struct RingSmem {
-  int d8, dv8, ldk, ldv, own8, stage;
-  __host__ __device__ RingSmem(int d, int dv, int extra_rows, bool own_dv)
-      : d8((d + 7) / 8), dv8((dv + 7) / 8), ldk(d8 * 8 + 4), ldv(dv8 * 8 + 4),
-        own8(own_dv ? d8 + dv8 : d8), stage(kBlock * (ldk + ldv + extra_rows)) {}
+  int dk, dvk, ldk, ldv, own8, stage;
+  __host__ __device__ RingSmem(int d, int dv, int extra_rows, bool own_dv, int kk = 8,
+                               int esize = 4)
+      : dk((d + kk - 1) / kk), dvk((dv + kk - 1) / kk), ldk(dk * kk + 16 / esize),
+        ldv(dvk * kk + 16 / esize), own8(own_dv ? dk + dvk : dk),
+        stage(kBlock * ((ldk + ldv) * esize / 4 + extra_rows)) {}
   __host__ __device__ int owned() const { return kBlock * 8 * own8; }
   __host__ __device__ size_t bytes(int stages, int n_tiles) const {
     return sizeof(float) * (static_cast<size_t>(owned()) + static_cast<size_t>(stages) * stage) +
@@ -343,19 +505,28 @@ __device__ __forceinline__ int next_live(const int* flags, int n, int i) {
 // K2a and K1: the forward
 // ---------------------------------------------------------------------------
 
-// One CTA per (bh, 64-query tile); MAXD8 bounds d8 and dv8.  kTrain (K2a)
-// adds the lse and the dropout; K1 leaves `lse` and `dr` unread.
-template <int MAXD8, bool kTrain>
-__device__ __forceinline__ void forward(const float* __restrict__ q, const float* __restrict__ k,
-                                        const float* __restrict__ v,
+// One CTA per (bh, 64-query tile); MAXD8 bounds d8 and dv8 (the 8-column
+// chunks of d and dv).  kTrain (K2a) adds the lse and the dropout; K1 leaves
+// `lse` and `dr` unread.  On bfloat16 q is staged as it is and the scores
+// are scaled after the product, in float32 (the Pallas kernel's `s =
+// dot(q, k) * scale`).
+template <class T, int MAXD8, bool kTrain>
+__device__ __forceinline__ void forward(const T* __restrict__ q, const T* __restrict__ k,
+                                        const T* __restrict__ v,
                                         const int* __restrict__ key_valid,
-                                        float* __restrict__ out, float* __restrict__ lse, int s,
+                                        T* __restrict__ out, float* __restrict__ lse, int s,
                                         int d, int dv, int start, int end, float scale,
                                         Dropout dr, int stages) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int kK = Elem<T>::kK;
+  constexpr int kMaxK = (8 * MAXD8 + kK - 1) / kK;  // bounds the mma steps over d
+  using Own = typename Elem<T>::Own;
   extern __shared__ float4 smem[];
-  const RingSmem lay(d, dv, 1, false);
-  const int d8 = lay.d8, dv8 = lay.dv8, ldk = lay.ldk, ldv = lay.ldv;
-  float4* own_q = smem;
+  const RingSmem lay(d, dv, 1, false, kK, sizeof(T));
+  // d8: the steps of the products over d (8 columns on float32, 16 on
+  // bfloat16); dv8: the 8-column chunks of the output
+  const int d8 = lay.dk, dv8 = (dv + 7) / 8, ldk = lay.ldk, ldv = lay.ldv;
+  Own* own_q = reinterpret_cast<Own*>(smem);
   float* ring = reinterpret_cast<float*>(smem) + lay.owned();
   int* flags = reinterpret_cast<int*>(ring + stages * lay.stage);
 
@@ -368,8 +539,12 @@ __device__ __forceinline__ void forward(const float* __restrict__ q, const float
   const int own0 = q0 + warp * 16;  // this warp's first query
   const size_t row0 = base + own0 + g, row1 = row0 + 8;
 
-  // q scale log2(e): S = q k^T comes out in the exp2 domain
-  stage_owned(own_q, q + (base + q0) * d, d, d8, scale * kLog2e);
+  // q scale log2(e): S = q k^T comes out in the exp2 domain (on bfloat16
+  // the scores are scaled instead)
+  if constexpr (kF32)
+    stage_owned(own_q, q + (base + q0) * d, d, d8, scale * kLog2e);
+  else
+    stage_owned(own_q, q + (base + q0) * d, d, d8);
   // the hash's batch-head part (its row and column parts are rebuilt per
   // element: registers are what this loop is short of); dropout's 1 / (1 -
   // rate)
@@ -383,8 +558,9 @@ __device__ __forceinline__ void forward(const float* __restrict__ q, const float
   const int n_cand = kt_hi - kt_lo + 1;
   for (int i = threadIdx.x; i < n_cand; i += kThreads) flags[i] = 0;
   for (int st = 0; st < stages; ++st) {
-    zero_columns(ring + st * lay.stage, ldk, d, 8 * d8);
-    zero_columns(ring + st * lay.stage + kBlock * ldk, ldv, dv, 8 * dv8);
+    T* tile = reinterpret_cast<T*>(ring + st * lay.stage);
+    zero_columns(tile, ldk, d, kK * d8);
+    zero_columns(tile + kBlock * ldk, ldv, dv, kK * lay.dvk);
   }
   __syncthreads();
   for (int j = kt_lo * kBlock + threadIdx.x; j < (kt_hi + 1) * kBlock; j += kThreads)
@@ -392,7 +568,7 @@ __device__ __forceinline__ void forward(const float* __restrict__ q, const float
   __syncthreads();
 
   auto load = [&](int i, int st) {
-    float* kt = ring + st * lay.stage;
+    T* kt = reinterpret_cast<T*>(ring + st * lay.stage);
     const int t0 = (kt_lo + i) * kBlock;
     tile_async(kt, ldk, k + (base + t0) * d, d);
     tile_async(kt + kBlock * ldk, ldv, v + (base + t0) * dv, dv);
@@ -420,8 +596,8 @@ __device__ __forceinline__ void forward(const float* __restrict__ q, const float
     }
     __syncthreads();
 
-    const float* kt = ring + st * lay.stage;
-    const float* vt = kt + kBlock * ldk;
+    const T* kt = reinterpret_cast<const T*>(ring + st * lay.stage);
+    const T* vt = kt + kBlock * ldk;
     const int* valid = reinterpret_cast<const int*>(vt + kBlock * ldv);
     const int t0 = (kt_lo + cur) * kBlock;
 #pragma unroll
@@ -439,13 +615,24 @@ __device__ __forceinline__ void forward(const float* __restrict__ q, const float
       const auto chunk_live = [&](int n) { return c_live[n]; };
       // S = q k^T, 16 queries x 32 keys per warp
 #pragma unroll
-      for (int ks = 0; ks < MAXD8; ++ks) {
+      for (int ks = 0; ks < kMaxK; ++ks) {
         if (ks < d8) {
-          const float4 a = own_q[(warp * d8 + ks) * 32 + lane];
-          mma_3xtf32<kPass, true>(sc, split_frag(a.x, a.y, a.z, a.w),
-                                  kt + (8 * n0 + g) * ldk + 8 * ks + t, 8 * ldk, 4,
-                                  chunk_live);
+          if constexpr (kF32) {
+            const float4 a = own_q[(warp * d8 + ks) * 32 + lane];
+            mma_3xtf32<kPass, true>(sc, split_frag(a.x, a.y, a.z, a.w),
+                                    kt + (8 * n0 + g) * ldk + 8 * ks + t, 8 * ldk, 4,
+                                    chunk_live);
+          } else {
+            mma_bf16_rows(sc, own_q[(warp * d8 + ks) * 32 + lane],
+                          kt + (8 * n0 + g) * ldk + 16 * ks + 2 * t, ldk, chunk_live);
+          }
         }
+      }
+      if constexpr (!kF32) {  // into the exp2 domain
+#pragma unroll
+        for (int n = 0; n < kPass; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[n][e] *= scale * kLog2e;
       }
       // band and validity in the accumulator layout: element e of chunk n
       // is (query own0 + g + 8 (e / 2), key t0 + 8 (n0 + n) + 2 t + e % 2);
@@ -503,12 +690,22 @@ __device__ __forceinline__ void forward(const float* __restrict__ q, const float
       }
       // O += drop(P) v, with K2b's permuted k index: drop(P)'s accumulator
       // registers are its A registers, b0 and b1 read keys 2t and 2t + 1
+      // (bfloat16: drop(P) rounded, two chunks per 16-deep step)
+      if constexpr (kF32) {
 #pragma unroll
-      for (int j = 0; j < kPass; ++j) {
-        if (!c_live[j]) continue;
-        mma_3xtf32<MAXD8, true>(acc, split_frag(sc[j][0], sc[j][2], sc[j][1], sc[j][3]),
-                                vt + (8 * (n0 + j) + 2 * t) * ldv + g, 8, ldv,
-                                [&](int n) { return n < dv8; });
+        for (int j = 0; j < kPass; ++j) {
+          if (!c_live[j]) continue;
+          mma_3xtf32<MAXD8, true>(acc, split_frag(sc[j][0], sc[j][2], sc[j][1], sc[j][3]),
+                                  vt + (8 * (n0 + j) + 2 * t) * ldv + g, 8, ldv,
+                                  [&](int n) { return n < dv8; });
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < kPass; j += 2) {
+          if (!c_live[j] && !c_live[j + 1]) continue;
+          mma_bf16_cols(acc, sc[j], sc[j + 1], vt + (8 * (n0 + j) + 2 * t) * ldv + g, ldv,
+                        [&](int n) { return n < dv8; });
+        }
       }
     }
     __syncthreads();  // the stage is consumed
@@ -531,10 +728,8 @@ __device__ __forceinline__ void forward(const float* __restrict__ q, const float
   for (int n = 0; n < MAXD8; ++n) {
     const int c = 8 * n + 2 * t;
     if (n < dv8 && c < dv) {
-      *reinterpret_cast<float2*>(out + row0 * dv + c) =
-          make_float2(acc[n][0] / denom[0], acc[n][1] / denom[0]);
-      *reinterpret_cast<float2*>(out + row1 * dv + c) =
-          make_float2(acc[n][2] / denom[1], acc[n][3] / denom[1]);
+      store_pair(out + row0 * dv + c, acc[n][0] / denom[0], acc[n][1] / denom[0]);
+      store_pair(out + row1 * dv + c, acc[n][2] / denom[1], acc[n][3] / denom[1]);
     }
   }
   if constexpr (kTrain) {
@@ -547,44 +742,51 @@ __device__ __forceinline__ void forward(const float* __restrict__ q, const float
 
 // K2a.  Registers are capped for 2 CTAs per SM up to d = 64: capped for 3
 // (170 registers), its dropout path spilled 4 bytes at d = 64.
-template <int MAXD8>
+template <class T, int MAXD8>
 __global__ void __launch_bounds__(kThreads, MAXD8 > 8 ? 1 : 2)
-fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-           const float* __restrict__ v, const int* __restrict__ key_valid,
-           float* __restrict__ out, float* __restrict__ lse, int s, int d, int dv, int start,
-           int end, float scale, Dropout dr, int stages) {
-  forward<MAXD8, true>(q, k, v, key_valid, out, lse, s, d, dv, start, end, scale, dr, stages);
+fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+           const int* __restrict__ key_valid, T* __restrict__ out, float* __restrict__ lse,
+           int s, int d, int dv, int start, int end, float scale, Dropout dr, int stages) {
+  forward<T, MAXD8, true>(q, k, v, key_valid, out, lse, s, d, dv, start, end, scale, dr,
+                          stages);
 }
 
 // K1: the same signature, so one launch helper serves both.
-template <int MAXD8>
+template <class T, int MAXD8>
 __global__ void __launch_bounds__(kThreads, MAXD8 > 8 ? 1 : 3)
-banded_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const int* __restrict__ key_valid,
-                        float* __restrict__ out, float* __restrict__ lse, int s, int d, int dv,
+banded_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const int* __restrict__ key_valid,
+                        T* __restrict__ out, float* __restrict__ lse, int s, int d, int dv,
                         int start, int end, float scale, Dropout dr, int stages) {
-  forward<MAXD8, false>(q, k, v, key_valid, out, lse, s, d, dv, start, end, scale, dr, stages);
+  forward<T, MAXD8, false>(q, k, v, key_valid, out, lse, s, d, dv, start, end, scale, dr,
+                           stages);
 }
 
 // ---------------------------------------------------------------------------
 // K2b: dq and delta
 // ---------------------------------------------------------------------------
 
-// One CTA per (bh, 64-query tile); MAXD8 bounds d8 and dv8 (8-column
-// steps).  Registers are capped for 3 CTAs per SM up to d = 64.
-template <int MAXD8>
+// One CTA per (bh, 64-query tile); MAXD8 bounds the 8-column chunks of d
+// and dv.  Registers are capped for 3 CTAs per SM up to d = 64.
+template <class T, int MAXD8>
 __global__ void __launch_bounds__(kThreads, MAXD8 > 8 ? 1 : 3)
-dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, const float* __restrict__ dout,
-          const float* __restrict__ out, const float* __restrict__ lse,
-          const int* __restrict__ key_valid, float* __restrict__ dq,
-          float* __restrict__ delta, int s, int d, int dv, int start, int end, float scale,
-          Dropout dr, int stages) {
+dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+          const T* __restrict__ dout, const T* __restrict__ out,
+          const float* __restrict__ lse, const int* __restrict__ key_valid,
+          T* __restrict__ dq, float* __restrict__ delta, int s, int d, int dv, int start,
+          int end, float scale, Dropout dr, int stages) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int kK = Elem<T>::kK;
+  constexpr int kMaxK = (8 * MAXD8 + kK - 1) / kK;  // bounds the mma steps over d, dv
+  using Own = typename Elem<T>::Own;
   extern __shared__ float4 smem[];
-  const RingSmem lay(d, dv, 1, true);
-  const int d8 = lay.d8, dv8 = lay.dv8, ldk = lay.ldk, ldv = lay.ldv;
-  float4* own_q = smem;
-  float4* own_do = own_q + kBlock * 2 * d8;  // 64 x 8 * d8 floats
+  const RingSmem lay(d, dv, 1, true, kK, sizeof(T));
+  // d8, dv8: the steps of the products over d and dv (8 columns on
+  // float32, 16 on bfloat16); dq8: the 8-column chunks of dq
+  const int d8 = lay.dk, dv8 = lay.dvk, ldk = lay.ldk, ldv = lay.ldv;
+  const int dq8 = kF32 ? d8 : (d + 7) / 8;
+  Own* own_q = reinterpret_cast<Own*>(smem);
+  Own* own_do = own_q + kBlock * 2 * d8;  // 64 x kK * d8 elements
   float* ring = reinterpret_cast<float*>(smem) + lay.owned();
   int* flags = reinterpret_cast<int*>(ring + stages * lay.stage);
 
@@ -604,15 +806,29 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const size_t row0 = base + own0 + g, row1 = row0 + 8;
   float row_delta[2] = {0.f, 0.f};
   for (int ks = 0; ks < dv8; ++ks) {
-    const float4 f = own_do[(warp * dv8 + ks) * 32 + lane];
-    const int c0 = ks * 8 + t, c1 = c0 + 4;
-    if (c0 < dv) {
-      row_delta[0] = fmaf(f.x, out[row0 * dv + c0], row_delta[0]);
-      row_delta[1] = fmaf(f.y, out[row1 * dv + c0], row_delta[1]);
-    }
-    if (c1 < dv) {
-      row_delta[0] = fmaf(f.z, out[row0 * dv + c1], row_delta[0]);
-      row_delta[1] = fmaf(f.w, out[row1 * dv + c1], row_delta[1]);
+    const Own f = own_do[(warp * dv8 + ks) * 32 + lane];
+    if constexpr (kF32) {
+      const int c0 = ks * 8 + t, c1 = c0 + 4;
+      if (c0 < dv) {
+        row_delta[0] = fmaf(f.x, out[row0 * dv + c0], row_delta[0]);
+        row_delta[1] = fmaf(f.y, out[row1 * dv + c0], row_delta[1]);
+      }
+      if (c1 < dv) {
+        row_delta[0] = fmaf(f.z, out[row0 * dv + c1], row_delta[0]);
+        row_delta[1] = fmaf(f.w, out[row1 * dv + c1], row_delta[1]);
+      }
+    } else {  // columns 2t, 2t + 1 and 2t + 8, 2t + 9 of the step
+      const int c0 = ks * 16 + 2 * t, c1 = c0 + 8;
+      const uint32_t dof[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = i < 2 ? c0 : c1, h = i & 1;
+        if (c < dv) {
+          const uint32_t o = word_bf16(out + (h ? row1 : row0) * dv + c);
+          row_delta[h] = fmaf(bf16_lo(dof[i]), bf16_lo(o), row_delta[h]);
+          row_delta[h] = fmaf(bf16_hi(dof[i]), bf16_hi(o), row_delta[h]);
+        }
+      }
     }
   }
 #pragma unroll
@@ -648,8 +864,9 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int n_cand = kt_hi - kt_lo + 1;
   for (int i = threadIdx.x; i < n_cand; i += kThreads) flags[i] = 0;
   for (int st = 0; st < stages; ++st) {
-    zero_columns(ring + st * lay.stage, ldk, d, 8 * d8);
-    zero_columns(ring + st * lay.stage + kBlock * ldk, ldv, dv, 8 * dv8);
+    T* tile = reinterpret_cast<T*>(ring + st * lay.stage);
+    zero_columns(tile, ldk, d, kK * d8);
+    zero_columns(tile + kBlock * ldk, ldv, dv, kK * dv8);
   }
   __syncthreads();
   for (int j = kt_lo * kBlock + threadIdx.x; j < (kt_hi + 1) * kBlock; j += kThreads)
@@ -657,7 +874,7 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   __syncthreads();
 
   auto load = [&](int i, int st) {
-    float* kt = ring + st * lay.stage;
+    T* kt = reinterpret_cast<T*>(ring + st * lay.stage);
     const int t0 = (kt_lo + i) * kBlock;
     tile_async(kt, ldk, k + (base + t0) * d, d);
     tile_async(kt + kBlock * ldk, ldv, v + (base + t0) * dv, dv);
@@ -683,8 +900,8 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
 
     if (warp_live) {
-      const float* kt = ring + st * lay.stage;
-      const float* vt = kt + kBlock * ldk;
+      const T* kt = reinterpret_cast<const T*>(ring + st * lay.stage);
+      const T* vt = kt + kBlock * ldk;
       const int* valid = reinterpret_cast<const int*>(vt + kBlock * ldv);
       const int t0 = (kt_lo + cur) * kBlock;
 #pragma unroll
@@ -700,16 +917,25 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const auto chunk_live = [&](int n) { return c_live[n]; };
         // S = q k^T and dP = dout v^T, 16 queries x 32 keys per warp
 #pragma unroll
-        for (int ks = 0; ks < MAXD8; ++ks) {
-          if (ks < d8) {
-            const float4 a = own_q[(warp * d8 + ks) * 32 + lane];
-            mma_bwd(sc, split_frag(a.x, a.y, a.z, a.w),
-                       kt + (8 * n0 + g) * ldk + 8 * ks + t, 8 * ldk, 4, chunk_live);
-          }
-          if (ks < dv8) {
-            const float4 a = own_do[(warp * dv8 + ks) * 32 + lane];
-            mma_bwd(dp, split_frag(a.x, a.y, a.z, a.w),
-                       vt + (8 * n0 + g) * ldv + 8 * ks + t, 8 * ldv, 4, chunk_live);
+        for (int ks = 0; ks < kMaxK; ++ks) {
+          if constexpr (kF32) {
+            if (ks < d8) {
+              const float4 a = own_q[(warp * d8 + ks) * 32 + lane];
+              mma_bwd(sc, split_frag(a.x, a.y, a.z, a.w),
+                      kt + (8 * n0 + g) * ldk + 8 * ks + t, 8 * ldk, 4, chunk_live);
+            }
+            if (ks < dv8) {
+              const float4 a = own_do[(warp * dv8 + ks) * 32 + lane];
+              mma_bwd(dp, split_frag(a.x, a.y, a.z, a.w),
+                      vt + (8 * n0 + g) * ldv + 8 * ks + t, 8 * ldv, 4, chunk_live);
+            }
+          } else {
+            if (ks < d8)
+              mma_bf16_rows(sc, own_q[(warp * d8 + ks) * 32 + lane],
+                            kt + (8 * n0 + g) * ldk + 16 * ks + 2 * t, ldk, chunk_live);
+            if (ks < dv8)
+              mma_bf16_rows(dp, own_do[(warp * dv8 + ks) * 32 + lane],
+                            vt + (8 * n0 + g) * ldv + 16 * ks + 2 * t, ldv, chunk_live);
           }
         }
         // dS = a (drop(dP) - delta) in the accumulator layout: element e of
@@ -738,12 +964,22 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         // the order (0, 2, 4, 6, 1, 3, 5, 7), so dS's accumulator registers
         // are its A registers: a0 = (g, 2t), a1 = (g + 8, 2t), a2 = (g, 2t
         // + 1), a3 = (g + 8, 2t + 1); b0 and b1 read keys 2t and 2t + 1.
+        // (bfloat16: dS rounded, two chunks per 16-deep step)
+        if constexpr (kF32) {
 #pragma unroll
-        for (int j = 0; j < kPass; ++j) {
-          if (!c_live[j]) continue;
-          mma_bwd(acc, split_frag(sc[j][0], sc[j][2], sc[j][1], sc[j][3]),
-                     kt + (8 * (n0 + j) + 2 * t) * ldk + g, 8, ldk,
-                     [&](int n) { return n < d8; });
+          for (int j = 0; j < kPass; ++j) {
+            if (!c_live[j]) continue;
+            mma_bwd(acc, split_frag(sc[j][0], sc[j][2], sc[j][1], sc[j][3]),
+                    kt + (8 * (n0 + j) + 2 * t) * ldk + g, 8, ldk,
+                    [&](int n) { return n < dq8; });
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < kPass; j += 2) {
+            if (!c_live[j] && !c_live[j + 1]) continue;
+            mma_bf16_cols(acc, sc[j], sc[j + 1], kt + (8 * (n0 + j) + 2 * t) * ldk + g, ldk,
+                          [&](int n) { return n < dq8; });
+          }
         }
       }
     }
@@ -760,11 +996,9 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int n = 0; n < MAXD8; ++n) {
     const int c = 8 * n + 2 * t;
-    if (n < d8 && c < d) {
-      *reinterpret_cast<float2*>(dq + row0 * d + c) =
-          make_float2(acc[n][0] * scale, acc[n][1] * scale);
-      *reinterpret_cast<float2*>(dq + row1 * d + c) =
-          make_float2(acc[n][2] * scale, acc[n][3] * scale);
+    if (n < dq8 && c < d) {
+      store_pair(dq + row0 * d + c, acc[n][0] * scale, acc[n][1] * scale);
+      store_pair(dq + row1 * d + c, acc[n][2] * scale, acc[n][3] * scale);
     }
   }
 }
@@ -773,23 +1007,30 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // K2c: dk and dv
 // ---------------------------------------------------------------------------
 
-// One CTA per (bh, 64-key tile); as K2b, MAXD8 bounds d8 and dv8, with
-// registers capped for 3 CTAs per SM up to d = 64.  There the fresh sums
-// spill (about 0.5 KB a thread), and still run faster than spill-free at 2
-// CTAs (PERF.md); above d = 64 they spill at one CTA too (untimed).
-template <int MAXD8>
+// One CTA per (bh, 64-key tile); as K2b, MAXD8 bounds the 8-column chunks
+// of d and dv, with registers capped for 3 CTAs per SM up to d = 64.  There
+// the float32 fresh sums spill (about 0.5 KB a thread), and still run faster
+// than spill-free at 2 CTAs (PERF.md); above d = 64 they spill at one CTA
+// too (untimed).
+template <class T, int MAXD8>
 __global__ void __launch_bounds__(kThreads, MAXD8 > 8 ? 1 : 3)
-dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-           const float* __restrict__ v, const float* __restrict__ dout,
-           const float* __restrict__ lse, const float* __restrict__ delta,
-           const int* __restrict__ key_valid, float* __restrict__ dk,
-           float* __restrict__ dv_out, int s, int d, int dv, int start, int end,
-           float scale, Dropout dr, int stages) {
+dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+           const T* __restrict__ dout, const float* __restrict__ lse,
+           const float* __restrict__ delta, const int* __restrict__ key_valid,
+           T* __restrict__ dk, T* __restrict__ dv_out, int s, int d, int dv, int start,
+           int end, float scale, Dropout dr, int stages) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int kK = Elem<T>::kK;
+  constexpr int kMaxK = (8 * MAXD8 + kK - 1) / kK;  // bounds the mma steps over d, dv
+  using Own = typename Elem<T>::Own;
   extern __shared__ float4 smem[];
-  const RingSmem lay(d, dv, 2, true);
-  const int d8 = lay.d8, dv8 = lay.dv8, ldk = lay.ldk, ldv = lay.ldv;
-  float4* own_k = smem;
-  float4* own_v = own_k + kBlock * 2 * d8;
+  const RingSmem lay(d, dv, 2, true, kK, sizeof(T));
+  // d8, dv8: the steps of the products over d and dv (8 columns on
+  // float32, 16 on bfloat16); dk8, dv8c: the 8-column chunks of dk and dv
+  const int d8 = lay.dk, dv8 = lay.dvk, ldk = lay.ldk, ldv = lay.ldv;
+  const int dk8 = kF32 ? d8 : (d + 7) / 8, dv8c = kF32 ? dv8 : (dv + 7) / 8;
+  Own* own_k = reinterpret_cast<Own*>(smem);
+  Own* own_v = own_k + kBlock * 2 * d8;
   float* ring = reinterpret_cast<float*>(smem) + lay.owned();
   int* flags = reinterpret_cast<int*>(ring + stages * lay.stage);
 
@@ -826,8 +1067,9 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int n_cand = qt_hi - qt_lo + 1;
   for (int i = threadIdx.x; i < n_cand; i += kThreads) flags[i] = 0;
   for (int st = 0; st < stages; ++st) {
-    zero_columns(ring + st * lay.stage, ldk, d, 8 * d8);
-    zero_columns(ring + st * lay.stage + kBlock * ldk, ldv, dv, 8 * dv8);
+    T* tile = reinterpret_cast<T*>(ring + st * lay.stage);
+    zero_columns(tile, ldk, d, kK * d8);
+    zero_columns(tile + kBlock * ldk, ldv, dv, kK * dv8);
   }
   __syncthreads();
   for (int j = qt_lo * kBlock + threadIdx.x; j < (qt_hi + 1) * kBlock; j += kThreads)
@@ -835,11 +1077,11 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   __syncthreads();
 
   auto load = [&](int i, int st) {
-    float* qt = ring + st * lay.stage;
+    T* qt = reinterpret_cast<T*>(ring + st * lay.stage);
     const int t0 = (qt_lo + i) * kBlock;
     tile_async(qt, ldk, q + (base + t0) * d, d);
     tile_async(qt + kBlock * ldk, ldv, dout + (base + t0) * dv, dv);
-    float* rows = qt + kBlock * (ldk + ldv);
+    float* rows = reinterpret_cast<float*>(qt + kBlock * (ldk + ldv));
     row_async(rows, lse + base + t0);
     row_async(rows + kBlock, delta + base + t0);
   };
@@ -865,9 +1107,9 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
 
     if (warp_live) {
-      const float* qt = ring + st * lay.stage;
-      const float* dot = qt + kBlock * ldk;
-      const float* lse_t = dot + kBlock * ldv;
+      const T* qt = reinterpret_cast<const T*>(ring + st * lay.stage);
+      const T* dot = qt + kBlock * ldk;
+      const float* lse_t = reinterpret_cast<const float*>(dot + kBlock * ldv);
       const float* delta_t = lse_t + kBlock;
       const int t0 = (qt_lo + cur) * kBlock;
 #pragma unroll
@@ -883,16 +1125,25 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const auto chunk_live = [&](int n) { return c_live[n]; };
         // S^T = k q^T and dP^T = v dout^T, 16 keys x 32 queries per warp
 #pragma unroll
-        for (int ks = 0; ks < MAXD8; ++ks) {
-          if (ks < d8) {
-            const float4 a = own_k[(warp * d8 + ks) * 32 + lane];
-            mma_bwd(sc, split_frag(a.x, a.y, a.z, a.w),
-                       qt + (8 * n0 + g) * ldk + 8 * ks + t, 8 * ldk, 4, chunk_live);
-          }
-          if (ks < dv8) {
-            const float4 a = own_v[(warp * dv8 + ks) * 32 + lane];
-            mma_bwd(pa, split_frag(a.x, a.y, a.z, a.w),
-                       dot + (8 * n0 + g) * ldv + 8 * ks + t, 8 * ldv, 4, chunk_live);
+        for (int ks = 0; ks < kMaxK; ++ks) {
+          if constexpr (kF32) {
+            if (ks < d8) {
+              const float4 a = own_k[(warp * d8 + ks) * 32 + lane];
+              mma_bwd(sc, split_frag(a.x, a.y, a.z, a.w),
+                      qt + (8 * n0 + g) * ldk + 8 * ks + t, 8 * ldk, 4, chunk_live);
+            }
+            if (ks < dv8) {
+              const float4 a = own_v[(warp * dv8 + ks) * 32 + lane];
+              mma_bwd(pa, split_frag(a.x, a.y, a.z, a.w),
+                      dot + (8 * n0 + g) * ldv + 8 * ks + t, 8 * ldv, 4, chunk_live);
+            }
+          } else {
+            if (ks < d8)
+              mma_bf16_rows(sc, own_k[(warp * d8 + ks) * 32 + lane],
+                            qt + (8 * n0 + g) * ldk + 16 * ks + 2 * t, ldk, chunk_live);
+            if (ks < dv8)
+              mma_bf16_rows(pa, own_v[(warp * dv8 + ks) * 32 + lane],
+                            dot + (8 * n0 + g) * ldv + 16 * ks + 2 * t, ldv, chunk_live);
           }
         }
         // element e of chunk n is (key own0 + g + 8 (e / 2), query
@@ -923,14 +1174,27 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
           }
         }
         // dv += drop(P)^T dout and dk += dS^T q, with K2b's permuted k index
+        // (bfloat16: drop(P)^T and dS^T rounded, two chunks per 16-deep step)
+        if constexpr (kF32) {
 #pragma unroll
-        for (int j = 0; j < kPass; ++j) {
-          if (!c_live[j]) continue;
-          const int r = 8 * (n0 + j) + 2 * t;
-          mma_bwd(dv_acc, split_frag(pa[j][0], pa[j][2], pa[j][1], pa[j][3]),
-                     dot + r * ldv + g, 8, ldv, [&](int n) { return n < dv8; });
-          mma_bwd(dk_acc, split_frag(sc[j][0], sc[j][2], sc[j][1], sc[j][3]),
-                     qt + r * ldk + g, 8, ldk, [&](int n) { return n < d8; });
+          for (int j = 0; j < kPass; ++j) {
+            if (!c_live[j]) continue;
+            const int r = 8 * (n0 + j) + 2 * t;
+            mma_bwd(dv_acc, split_frag(pa[j][0], pa[j][2], pa[j][1], pa[j][3]),
+                    dot + r * ldv + g, 8, ldv, [&](int n) { return n < dv8c; });
+            mma_bwd(dk_acc, split_frag(sc[j][0], sc[j][2], sc[j][1], sc[j][3]),
+                    qt + r * ldk + g, 8, ldk, [&](int n) { return n < dk8; });
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < kPass; j += 2) {
+            if (!c_live[j] && !c_live[j + 1]) continue;
+            const int r = 8 * (n0 + j) + 2 * t;
+            mma_bf16_cols(dv_acc, pa[j], pa[j + 1], dot + r * ldv + g, ldv,
+                          [&](int n) { return n < dv8c; });
+            mma_bf16_cols(dk_acc, sc[j], sc[j + 1], qt + r * ldk + g, ldk,
+                          [&](int n) { return n < dk8; });
+          }
         }
       }
     }
@@ -946,17 +1210,13 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int n = 0; n < MAXD8; ++n) {
     const int c = 8 * n + 2 * t;
-    if (n < d8 && c < d) {
-      *reinterpret_cast<float2*>(dk + row0 * d + c) =
-          make_float2(dk_acc[n][0] * scale, dk_acc[n][1] * scale);
-      *reinterpret_cast<float2*>(dk + row1 * d + c) =
-          make_float2(dk_acc[n][2] * scale, dk_acc[n][3] * scale);
+    if (n < dk8 && c < d) {
+      store_pair(dk + row0 * d + c, dk_acc[n][0] * scale, dk_acc[n][1] * scale);
+      store_pair(dk + row1 * d + c, dk_acc[n][2] * scale, dk_acc[n][3] * scale);
     }
-    if (n < dv8 && c < dv) {
-      *reinterpret_cast<float2*>(dv_out + row0 * dv + c) =
-          make_float2(dv_acc[n][0], dv_acc[n][1]);
-      *reinterpret_cast<float2*>(dv_out + row1 * dv + c) =
-          make_float2(dv_acc[n][2], dv_acc[n][3]);
+    if (n < dv8c && c < dv) {
+      store_pair(dv_out + row0 * dv + c, dv_acc[n][0], dv_acc[n][1]);
+      store_pair(dv_out + row1 * dv + c, dv_acc[n][2], dv_acc[n][3]);
     }
   }
 }
@@ -975,9 +1235,11 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-bool bad_shape(int bh, int s, int d, int dv, int start, int end) {
-  return bh <= 0 || s <= 0 || s % kBlock != 0 || d <= 0 || dv <= 0 || d % 4 != 0 ||
-         dv % 4 != 0 || d > kMaxHeadDim || dv > kMaxHeadDim || start > 0 || end < 0;
+// the shapes the kernels take: d and dv multiples of 16 bytes' worth of
+// elements / 4 (float32: 4; bfloat16, whose rows load 8 at a time: 8)
+bool bad_shape(int bh, int s, int d, int dv, int start, int end, int vec) {
+  return bh <= 0 || s <= 0 || s % kBlock != 0 || d <= 0 || dv <= 0 || d % vec != 0 ||
+         dv % vec != 0 || d > kMaxHeadDim || dv > kMaxHeadDim || start > 0 || end < 0;
 }
 
 // 8-column steps of the larger head dim, rounded up to the instantiated
@@ -1016,62 +1278,154 @@ cudaError_t ring_stages(Kernel kernel, const RingSmem& lay, int s, int& stages, 
 }
 
 // K2a (kTrain) or K1
-template <int MAXD8, bool kTrain>
+template <class T, int MAXD8, bool kTrain>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* key_valid,
                        void* out, void* lse, int bh, int s, int d, int dv, int start, int end,
                        float scale, Dropout dr, cudaStream_t stream) {
-  const auto kernel = kTrain ? fwd_kernel<MAXD8> : banded_attention_kernel<MAXD8>;
+  const auto kernel = kTrain ? fwd_kernel<T, MAXD8> : banded_attention_kernel<T, MAXD8>;
   int stages = 0;
   size_t smem = 0;
-  const cudaError_t err = ring_stages(kernel, RingSmem(d, dv, 1, false), s, stages, smem);
+  const cudaError_t err = ring_stages(
+      kernel, RingSmem(d, dv, 1, false, Elem<T>::kK, sizeof(T)), s, stages, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(bh) * static_cast<unsigned>(s / kBlock));
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const int*>(key_valid),
-      static_cast<float*>(out), static_cast<float*>(lse), s, d, dv, start, end, scale, dr,
-      stages);
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const int*>(key_valid), static_cast<T*>(out), static_cast<float*>(lse), s, d,
+      dv, start, end, scale, dr, stages);
   return cudaGetLastError();
 }
 
-template <int MAXD8>
+template <class T, int MAXD8>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const void* out, const void* lse, const void* key_valid, void* dq,
                       void* delta, int bh, int s, int d, int dv, int start, int end,
                       float scale, Dropout dr, cudaStream_t stream) {
   int stages = 0;
   size_t smem = 0;
-  const cudaError_t err =
-      ring_stages(dq_kernel<MAXD8>, RingSmem(d, dv, 1, true), s, stages, smem);
+  const cudaError_t err = ring_stages(
+      dq_kernel<T, MAXD8>, RingSmem(d, dv, 1, true, Elem<T>::kK, sizeof(T)), s, stages, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(bh) * static_cast<unsigned>(s / kBlock));
-  dq_kernel<MAXD8><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout),
-      static_cast<const float*>(out), static_cast<const float*>(lse),
-      static_cast<const int*>(key_valid), static_cast<float*>(dq),
-      static_cast<float*>(delta), s, d, dv, start, end, scale, dr, stages);
+  dq_kernel<T, MAXD8><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), static_cast<const T*>(out), static_cast<const float*>(lse),
+      static_cast<const int*>(key_valid), static_cast<T*>(dq), static_cast<float*>(delta), s,
+      d, dv, start, end, scale, dr, stages);
   return cudaGetLastError();
 }
 
-template <int MAXD8>
+template <class T, int MAXD8>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, const void* key_valid, void* dk,
                        void* dv_out, int bh, int s, int d, int dv, int start, int end,
                        float scale, Dropout dr, cudaStream_t stream) {
   int stages = 0;
   size_t smem = 0;
-  const cudaError_t err =
-      ring_stages(dkv_kernel<MAXD8>, RingSmem(d, dv, 2, true), s, stages, smem);
+  const cudaError_t err = ring_stages(
+      dkv_kernel<T, MAXD8>, RingSmem(d, dv, 2, true, Elem<T>::kK, sizeof(T)), s, stages,
+      smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(bh) * static_cast<unsigned>(s / kBlock));
-  dkv_kernel<MAXD8><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const int*>(key_valid), static_cast<float*>(dk),
-      static_cast<float*>(dv_out), s, d, dv, start, end, scale, dr, stages);
+  dkv_kernel<T, MAXD8><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const int*>(key_valid),
+      static_cast<T*>(dk), static_cast<T*>(dv_out), s, d, dv, start, end, scale, dr, stages);
   return cudaGetLastError();
+}
+
+// The entry points' bodies, one per kernel, over the element type T: the
+// shape check, then the instantiation for the head dims.
+template <class T>
+int k1_entry(const void* q, const void* k, const void* v, const void* key_valid, void* out,
+             int bh, int s, int d, int dv, int start, int end, float scale, void* stream) {
+  if (bad_shape(bh, s, d, dv, start, end, 16 / sizeof(T)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Dropout off = make_dropout(0, 0, 1.f, 0);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (steps_for(d, dv)) {
+    case 2: return launch_fwd<T, 2, false>(q, k, v, key_valid, out, nullptr, bh, s, d, dv, start, end, scale, off, st);
+    case 4: return launch_fwd<T, 4, false>(q, k, v, key_valid, out, nullptr, bh, s, d, dv, start, end, scale, off, st);
+    case 8: return launch_fwd<T, 8, false>(q, k, v, key_valid, out, nullptr, bh, s, d, dv, start, end, scale, off, st);
+    default: return launch_fwd<T, 16, false>(q, k, v, key_valid, out, nullptr, bh, s, d, dv, start, end, scale, off, st);
+  }
+}
+
+template <class T>
+int fwd_entry(const void* q, const void* k, const void* v, const void* key_valid, void* out,
+              void* lse, int bh, int s, int d, int dv, int start, int end, float scale,
+              unsigned seed, unsigned thresh, float keep_prob, int dropout_on, void* stream) {
+  if (bad_shape(bh, s, d, dv, start, end, 16 / sizeof(T)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Dropout dr = make_dropout(seed, thresh, keep_prob, dropout_on);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (steps_for(d, dv)) {
+    case 2: return launch_fwd<T, 2, true>(q, k, v, key_valid, out, lse, bh, s, d, dv, start, end, scale, dr, st);
+    case 4: return launch_fwd<T, 4, true>(q, k, v, key_valid, out, lse, bh, s, d, dv, start, end, scale, dr, st);
+    case 8: return launch_fwd<T, 8, true>(q, k, v, key_valid, out, lse, bh, s, d, dv, start, end, scale, dr, st);
+    default: return launch_fwd<T, 16, true>(q, k, v, key_valid, out, lse, bh, s, d, dv, start, end, scale, dr, st);
+  }
+}
+
+template <class T>
+int dq_entry(const void* q, const void* k, const void* v, const void* dout, const void* out,
+             const void* lse, const void* key_valid, void* dq, void* delta, int bh, int s,
+             int d, int dv, int start, int end, float scale, unsigned seed, unsigned thresh,
+             float keep_prob, int dropout_on, void* stream) {
+  if (bad_shape(bh, s, d, dv, start, end, 16 / sizeof(T)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Dropout dr = make_dropout(seed, thresh, keep_prob, dropout_on);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (steps_for(d, dv)) {
+    case 2: return launch_dq<T, 2>(q, k, v, dout, out, lse, key_valid, dq, delta, bh, s, d, dv, start, end, scale, dr, st);
+    case 4: return launch_dq<T, 4>(q, k, v, dout, out, lse, key_valid, dq, delta, bh, s, d, dv, start, end, scale, dr, st);
+    case 8: return launch_dq<T, 8>(q, k, v, dout, out, lse, key_valid, dq, delta, bh, s, d, dv, start, end, scale, dr, st);
+    default: return launch_dq<T, 16>(q, k, v, dout, out, lse, key_valid, dq, delta, bh, s, d, dv, start, end, scale, dr, st);
+  }
+}
+
+template <class T>
+int dkv_entry(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+              const void* delta, const void* key_valid, void* dk, void* dv_out, int bh, int s,
+              int d, int dv, int start, int end, float scale, unsigned seed, unsigned thresh,
+              float keep_prob, int dropout_on, void* stream) {
+  if (bad_shape(bh, s, d, dv, start, end, 16 / sizeof(T)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Dropout dr = make_dropout(seed, thresh, keep_prob, dropout_on);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (steps_for(d, dv)) {
+    case 2: return launch_dkv<T, 2>(q, k, v, dout, lse, delta, key_valid, dk, dv_out, bh, s, d, dv, start, end, scale, dr, st);
+    case 4: return launch_dkv<T, 4>(q, k, v, dout, lse, delta, key_valid, dk, dv_out, bh, s, d, dv, start, end, scale, dr, st);
+    case 8: return launch_dkv<T, 8>(q, k, v, dout, lse, delta, key_valid, dk, dv_out, bh, s, d, dv, start, end, scale, dr, st);
+    default: return launch_dkv<T, 16>(q, k, v, dout, lse, delta, key_valid, dk, dv_out, bh, s, d, dv, start, end, scale, dr, st);
+  }
+}
+
+// One m16n8k16 bfloat16 mma per CTA of one warp, problem p = blockIdx.x:
+// d = a.b + c with a [16, 16] and b [16, 8] bfloat16, c and d [16, 8]
+// float32, row-major and packed one problem after another.  mma_bf16 as
+// the kernels issue it, so chip_smoke.py can read the tensor core's
+// rounding off d against a float64 sum.
+__global__ void mma_bf16_probe_kernel(const __nv_bfloat16* __restrict__ a,
+                                      const __nv_bfloat16* __restrict__ b,
+                                      const float* __restrict__ c, float* __restrict__ d) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const __nv_bfloat16* A = a + blockIdx.x * 256;
+  const __nv_bfloat16* B = b + blockIdx.x * 128;
+  const float* C = c + blockIdx.x * 128;
+  float* D = d + blockIdx.x * 128;
+  const uint32_t af[4] = {word_bf16(A + g * 16 + 2 * t), word_bf16(A + (g + 8) * 16 + 2 * t),
+                          word_bf16(A + g * 16 + 2 * t + 8),
+                          word_bf16(A + (g + 8) * 16 + 2 * t + 8)};
+  float acc[4] = {C[g * 8 + 2 * t], C[g * 8 + 2 * t + 1], C[(g + 8) * 8 + 2 * t],
+                  C[(g + 8) * 8 + 2 * t + 1]};
+  mma_bf16(acc, af, pair_bf16(B + 2 * t * 8 + g, B + (2 * t + 1) * 8 + g),
+           pair_bf16(B + (2 * t + 8) * 8 + g, B + (2 * t + 9) * 8 + g));
+  D[g * 8 + 2 * t] = acc[0];
+  D[g * 8 + 2 * t + 1] = acc[1];
+  D[(g + 8) * 8 + 2 * t] = acc[2];
+  D[(g + 8) * 8 + 2 * t + 1] = acc[3];
 }
 
 }  // namespace
@@ -1079,21 +1433,21 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
 // Plain C entry points (loaded with ctypes).  Each launches on `stream`
 // without synchronising and returns the launch's cudaError_t (0 on success).
 // `seed`, `thresh`, `keep_prob` and `dropout_on` describe the dropout mask;
-// with dropout_on == 0 they are ignored.
+// with dropout_on == 0 they are ignored.  The _f32 entry points take float32
+// q, k, v, dout and outputs, the _bf16 ones bfloat16; lse and delta are
+// float32 in both.
 
 // K1: out [BH, S, Dv].
 extern "C" int banded_attention_f32(const void* q, const void* k, const void* v,
                                     const void* key_valid, void* out, int bh, int s, int d,
                                     int dv, int start, int end, float scale, void* stream) {
-  if (bad_shape(bh, s, d, dv, start, end)) return static_cast<int>(cudaErrorInvalidValue);
-  const Dropout off = make_dropout(0, 0, 1.f, 0);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (steps_for(d, dv)) {
-    case 2: return launch_fwd<2, false>(q, k, v, key_valid, out, nullptr, bh, s, d, dv, start, end, scale, off, st);
-    case 4: return launch_fwd<4, false>(q, k, v, key_valid, out, nullptr, bh, s, d, dv, start, end, scale, off, st);
-    case 8: return launch_fwd<8, false>(q, k, v, key_valid, out, nullptr, bh, s, d, dv, start, end, scale, off, st);
-    default: return launch_fwd<16, false>(q, k, v, key_valid, out, nullptr, bh, s, d, dv, start, end, scale, off, st);
-  }
+  return k1_entry<float>(q, k, v, key_valid, out, bh, s, d, dv, start, end, scale, stream);
+}
+extern "C" int banded_attention_bf16(const void* q, const void* k, const void* v,
+                                     const void* key_valid, void* out, int bh, int s, int d,
+                                     int dv, int start, int end, float scale, void* stream) {
+  return k1_entry<__nv_bfloat16>(q, k, v, key_valid, out, bh, s, d, dv, start, end, scale,
+                                 stream);
 }
 
 // K2a: out [BH, S, Dv] and lse [BH, S].
@@ -1102,15 +1456,16 @@ extern "C" int banded_attention_fwd_f32(const void* q, const void* k, const void
                                         int bh, int s, int d, int dv, int start, int end,
                                         float scale, unsigned seed, unsigned thresh,
                                         float keep_prob, int dropout_on, void* stream) {
-  if (bad_shape(bh, s, d, dv, start, end)) return static_cast<int>(cudaErrorInvalidValue);
-  const Dropout dr = make_dropout(seed, thresh, keep_prob, dropout_on);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (steps_for(d, dv)) {
-    case 2: return launch_fwd<2, true>(q, k, v, key_valid, out, lse, bh, s, d, dv, start, end, scale, dr, st);
-    case 4: return launch_fwd<4, true>(q, k, v, key_valid, out, lse, bh, s, d, dv, start, end, scale, dr, st);
-    case 8: return launch_fwd<8, true>(q, k, v, key_valid, out, lse, bh, s, d, dv, start, end, scale, dr, st);
-    default: return launch_fwd<16, true>(q, k, v, key_valid, out, lse, bh, s, d, dv, start, end, scale, dr, st);
-  }
+  return fwd_entry<float>(q, k, v, key_valid, out, lse, bh, s, d, dv, start, end, scale, seed,
+                          thresh, keep_prob, dropout_on, stream);
+}
+extern "C" int banded_attention_fwd_bf16(const void* q, const void* k, const void* v,
+                                         const void* key_valid, void* out, void* lse,
+                                         int bh, int s, int d, int dv, int start, int end,
+                                         float scale, unsigned seed, unsigned thresh,
+                                         float keep_prob, int dropout_on, void* stream) {
+  return fwd_entry<__nv_bfloat16>(q, k, v, key_valid, out, lse, bh, s, d, dv, start, end,
+                                  scale, seed, thresh, keep_prob, dropout_on, stream);
 }
 
 // K2b: dq [BH, S, D] and delta = rowsum(dout * out) [BH, S], which K2c reads.
@@ -1120,17 +1475,21 @@ extern "C" int banded_attention_dq_f32(const void* q, const void* k, const void*
                                        int s, int d, int dv, int start, int end, float scale,
                                        unsigned seed, unsigned thresh, float keep_prob,
                                        int dropout_on, void* stream) {
-  if (bad_shape(bh, s, d, dv, start, end)) return static_cast<int>(cudaErrorInvalidValue);
-  const Dropout dr = make_dropout(seed, thresh, keep_prob, dropout_on);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (steps_for(d, dv)) {
-    case 2: return launch_dq<2>(q, k, v, dout, out, lse, key_valid, dq, delta, bh, s, d, dv, start, end, scale, dr, st);
-    case 4: return launch_dq<4>(q, k, v, dout, out, lse, key_valid, dq, delta, bh, s, d, dv, start, end, scale, dr, st);
-    case 8: return launch_dq<8>(q, k, v, dout, out, lse, key_valid, dq, delta, bh, s, d, dv, start, end, scale, dr, st);
-    default: return launch_dq<16>(q, k, v, dout, out, lse, key_valid, dq, delta, bh, s, d, dv, start, end, scale, dr, st);
-  }
+  return dq_entry<float>(q, k, v, dout, out, lse, key_valid, dq, delta, bh, s, d, dv, start,
+                         end, scale, seed, thresh, keep_prob, dropout_on, stream);
+}
+extern "C" int banded_attention_dq_bf16(const void* q, const void* k, const void* v,
+                                        const void* dout, const void* out, const void* lse,
+                                        const void* key_valid, void* dq, void* delta, int bh,
+                                        int s, int d, int dv, int start, int end, float scale,
+                                        unsigned seed, unsigned thresh, float keep_prob,
+                                        int dropout_on, void* stream) {
+  return dq_entry<__nv_bfloat16>(q, k, v, dout, out, lse, key_valid, dq, delta, bh, s, d, dv,
+                                 start, end, scale, seed, thresh, keep_prob, dropout_on,
+                                 stream);
 }
 
+// K2c: dk [BH, S, D] and dv [BH, S, Dv].
 extern "C" int banded_attention_dkv_f32(const void* q, const void* k, const void* v,
                                         const void* dout, const void* lse,
                                         const void* delta, const void* key_valid, void* dk,
@@ -1138,13 +1497,29 @@ extern "C" int banded_attention_dkv_f32(const void* q, const void* k, const void
                                         int start, int end, float scale, unsigned seed,
                                         unsigned thresh, float keep_prob, int dropout_on,
                                         void* stream) {
-  if (bad_shape(bh, s, d, dv, start, end)) return static_cast<int>(cudaErrorInvalidValue);
-  const Dropout dr = make_dropout(seed, thresh, keep_prob, dropout_on);
+  return dkv_entry<float>(q, k, v, dout, lse, delta, key_valid, dk, dv_out, bh, s, d, dv,
+                          start, end, scale, seed, thresh, keep_prob, dropout_on, stream);
+}
+extern "C" int banded_attention_dkv_bf16(const void* q, const void* k, const void* v,
+                                         const void* dout, const void* lse,
+                                         const void* delta, const void* key_valid, void* dk,
+                                         void* dv_out, int bh, int s, int d, int dv,
+                                         int start, int end, float scale, unsigned seed,
+                                         unsigned thresh, float keep_prob, int dropout_on,
+                                         void* stream) {
+  return dkv_entry<__nv_bfloat16>(q, k, v, dout, lse, delta, key_valid, dk, dv_out, bh, s, d,
+                                  dv, start, end, scale, seed, thresh, keep_prob, dropout_on,
+                                  stream);
+}
+
+// The bfloat16 mma probe: `n` problems (see mma_bf16_probe_kernel).
+extern "C" int mma_bf16_probe(const void* a, const void* b, const void* c, void* d, int n,
+                              void* stream) {
+  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(n));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (steps_for(d, dv)) {
-    case 2: return launch_dkv<2>(q, k, v, dout, lse, delta, key_valid, dk, dv_out, bh, s, d, dv, start, end, scale, dr, st);
-    case 4: return launch_dkv<4>(q, k, v, dout, lse, delta, key_valid, dk, dv_out, bh, s, d, dv, start, end, scale, dr, st);
-    case 8: return launch_dkv<8>(q, k, v, dout, lse, delta, key_valid, dk, dv_out, bh, s, d, dv, start, end, scale, dr, st);
-    default: return launch_dkv<16>(q, k, v, dout, lse, delta, key_valid, dk, dv_out, bh, s, d, dv, start, end, scale, dr, st);
-  }
+  mma_bf16_probe_kernel<<<grid, 32, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
+      static_cast<const float*>(c), static_cast<float*>(d));
+  return static_cast<int>(cudaGetLastError());
 }

@@ -19,7 +19,10 @@ import time
 from typing import Any, NamedTuple
 
 from pytorch_kaldi_asr_tpu_torch.data.loader import to_device
-from pytorch_kaldi_asr_tpu_torch.models.transformer import tree_map
+from pytorch_kaldi_asr_tpu_torch.models.transformer import (
+    compute_dtype,
+    tree_map,
+)
 from pytorch_kaldi_asr_tpu_torch.train.checkpoint import (
     average_params,
     load_checkpoint,
@@ -57,12 +60,16 @@ def run_train_epoch(state, cfg, loader, device, *, smoothing=False,
     """One full training pass over ``loader``, updating ``state`` in place;
     returns (loss per word, accuracy).  The metric sums stay on the device
     until the pass ends.  ``stop_flag`` (a callable) ends the pass after
-    the current batch: the preemption hook."""
+    the current batch: the preemption hook.  In bfloat16 compute the
+    features go to the device as bfloat16, as the JAX package's loop sends
+    them: every encoder casts them there first, so the step's numbers are
+    the same and the copy half the bytes."""
+    src_dtype = compute_dtype(cfg)
     totals = None
     for batch in loader:
         if stop_flag is not None and stop_flag():
             break
-        b = to_device(batch, device)
+        b = to_device(batch, device, src_dtype)
         totals = _sum_metrics(totals, train_step(
             state, cfg, b.src, b.src_mask, b.tgt, b.tgt_mask,
             smoothing=smoothing))

@@ -20,7 +20,12 @@ def resolve_device(name="cuda"):
 
 def disable_tf32():
     """Keep float32 matmuls and convolutions in full float32 on the card
-    (cuDNN convolutions default to TF32).  The port is float32 only and is
-    held to the JAX reference at float32 tolerances."""
+    (cuDNN convolutions default to TF32), and bfloat16 matmuls summing in
+    float32: cuBLAS may otherwise reduce a bfloat16 GEMM in reduced
+    precision (``allow_bf16_reduced_precision_reduction`` defaults to True),
+    where XLA, and so the JAX reference, accumulates in float32.  The port
+    is held to the JAX reference at float32 tolerances, and in bfloat16
+    compute to the reference's bfloat16 rounding points."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

@@ -3,10 +3,12 @@
 // and run on the CPU (tests/test_torch_k2_emulated.py,
 // tests/test_torch_k3_emulated.py): one std::thread per CUDA thread, one
 // CTA at a time; barriers for __syncthreads and the warp collectives;
-// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 by its PTX fragment
-// layout, with the tensor core's rounding (exact products, their sum with c
-// rounded toward zero); and __nv_bfloat16 with its conversions (to float
-// exact, from float rounded to nearest even).  Shared memory starts filled with NaN, so a read of a word never
+// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 and
+// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 by their PTX fragment
+// layouts, with the tensor core's rounding (exact products; the tf32 sum
+// with c rounded toward zero; the bfloat16 one as the H100's probe reads it,
+// tc_sum_bf16); and __nv_bfloat16 with its conversions (to float exact,
+// from float rounded to nearest even).  Shared memory starts filled with NaN, so a read of a word never
 // written shows in the results.
 #pragma once
 #include <algorithm>
@@ -48,6 +50,10 @@ inline __nv_bfloat16 __float2bfloat16_rn(float f) {
   const uint32_t u = __float_as_uint(f);
   if (std::isnan(f)) return {uint16_t((u >> 16) | 0x40)};
   return {uint16_t((u + 0x7FFFu + ((u >> 16) & 1u)) >> 16)};
+}
+struct __nv_bfloat162 { __nv_bfloat16 x, y; };
+inline __nv_bfloat162 __floats2bfloat162_rn(float lo, float hi) {
+  return {__float2bfloat16_rn(lo), __float2bfloat16_rn(hi)};
 }
 typedef int cudaError_t;
 const int cudaSuccess = 0, cudaErrorInvalidValue = 1;
@@ -111,6 +117,39 @@ inline bool __any_sync(unsigned, bool x) {
 }
 // the tensor core reads a tf32 operand's top 19 bits
 inline float tf32_value(uint32_t b) { return __uint_as_float(b & 0xFFFFE000u); }
+// the tensor core's float32 result of an exact sum: rounded toward zero
+// (to nearest even after emu_round_nearest(1), which the drift tests use
+// to isolate what the rounding toward zero costs)
+inline bool g_round_nearest = false;
+extern "C" void emu_round_nearest(int on) { g_round_nearest = on != 0; }
+inline float tc_round(double sum) {
+  const float rounded = float(sum);
+  if (g_round_nearest) return rounded;
+  return std::fabs(double(rounded)) > std::fabs(sum) ? std::nextafter(rounded, 0.f) : rounded;
+}
+// The bfloat16 mma's sum of its 16 exact products and c: each addend cut
+// toward zero to a multiple of 2^(e - 26), e the exponent of the largest
+// addend's leading bit, then the sum rounded toward zero.  Of the models
+// held against the H100's outputs on 4,096 random problems (the exact sum;
+// every addend or the products alone aligned and cut at 23-28 bits; two
+// 8-deep halves in turn), this one matches the most (97.9 %; the exact sum
+// rounded toward zero 96.2 %: 3.2 % of the card's outputs are larger than
+// the exact sum).  chip_smoke.py's probe prints the sign and size of the
+// card's error.
+constexpr int kTcAlignBits = 26;
+inline float tc_sum_bf16(const double* terms, int n) {
+  double sum = 0.0, largest = 0.0;
+  for (int i = 0; i < n; ++i) largest = std::max(largest, std::fabs(terms[i]));
+  if (g_round_nearest || largest == 0.0) {
+    for (int i = 0; i < n; ++i) sum += terms[i];
+    return tc_round(sum);
+  }
+  int e = 0;
+  std::frexp(largest, &e);  // largest = f 2^e, f in [0.5, 1)
+  const double q = std::ldexp(1.0, e - 1 - kTcAlignBits);
+  for (int i = 0; i < n; ++i) sum += std::trunc(terms[i] / q) * q;
+  return tc_round(sum);
+}
 // c += A.B; lane (g, t) = (lane / 4, lane % 4) holds A rows g and g + 8 at
 // columns t and t + 4 (a0..a3), B rows t and t + 4 at column g (b0, b1),
 // and C rows g and g + 8 at columns 2t and 2t + 1 (c0..c3).  The products of
@@ -137,8 +176,42 @@ inline void emu_mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t
     const int row = g + 8 * (i / 2), col = 2 * t + (i % 2);
     double sum = c[i];
     for (int kk = 0; kk < 8; ++kk) sum += double(A[row][kk]) * double(B[kk][col]);
-    const float rounded = float(sum);
-    c[i] = std::fabs(double(rounded)) > std::fabs(sum) ? std::nextafter(rounded, 0.f) : rounded;
+    c[i] = tc_round(sum);
+  }
+  w.bar.arrive_and_wait();
+}
+// The bfloat16 m16n8k16: lane (g, t) holds A rows g and g + 8 at columns
+// 2t, 2t + 1 (a0, a1) and 2t + 8, 2t + 9 (a2, a3), B rows 2t, 2t + 1 (b0)
+// and 2t + 8, 2t + 9 (b1) at column g, each register two bfloat16 with the
+// lower index in its low half; C as m16n8k8's.
+inline void emu_mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  Warp& w = my_warp();
+  const int l = my_lane();
+  for (int i = 0; i < 4; ++i) w.u[l][i] = a[i];
+  w.u[l][4] = b0;
+  w.u[l][5] = b1;
+  w.bar.arrive_and_wait();
+  const auto lo = [](uint32_t r) { return __uint_as_float(r << 16); };
+  const auto hi = [](uint32_t r) { return __uint_as_float(r & 0xFFFF0000u); };
+  float A[16][16], B[16][8];
+  for (int ln = 0; ln < 32; ++ln) {
+    const int g = ln / 4, t = ln % 4;
+    for (int i = 0; i < 4; ++i) {
+      const int row = g + 8 * (i & 1), col = 2 * t + 8 * (i >> 1);
+      A[row][col] = lo(w.u[ln][i]);
+      A[row][col + 1] = hi(w.u[ln][i]);
+    }
+    B[2 * t][g] = lo(w.u[ln][4]);
+    B[2 * t + 1][g] = hi(w.u[ln][4]);
+    B[2 * t + 8][g] = lo(w.u[ln][5]);
+    B[2 * t + 9][g] = hi(w.u[ln][5]);
+  }
+  const int g = l / 4, t = l % 4;
+  for (int i = 0; i < 4; ++i) {
+    const int row = g + 8 * (i / 2), col = 2 * t + (i % 2);
+    double terms[17] = {c[i]};
+    for (int kk = 0; kk < 16; ++kk) terms[kk + 1] = double(A[row][kk]) * double(B[kk][col]);
+    c[i] = tc_sum_bf16(terms, 17);
   }
   w.bar.arrive_and_wait();
 }

@@ -131,7 +131,40 @@ def test_msgpack_arrays_match_flax_including_bfloat16():
 
 
 def test_non_float32_compute_dtype_is_refused():
+    """bfloat16 compute is ported (the round trip below); any compute dtype
+    other than float32 and bfloat16 is refused."""
     from pytorch_kaldi_asr_tpu_torch.models.transformer import TransformerConfig
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TransformerConfig(src_dim=4, vocab_size=5, compute_dtype="bfloat16")
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        TransformerConfig(src_dim=4, vocab_size=5, compute_dtype="float16")
+
+
+def test_bf16_compute_config_round_trips_between_packages(tmp_path):
+    """``compute_dtype: "bfloat16"`` in config.json, as the JAX package
+    stores it by name: a JAX checkpoint loads with bfloat16 compute, the
+    port writes the same config.json back, and the JAX package loads the
+    port's (and a port-initialised one) with jnp.bfloat16."""
+    import json
+
+    import jax.numpy as jnp
+
+    from pytorch_kaldi_asr_tpu_torch.models import transformer
+
+    jcfg, pcfg = configs(encoder_type="conformer")
+    jcfg = jcfg.replace(compute_dtype=jnp.bfloat16)
+    pcfg = pcfg.replace(compute_dtype="bfloat16")
+    jax_save(str(tmp_path / "jax"), init_transformer(jax.random.PRNGKey(1),
+                                                     jcfg), jcfg)
+    assert json.loads((tmp_path / "jax" / "config.json").read_text())[
+        "compute_dtype"] == "bfloat16"
+    ck = load_checkpoint(str(tmp_path / "jax"))
+    assert ck["cfg"] == pcfg and ck["cfg"].compute_dtype == "bfloat16"
+    save_checkpoint(str(tmp_path / "port"), ck["params"], ck["cfg"])
+    assert filecmp.cmp(tmp_path / "jax" / "config.json",
+                       tmp_path / "port" / "config.json", shallow=False)
+    assert jax_load(str(tmp_path / "port"))["cfg"] == jcfg
+    params = transformer.init_transformer(torch.Generator().manual_seed(0),
+                                          pcfg)
+    save_checkpoint(str(tmp_path / "init"), params, pcfg)
+    assert jax_load(str(tmp_path / "init"))["cfg"].compute_dtype == \
+        jnp.bfloat16

@@ -196,11 +196,13 @@ def test_port_decode_of_a_conformer_matches_jax_decode(tmp_path):
 
 
 def test_bfloat16_conformer_stream_is_refused():
-    """Only bfloat16 *compute* is refused now (it needs bfloat16 attention
-    kernels); the bfloat16 residual stream runs
-    (tests/test_torch_bf16_stream.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        conformer_configs(compute_dtype="bfloat16")
+    """Nothing bfloat16 is refused now: the bfloat16 residual stream runs
+    (tests/test_torch_bf16_stream.py), and so does bfloat16 compute
+    (tests/test_torch_bf16_compute.py); other dtypes are refused."""
+    assert conformer_configs(compute_dtype="bfloat16")[1].compute_dtype == \
+        "bfloat16"
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        conformer_configs(compute_dtype="float16")
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         conformer_configs(conformer_stream_dtype="float16")
     # the stream dtype is the conformer's alone: other encoders ignore it

@@ -394,3 +394,142 @@ def test_bf16_conformer_train_step_matches_the_cpu(cuda_device):
           f"leaf {np.median(ratios):.3f}, largest {max(ratios):.3f}")
     assert np.median(ratios) <= 0.75
     assert max(ratios) <= 3.0
+
+
+# ---------------------------------------------------------------------------
+# bfloat16: the kernels' bfloat16 instantiations and bfloat16 compute
+# ---------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+# bfloat16 outputs against the plain versions on bfloat16, in bfloat16 ulps
+# of each entry's scale (``ba.bf16_ulps``); as chip_smoke.py's
+# BF16_KERNEL_ULPS: the forward rounds its probabilities against another
+# max than the plain version (PERF.md, PR 7)
+BF16_ULPS = 3.0
+# the kernel shapes whose head dims the bfloat16 kernels take (multiples
+# of 8), and d 24, which ends inside a 16-deep mma step
+BF16_SHAPES = [(512, 64, 64, -100, 0, "lengths"),
+               *(x for x in SHAPES if x[1] % 8 == 0 and x[2] % 8 == 0),
+               (256, 24, 24, -40, 8, "lengths")]
+
+
+@pytest.mark.parametrize("s,d,dv,start,end,keys", BF16_SHAPES)
+def test_bf16_kernel_matches_plain_version(cuda_device, s, d, dv, start, end,
+                                           keys):
+    """K1 on bfloat16 (one launch of its bfloat16 instantiation, counted
+    apart from the float32 one) against its plain version on bfloat16."""
+    q, k, v, valid = _inputs(cuda_device, 4, s, d, dv, _key_mask(s, keys),
+                             seed=s)
+    q, k, v = (x.to(BF16) for x in (q, k, v))
+    before = (ba.banded_attention.launches, ba.banded_attention.launches_bf16)
+    got = ba.banded_attention(q, k, v, valid, start=start, end=end,
+                              scale=0.125)
+    want = ba.banded_attention_reference(q, k, v, valid, start, end, 0.125)
+    torch.cuda.synchronize()
+    assert (ba.banded_attention.launches,
+            ba.banded_attention.launches_bf16) == (before[0], before[1] + 1)
+    assert got.dtype == BF16
+    assert float(ba.bf16_ulps(got, want).max()) <= BF16_ULPS
+    empty = _empty_rows(s, start, end, valid)
+    assert (got[empty] == 0).all()
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.35])
+@pytest.mark.parametrize("s,d,dv,start,end,keys", BF16_SHAPES)
+def test_bf16_trainable_kernels_match_plain_versions(cuda_device, rate, s, d,
+                                                     dv, start, end, keys):
+    """K2a, K2b and K2c on bfloat16, each against its plain version on the
+    same inputs (K2b and K2c on the kernel's out and lse, K2c on K2b's
+    delta); through the autograd function one bfloat16 launch of each per
+    forward + backward, and bfloat16 gradients."""
+    q, k, v, valid = _inputs(cuda_device, 4, s, d, dv, _key_mask(s, keys),
+                             seed=s + d)
+    dout = torch.randn(v.shape, generator=torch.Generator().manual_seed(1))
+    q, k, v, dout = (x.to(cuda_device, BF16) for x in (q, k, v, dout))
+    kernels = (ba.banded_attention_fwd, ba.banded_attention_dq,
+               ba.banded_attention_dkv)
+    counts = [(f.launches, f.launches_bf16) for f in kernels]
+    kw = dict(start=start, end=end, scale=0.125, dropout_rate=rate)
+    grads = _grads_of(lambda q, k, v: ba.banded_attention_trainable(
+        q, k, v, valid, 1234, **kw), q, k, v, dout)
+    torch.cuda.synchronize()
+    assert [(f.launches, f.launches_bf16) for f in kernels] == \
+        [(a, b + 1) for a, b in counts]
+    assert all(g.dtype == BF16 for g in grads)
+    q, k, v, valid = ba._check_and_pad(q, k, v, valid, start, end)
+    dout = ba._pad_seq(dout, q.shape[1])
+    band = (1234, start, end, 0.125, rate)
+    out, lse = ba.banded_attention_fwd(q, k, v, valid, 1234, **kw)
+    dq, delta = ba.banded_attention_dq(q, k, v, valid, dout, out, lse, 1234,
+                                       **kw)
+    dk, dv_ = ba.banded_attention_dkv(q, k, v, valid, dout, lse, delta, 1234,
+                                      **kw)
+    out_w, lse_w = ba.banded_attention_trainable_reference(q, k, v, valid,
+                                                           *band)
+    dq_w, delta_w = ba.banded_attention_dq_reference(q, k, v, valid, dout,
+                                                     out, lse, *band)
+    dk_w, dv_w = ba.banded_attention_dkv_reference(q, k, v, valid, dout, lse,
+                                                   delta, *band)
+    finite = torch.isfinite(lse_w)
+    assert torch.equal(torch.isfinite(lse), finite)
+    np.testing.assert_allclose(lse[finite].cpu().numpy(),
+                               lse_w[finite].cpu().numpy(), atol=ATOL)
+    np.testing.assert_allclose(delta.cpu().numpy(), delta_w.cpu().numpy(),
+                               atol=GRAD_ATOL)
+    for name, got, want in (("out", out, out_w), ("dq", dq, dq_w),
+                            ("dk", dk, dk_w), ("dv", dv_, dv_w)):
+        assert float(ba.bf16_ulps(got, want).max()) <= BF16_ULPS, name
+    assert (out[~finite] == 0).all() and (dq[~finite] == 0).all()
+    assert (dk[valid == 0] == 0).all() and (dv_[valid == 0] == 0).all()
+
+
+def test_bf16_compute_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """One train step of a banded model in bfloat16 compute, dropout on:
+    the card (the bfloat16 K2a/K2b/K2c, once per encoder layer, and no
+    float32 one) against the CPU (their plain versions), over bfloat16
+    compute's own error (the CPU's bfloat16 step against its float32 one),
+    each leaf by its largest entry: the median leaf at most 0.75, every
+    leaf at most 3 (a two-layer model decorrelates less than chip_smoke.py's
+    full-width ones)."""
+    from pytorch_kaldi_asr_tpu_torch.train import create_train_state, train_step
+    from pytorch_kaldi_asr_tpu_torch.train.optim import trainable_leaves
+
+    cfg = TransformerConfig(
+        src_dim=40, vocab_size=52, encoder_max_len=128, decoder_max_len=20,
+        encoder_sub_sequence=(-100, 0), decoder_sub_sequence=(-10, 0),
+        en_layers=2, de_layers=2, n_head=2, en_d_model=64, de_d_model=32,
+        d_k=16, d_v=16, en_dropout=0.1, de_dropout=0.1,
+        encoder_type="banded", compute_dtype="bfloat16")
+    params = init_transformer(torch.Generator().manual_seed(0), cfg)
+    g = torch.Generator().manual_seed(2)
+    src = torch.randn((3, 120, 40), generator=g)
+    mask = torch.ones((3, 120), dtype=torch.uint8)
+    mask[2, 70:] = 0
+    tgt = torch.tensor([[2, 5, 9, 3, 0], [2, 7, 3, 0, 0], [2, 4, 4, 6, 3]])
+    batch = (src, mask, tgt, (tgt != 0).to(torch.uint8))
+    kernels = (ba.banded_attention_fwd, ba.banded_attention_dq,
+               ba.banded_attention_dkv)
+    results = {}
+    for name, device, c in (("card", cuda_device, cfg), ("cpu", "cpu", cfg),
+                            ("cpu32", "cpu",
+                             cfg.replace(compute_dtype="float32"))):
+        before = [(f.launches, f.launches_bf16) for f in kernels]
+        state = create_train_state(tree_map(
+            lambda x: x.detach().to(device, copy=True), params))
+        m = train_step(state, c, *(x.to(device) for x in batch))
+        launched = [(f.launches - a, f.launches_bf16 - b)
+                    for f, (a, b) in zip(kernels, before)]
+        results[name] = (float(m["loss"]), [
+            p.grad.cpu() for p in trainable_leaves(state.params)], launched)
+    (loss_g, grads_g, n_g), (loss_c, grads_c, _), (loss_32, grads_32, _) = (
+        results["card"], results["cpu"], results["cpu32"])
+    assert n_g == [(0, cfg.en_layers)] * 3
+    assert abs(loss_g - loss_c) <= max(3.0 * abs(loss_c - loss_32),
+                                       1e-5 * abs(loss_c))
+    ratios = [float((a - b).abs().max()) / float((b - c).abs().max())
+              if (b - c).abs().max() > 0 else float((a - b).abs().max()) * 1e30
+              for a, b, c in zip(grads_g, grads_c, grads_32)]
+    print(f"bfloat16-compute step, card vs cpu over its own error: median "
+          f"leaf {np.median(ratios):.3f}, largest {max(ratios):.3f}")
+    assert np.median(ratios) <= 0.75
+    assert max(ratios) <= 3.0

@@ -11,7 +11,9 @@ products, the tile and sub-tile skips, the band and validity masks, the
 forward's online softmax across passes and tiles, the dropout hash and
 delta.  The emulated mma multiplies the operands' tf32
 bits exactly as the tensor core does, so the 3xTF32 split is checked too.
-Skips where there is no g++.
+The bfloat16 instantiations (m16n8k16, bfloat16 tiles) are held against the
+plain versions on bfloat16 in bfloat16 ulps (``ba.bf16_ulps``).  Skips where
+there is no g++.
 """
 
 import re
@@ -33,16 +35,20 @@ GRAD_ATOL = 1e-4  # dq, dk, dv and delta
 
 def _emulated_source(src):
     """The .cu with its inline PTX and launches routed to cuda_emu.h."""
+    src = src.replace("#include <cuda_bf16.h>\n", "")
     src = src.replace("#include <cuda_runtime.h>", '#include "cuda_emu.h"')
     src = src.replace("extern __shared__ float4 smem[];",
                       "float4* smem = emu_smem();")
     subs = [
-        (r'asm\("mma\.sync.*?"r"\(b1\)\);', "emu_mma(c, a, b0, b1);", 1),
+        (r'asm\("mma\.sync\.aligned\.m16n8k8\..*?"r"\(b1\)\);',
+         "emu_mma(c, a, b0, b1);", 1),
+        (r'asm\("mma\.sync\.aligned\.m16n8k16\..*?"r"\(b1\)\);',
+         "emu_mma_bf16(c, a, b0, b1);", 1),
         (r'asm volatile\("cp\.async\.cg[^;]*;[^;]*;',
          "std::memcpy(dst, src, 16);", 1),
         (r'asm volatile\("cp\.async\.(commit|wait)[^;]*;[^;]*;', ";", 2),
         (r"(\w+(?:<[^<>]*>)?)<<<([^>]*)>>>\((.*?)\);",
-         lambda m: f"emu_launch({m[2]}, [&] {{ {m[1]}({m[3]}); }});", 3),
+         lambda m: f"emu_launch({m[2]}, [&] {{ {m[1]}({m[3]}); }});", 4),
     ]
     for pattern, repl, count in subs:
         src, n = re.subn(pattern, repl, src, flags=re.S)
@@ -51,9 +57,8 @@ def _emulated_source(src):
 
 
 @pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
-    """{"k1", "fwd", "dq", "dkv"}: the C entry points of the emulated
-    build."""
+def emulated_library(tmp_path_factory):
+    """The emulated build as a ``ctypes.CDLL``."""
     import ctypes
 
     cxx = shutil.which("g++")
@@ -66,20 +71,34 @@ def emulated(tmp_path_factory):
     subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
                     f"-I{Path(__file__).resolve().parent}", "-o", str(lib),
                     str(cpp)], check=True, capture_output=True)
-    dll = ctypes.CDLL(str(lib))
-    return {w: ba.kernel_entry(dll, w) for w in ("k1", "fwd", "dq", "dkv")}
+    return ctypes.CDLL(str(lib))
+
+
+@pytest.fixture(scope="module")
+def emulated(emulated_library):
+    """{"k1", "fwd", "dq", "dkv"}: the float32 C entry points of the
+    emulated build."""
+    return {w: ba.kernel_entry(emulated_library, w)
+            for w in ("k1", "fwd", "dq", "dkv")}
+
+
+@pytest.fixture(scope="module")
+def emulated_bf16(emulated_library):
+    """The same on bfloat16."""
+    return {w: ba.kernel_entry(emulated_library, w, torch.bfloat16)
+            for w in ("k1", "fwd", "dq", "dkv")}
 
 
 def _run(fns, q, k, v, valid, dout, seed, start, end, scale, rate,
          backward=True):
     """out, lse, dq, delta, dk, dv of the emulated kernels (K2a only where
-    not ``backward``); the outputs start as NaN, so a value never written
-    shows."""
+    not ``backward``), in q's dtype (lse and delta float32); the outputs
+    start as NaN, so a value never written shows."""
     bh, s, d = q.shape
     dv = v.shape[-1]
     tail = (bh, s, d, dv, start, end, scale, *ba._dropout_args(seed, rate),
             None)
-    out = torch.full((bh, s, dv), float("nan"))
+    out = torch.full((bh, s, dv), float("nan")).to(q.dtype)
     lse = torch.full((bh, s), float("nan"))
     dq, delta = torch.full_like(q, float("nan")), torch.full_like(lse, float("nan"))
     dk, dv_out = torch.full_like(k, float("nan")), torch.full_like(v, float("nan"))
@@ -267,3 +286,174 @@ def test_emulated_backward_does_not_drift(emulated):
         bias = float(((got.double() - ref) * ref.sign()).mean()
                      / ref.abs().mean())
         assert abs(bias) < 3e-7, (name, bias)
+
+
+# ---------------------------------------------------------------------------
+# the bfloat16 instantiations
+# ---------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+# bfloat16 outputs, kernel against plain version, in bf16_ulps.  Measured
+# here: at most 1.0 over every case below.  The forward rounds its
+# unnormalised probabilities against the running max of each 32-key pass,
+# the plain version against the row's max (the Pallas kernel against its
+# 128-key block's), so the two round p differently: out differs by one ulp
+# in 7-35 % of its entries, the gradients (whose probabilities come from the
+# final lse in both) in under 0.3 %.
+BF16_ULPS = 2.0
+
+
+# the cases of CASES and FORWARD_CASES whose head dims the bfloat16
+# kernels take (multiples of 8), and one whose d ends inside a 16-deep step
+BF16_CASES = {
+    **{name: c for name, c in {**CASES, **FORWARD_CASES}.items()
+       if c[1] % 8 == 0 and c[2] % 8 == 0},
+    "d 24, dv 8": (128, 24, 8, _prefix(128, [128, 70]), -20, 20),
+}
+
+
+def _bf16_inputs(case):
+    q, k, v, dout, valid = _inputs(case)
+    return (*(x.to(BF16) for x in (q, k, v, dout)), valid)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.35])
+@pytest.mark.parametrize("case", list(BF16_CASES))
+def test_emulated_bf16_kernels_match_plain_version(emulated_bf16, case,
+                                                   rate):
+    """K2a, K2b and K2c on bfloat16 against the plain versions on bfloat16
+    (K2b and K2c on the emulated forward's out and lse, K2c on K2b's
+    delta); K1 in the rate-0 instance.  Outputs bfloat16, within BF16_ULPS;
+    lse and delta float32; exact zeros where the float32 kernels have
+    them."""
+    s, d, dv, _, start, end = BF16_CASES[case]
+    scale, seed = 0.125, 77
+    q, k, v, dout, valid = _bf16_inputs(BF16_CASES[case])
+    out, lse, dq, delta, dk, dv_out = _run(emulated_bf16, q, k, v, valid,
+                                           dout, seed, start, end, scale,
+                                           rate)
+    assert out.dtype == dq.dtype == dk.dtype == dv_out.dtype == BF16
+    out_ref, lse_ref = ba.banded_attention_trainable_reference(
+        q, k, v, valid, seed, start, end, scale, rate)
+    live = torch.isfinite(lse_ref)
+    assert torch.equal(torch.isfinite(lse), live)
+    np.testing.assert_allclose(lse[live].numpy(), lse_ref[live].numpy(),
+                               atol=OUT_ATOL)
+    assert float(ba.bf16_ulps(out, out_ref).max()) <= BF16_ULPS
+    dq_ref, delta_ref = ba.banded_attention_dq_reference(
+        q, k, v, valid, dout, out, lse, seed, start, end, scale, rate)
+    dk_ref, dv_ref = ba.banded_attention_dkv_reference(
+        q, k, v, valid, dout, lse, delta, seed, start, end, scale, rate)
+    np.testing.assert_allclose(delta.numpy(), delta_ref.numpy(),
+                               atol=GRAD_ATOL)
+    for name, got, want in (("dq", dq, dq_ref), ("dk", dk, dk_ref),
+                            ("dv", dv_out, dv_ref)):
+        assert float(ba.bf16_ulps(got, want).max()) <= BF16_ULPS, name
+    assert (out[~live] == 0).all() and (dq[~live] == 0).all()
+    assert (dk[valid == 0] == 0).all() and (dv_out[valid == 0] == 0).all()
+    if rate == 0.0:
+        bh = q.shape[0]
+        k1 = torch.full((bh, s, dv), float("nan")).to(BF16)
+        assert emulated_bf16["k1"](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                   valid.data_ptr(), k1.data_ptr(), bh, s, d,
+                                   dv, start, end, scale, None) == 0
+        want = ba.banded_attention_reference(q, k, v, valid, start, end,
+                                             scale)
+        assert float(ba.bf16_ulps(k1, want).max()) <= BF16_ULPS
+        empty = ~ba._allowed(s, start, end, valid).any(-1)
+        assert (k1[empty] == 0).all()
+
+
+def _drift(got, ref):
+    """The mean error along ``ref``'s sign over its mean size."""
+    got, ref = got.double(), ref.double()
+    return float(((got - ref) * ref.sign()).mean() / ref.abs().mean())
+
+
+def test_emulated_bf16_does_not_drift(emulated_library, emulated_bf16):
+    """The bfloat16 kernels chain their products on one accumulator (one
+    mma per 16 products).  Under cuda_emu.h's model of the tensor core's
+    rounding (its addends cut toward zero at 26 bits below the largest,
+    the sum rounded toward zero: what chip_smoke.py's probe reads on the
+    H100), at TIMIT's band and head dim, out, dq, dk and dv sit along their
+    signs no further from the plain bfloat16 version (float32 sums rounded
+    to nearest) than DRIFT_GATE, 1 % of bfloat16's rounding of an input
+    (2**-9); and the tensor core's rounding itself, the same kernels
+    against a build whose mma rounds its exact sum to nearest, moves them
+    by less than 1e-5 of their size.  Measured: against the plain version
+    out +3.9e-6 (the forward rounds p at other maxima, see BF16_ULPS), dq,
+    dk and dv -6e-8 to -1.4e-7; the tensor core's rounding against to
+    nearest -7e-8 (out), -7.2e-8, +8e-9 and -1.6e-7 (dq, dk, dv): four
+    orders of magnitude under bfloat16's 2**-9, so the products chain (the
+    float32 kernels cannot: there the drift was the size of their error
+    budget)."""
+    bh, s, d, start, end, scale = 8, 256, 64, -100, 0, 0.125
+    rng = np.random.default_rng(0)
+    q, k, v, dout = (torch.from_numpy(rng.normal(size=(bh, s, d)).astype(
+        np.float32)).to(BF16) for _ in range(4))
+    valid = torch.ones((bh, s), dtype=torch.int32)
+    runs = {}
+    for nearest in (0, 1):
+        emulated_library.emu_round_nearest(nearest)
+        try:
+            runs[nearest] = _run(emulated_bf16, q, k, v, valid, dout, 7,
+                                 start, end, scale, 0.0)
+        finally:
+            emulated_library.emu_round_nearest(0)
+    out, lse, dq, delta, dk, dv = runs[0]
+    out_ref, _ = ba.banded_attention_trainable_reference(q, k, v, valid, 7,
+                                                         start, end, scale)
+    dq_ref, _ = ba.banded_attention_dq_reference(q, k, v, valid, dout, out,
+                                                 lse, 7, start, end, scale)
+    dk_ref, dv_ref = ba.banded_attention_dkv_reference(
+        q, k, v, valid, dout, lse, delta, 7, start, end, scale)
+    got = {"out": out, "dq": dq, "dk": dk, "dv": dv}
+    nearest = dict(zip(("out", "dq", "dk", "dv"),
+                       (runs[1][i] for i in (0, 2, 4, 5))))
+    drift = {n: _drift(got[n], r) for n, r in (
+        ("out", out_ref), ("dq", dq_ref), ("dk", dk_ref), ("dv", dv_ref))}
+    toward_zero = {n: _drift(got[n], nearest[n]) for n in got}
+    print(f"bfloat16 drift against the plain version {drift}; rounding "
+          f"toward zero against to nearest {toward_zero}")
+    for n in got:
+        assert abs(drift[n]) < DRIFT_GATE, (n, drift)
+        assert abs(toward_zero[n]) < 1e-5, (n, toward_zero)
+
+
+DRIFT_GATE = 0.01 * 2.0 ** -9
+
+
+def _aligned_toward_zero(terms, p=26):
+    """cuda_emu.h's tc_sum_bf16 in float64: each addend (last axis) cut
+    toward zero to a multiple of 2**(e - p), e the largest addend's leading
+    bit, the sum rounded toward zero to float32."""
+    largest = np.abs(terms).max(-1, keepdims=True)
+    _, e = np.frexp(largest)
+    q = np.where(largest > 0, np.ldexp(1.0, e - 1 - p), 1.0)
+    total = (np.trunc(terms / q) * q).sum(-1)
+    f = total.astype(np.float32)
+    return np.where(np.abs(f.astype(np.float64)) > np.abs(total),
+                    np.nextafter(f, np.float32(0)), f)
+
+
+def test_emulated_mma_bf16_probe(emulated_library):
+    """The probe entry point (one m16n8k16 bfloat16 mma per problem, as
+    chip_smoke.py reads the card's rounding with it) against the emulated
+    tensor core's model computed here in float64 (``_aligned_toward_zero``):
+    equal, so the probe's fragment loads are right."""
+    import ctypes
+
+    n = 4
+    rng = np.random.default_rng(5)
+    a, b = (torch.from_numpy(rng.normal(size=(n, 16, w)).astype(np.float32))
+            .to(BF16) for w in (16, 8))
+    c = torch.from_numpy(rng.normal(size=(n, 16, 8)).astype(np.float32))
+    d = torch.full_like(c, float("nan"))
+    probe = emulated_library.mma_bf16_probe
+    probe.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+    assert probe(a.data_ptr(), b.data_ptr(), c.data_ptr(), d.data_ptr(), n,
+                 None) == 0
+    prods = (a.double().numpy()[:, :, None, :]
+             * b.double().numpy().transpose(0, 2, 1)[:, None, :, :])
+    terms = np.concatenate([c.double().numpy()[..., None], prods], -1)
+    np.testing.assert_array_equal(d.numpy(), _aligned_toward_zero(terms))

@@ -10,7 +10,8 @@
   port's own initialize_model + decode run end to end on the CPU, for the
   banded encoder and for a conformer with the recipe's bfloat16 residual
   stream trained with dropout from archives (tests/test_torch_train_slice.py
-  runs train and combine so).
+  runs train and combine so), and for a banded model in bfloat16 compute
+  (set in its config.json) trained with dropout.
 - A decoder band that is not causal decodes through the fixed-buffer
   search: the two packages' decode CLIs agree as above.
 - The entry points refuse what they cannot do: no card without
@@ -159,10 +160,38 @@ _NO_JAX = textwrap.dedent("""
                  str(combined), "-save_result_file", str(work / "c.txt"),
                  "-max_token_seq_len", "6", "-batch_size", "2",
                  "-beam_size", "3", "-nbest", "2", "-device", "cpu"])
+
+    # bfloat16 compute, set as users set it (config.json): the banded model
+    # trained with dropout (the bfloat16 kernels' plain versions), decoded
+    import json
+    initialize_model.main([
+        "-read_feats_scp_file", str(work / "feats.scp"), "-lda_mat_file",
+        "identity", *data, "-encoder_max_len", "40", "-decoder_max_len", "8",
+        "-en_layers", "1", "-de_layers", "1", "-n_head", "2",
+        "-en_d_model", "16", "-de_d_model", "8", "-d_k", "8", "-d_v", "8",
+        "-en_dropout", "0.1", "-de_dropout", "0.1", "-encoder_type",
+        "banded", "-save_model_file", str(work / "b")])
+    config = json.loads((work / "b" / "config.json").read_text())
+    config["compute_dtype"] = "bfloat16"
+    (work / "b" / "config.json").write_text(json.dumps(config))
+    assert train.main(["-read_train_dir", str(work), "-read_dev_dir",
+                       str(work), "-read_test_dir", str(work), *data,
+                       "-load_model_file", str(work / "b"),
+                       "-save_model_dir", str(work / "bexp"), "-epoch", "1",
+                       "-batch_size", "2", "-save_interval", "1",
+                       "-device", "cpu"]) == 0
+    trained = work / "bexp" / "epoch.1"
+    assert json.loads((trained / "config.json").read_text())[
+        "compute_dtype"] == "bfloat16"
+    decode.main(["-read_data_dir", str(work), *data, "-load_model_file",
+                 str(trained), "-save_result_file", str(work / "b.txt"),
+                 "-max_token_seq_len", "6", "-batch_size", "2",
+                 "-beam_size", "3", "-nbest", "2", "-device", "cpu"])
     assert not BLOCKED & set(m.split(".")[0] for m in sys.modules)
     print("modules", len(names), "lines",
           len((work / "decode.txt").read_text().splitlines()),
-          "conformer", len((work / "c.txt").read_text().splitlines()))
+          "conformer", len((work / "c.txt").read_text().splitlines()),
+          "bf16", len((work / "b.txt").read_text().splitlines()))
 """)
 
 
@@ -173,7 +202,7 @@ def test_port_runs_with_jax_blocked(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     last = proc.stdout.strip().splitlines()[-1].split()
     assert last[0] == "modules" and int(last[1]) >= 35
-    assert last[2:] == ["lines", "6", "conformer", "6"]
+    assert last[2:] == ["lines", "6", "conformer", "6", "bf16", "6"]
 
 
 def test_entry_points_refuse_what_they_cannot_do(tmp_path, monkeypatch):
@@ -185,9 +214,9 @@ def test_entry_points_refuse_what_they_cannot_do(tmp_path, monkeypatch):
         decode.main(args + ["-quantize_weights"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         decode.main(args + ["-nlm_model_dir", str(tmp_path)])
-    # compute_dtype=bfloat16 needs bfloat16 attention kernels
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PortConfig(src_dim=4, vocab_size=6, compute_dtype="bfloat16")
+    # compute_dtype is float32 or bfloat16 (tests/test_torch_bf16_compute.py)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        PortConfig(src_dim=4, vocab_size=6, compute_dtype="float16")
 
 
 def test_non_causal_band_decodes_like_jax(tmp_path):
