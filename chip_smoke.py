@@ -74,7 +74,23 @@ CUDA card: ``python3 chip_smoke.py`` from the root of a checkout.
    bfloat16 compute's own error, the CPU's distance from its float32-compute
    model; ``bf16_compute_decode_check``), their profiles
    showing the bfloat16 attention kernels and no float32 one.
-9. Prints the ``kernels`` JSON line (K1, K2a-c on both dtypes, K3 on both),
+9. The TIMIT recipe's other switches (run.sh:27-61, 112-120, 198-236),
+   at its widths: the ``tdnnf`` (its six contexts, bottleneck 64) trained
+   with ``-specaugment`` and the ``blstm``, each decoded (16 utterances,
+   CPU cross-check on the first batch) and trained as in 5 (K3 exactly at
+   their dropout sites, no K1 or K2; the step card vs CPU, SpecAugment's
+   masks the same on both; the step's time and profile, the blstm's
+   launches per step); the banded TIMIT step with SpecAugment, card vs CPU
+   (``run_specaugment_step``: K2a-c and K3 under augmentation); the neural
+   LM (``run_nlm``: ``train_nlm`` at its defaults with ``-max_len 102`` on
+   the 300 training transcripts for 2 epochs, K3 exact, one step card vs
+   CPU, its time and profile, ``score_lm -nlm_model_dir`` on the banded
+   decode.txt, card vs CPU within NLM_SCORE_ATOL); and the banded decode
+   again, unfused, with ``-lm_weight 0`` (bit-equal to unfused), fused at
+   0.5, with ``-quantize_weights`` and with both (``run_lm_decodes``: each's
+   CPU cross-check, RTF, split, K1 launches, peak memory; the float32 and
+   int8 trees' parameter bytes).
+10. Prints the ``kernels`` JSON line (K1, K2a-c on both dtypes, K3 on both),
    the card line, and as the last line ``{"ok": true, "device": {...}}``.
    Any failure raises: the script then exits non-zero without the last
    line.
@@ -95,6 +111,13 @@ one after another on one card to compare two commits.
 what the float32 step gate reads on the TIMIT model (``f32_gate_readings``)
 at 3 seeds x 2 batches of the TIMIT training slice, and with K2b's dq scaled
 by 1 + 1e-5 on the card.
+
+``python3 chip_smoke.py --spliced-precision`` prints one
+``SPLICED_PRECISION`` JSON line for each of the tdnn and the tdnnf: how far
+one float32 train step's loss and gradients sit from the CPU's float64 step
+with the spliced products through cuDNN's convolution
+(``common.spliced_linear``) and through splice then matmul, on the card
+and on the CPU (``spliced_precision``).
 
 ``python3 chip_smoke.py --bf16-compute-gates`` prints one
 ``BF16_COMPUTE_GATES`` JSON line: what bfloat16 compute's card-vs-CPU gates
@@ -197,6 +220,32 @@ LIBRISPEECH_BF16 = dict(LIBRISPEECH, name="librispeech_bf16",
 # took about 87 s for all 8 on the chip machine
 TIMIT_NONCAUSAL = dict(TIMIT, name="timit_noncausal", model=NONCAUSAL_MODEL,
                        decode=dict(TIMIT["decode"], cpu_utts=2))
+# the TIMIT recipe's other encoders (run.sh:52) at its widths: the tdnnf
+# (TransformerConfig's six tdnn_contexts, bottleneck 64) trained with
+# SpecAugment (train -specaugment), the blstm (128 units each way) without;
+# the blstm's step is timed over 3 steps and profiled over 1 (about 50,000
+# launches a step).  Their card-vs-CPU steps take 20 utterances (the CPU's
+# blstm step in float64 at batch 100 took 182 s on the H100 host), the
+# tdnnf's against the CPU in float64: at batch 100 its float32 gradients sat
+# up to 4.4e-4 (CPU) and 7.5e-4 (card) of their size from float64, and the
+# one-ulp yardstick, which keeps the CPU's summation order, read 5.5e-6
+# (``card_vs_cpu_step``; PERF.md §6)
+TIMIT_TDNNF = dict(TIMIT, name="timit_tdnnf",
+                   model=[x if x != "banded" else "tdnnf"
+                          for x in RECIPE_MODEL],
+                   train=dict(TIMIT["train"], specaugment=True,
+                              cpu_dtype="float64", cpu_rows=20))
+TIMIT_BLSTM = dict(TIMIT, name="timit_blstm",
+                   model=[x if x != "banded" else "blstm"
+                          for x in RECIPE_MODEL],
+                   train=dict(TIMIT["train"], timed_steps=3,
+                              profiled_steps=1, cpu_rows=20))
+# stage 2's neural LM (run.sh:27-37, 112-120): train_nlm at its defaults
+# with the recipe's nlm_max_len (max_token_seq_len + 2), 2 epochs over the
+# 300 TIMIT training transcripts (9 steps each at batch 32), then fused
+# into the banded TIMIT decode at fusion_lm_weight
+NLM = {"max_len": 102, "epochs": 2, "batch": 32, "lm_weight": 0.5}
+NLM_SCORE_ATOL = 2e-4  # score_lm -nlm_model_dir, card vs CPU, log10
 DROPOUT = 0.35  # the K2 checks' attention dropout (the TIMIT recipe's)
 
 KERNEL_ATOL = 2e-5  # float32, summation order differs from the plain version
@@ -295,6 +344,8 @@ PROFILE_NAMES = {
     "K2c_bf16": "::dkv_kernel<__nv_bfloat16",
     "K3": "::fused_dropout_kernel", "K3_bf16": "::fused_dropout_bf16_kernel",
 }
+# the encoder families whose self-attention runs K1 and K2
+ATTENDING = ("banded", "conformer")
 ATTENTION_WRAPPERS = ("banded_attention", "banded_attention_fwd",
                       "banded_attention_dq", "banded_attention_dkv")
 
@@ -341,9 +392,10 @@ def dropout_sites(cfg):
     compute dtype).  The conformer: per layer one in each half-step FFN
     after its swish and one after the MHSA (the compute dtype); the input
     dropout, each half-step FFN's second and the conv module's (the
-    stream's dtype).  The decoder: its embedding and output dropouts
-    (float32), per layer the self- and cross-attention probabilities and
-    outputs and the FFN's output (the compute dtype)."""
+    stream's dtype).  The tdnnf: after each layer's ReLU (float32).  The
+    blstm: after each layer (float32).  The decoder: its embedding and
+    output dropouts (float32), per layer the self- and cross-attention
+    probabilities and outputs and the FFN's output (the compute dtype)."""
     counts = {"float32": 0, "bfloat16": 0}
     compute = cfg.compute_dtype
 
@@ -359,6 +411,10 @@ def dropout_sites(cfg):
     elif cfg.encoder_type == "conformer":
         add(1 + 3 * cfg.en_layers, cfg.conformer_stream_dtype)
         add(3 * cfg.en_layers, compute)
+    elif cfg.encoder_type == "tdnnf":
+        add(len(cfg.tdnn_contexts), "float32")
+    elif cfg.encoder_type == "blstm":
+        add(cfg.en_layers, "float32")
     else:
         raise ValueError(f"no site count for {cfg.encoder_type}")
     add(2, "float32")
@@ -1515,6 +1571,16 @@ def initialize(corpus, feats_scp, vocab, model, model_args=None, seed=SEED):
         path.write_text(json.dumps(config))
 
 
+def stage5_args(spec, data_dir, vocab, model, out, device):
+    """The decode CLI's flags for ``spec`` (a corpus's ``decode``)."""
+    return ["-read_data_dir", str(data_dir), "-read_vocab_file", str(vocab),
+            "-load_model_file", str(model), "-save_result_file", str(out),
+            "-device", device, "-batch_size", str(spec["batch"]),
+            "-num_buckets", str(spec["buckets"]), "-beam_size",
+            str(spec["beam"]), "-nbest", str(spec["nbest"]),
+            "-max_token_seq_len", str(spec["max_tokens"])]
+
+
 def _sync(torch, device):
     return torch.cuda.synchronize if device == "cuda" else (lambda: None)
 
@@ -1540,13 +1606,8 @@ def run_slice(torch, corpus=TIMIT, device="cuda", model_args=None):
                model_args)
 
     def decode_args(data_dir, out, device, model=model):
-        return ["-read_data_dir", str(data_dir), "-read_vocab_file",
-                str(data / "vocab.txt"), "-load_model_file", str(model),
-                "-save_result_file", str(out), "-device", device,
-                "-batch_size", str(spec["batch"]), "-num_buckets",
-                str(spec["buckets"]), "-beam_size", str(spec["beam"]),
-                "-nbest", str(spec["nbest"]), "-max_token_seq_len",
-                str(spec["max_tokens"])]
+        return stage5_args(spec, data_dir, data / "vocab.txt", model, out,
+                           device)
 
     sync = _sync(torch, device)
     # the main path: every launch count at 0 just before, read just after;
@@ -1775,20 +1836,23 @@ def _digest(torch, params, batch):
     return h.hexdigest()
 
 
-def cpu_step(torch, params, cfg, batch):
+def cpu_step(torch, params, cfg, batch, specaugment=False, dtype=None):
     """``_step_on`` the CPU at dropout seed 0, taken once for the same
     inputs (CPU_STEPS).  Only the main paths' references come from here:
     a fault planted in memory is not among the inputs."""
-    key = (repr(cfg), _digest(torch, params, batch))
+    key = (repr(cfg), _digest(torch, params, batch), specaugment, dtype)
     if key not in CPU_STEPS:
-        CPU_STEPS[key] = _step_on(torch, "cpu", params, cfg, batch)
+        CPU_STEPS[key] = _step_on(torch, "cpu", params, cfg, batch,
+                                  dtype=dtype, specaugment=specaugment)
     return CPU_STEPS[key]
 
 
-def _step_on(torch, device, params, cfg, batch, dtype=None, seed=0):
+def _step_on(torch, device, params, cfg, batch, dtype=None, seed=0,
+             specaugment=False):
     """One train step from ``params`` on ``device`` (in ``dtype``, default
-    float32; dropout masks from ``seed``); returns (loss, {leaf path:
-    gradient on the CPU in float64})."""
+    float32; dropout masks, and SpecAugment's with ``specaugment``, from
+    ``seed``); returns (loss, {leaf path: gradient on the CPU in
+    float64})."""
     from pytorch_kaldi_asr_tpu_torch.data.loader import to_device
     from pytorch_kaldi_asr_tpu_torch.models.transformer import tree_map
     from pytorch_kaldi_asr_tpu_torch.train import create_train_state, train_step
@@ -1800,7 +1864,7 @@ def _step_on(torch, device, params, cfg, batch, dtype=None, seed=0):
         seed=seed)
     b = to_device(batch, device)
     metrics = train_step(state, cfg, b.src.to(dtype), b.src_mask, b.tgt,
-                         b.tgt_mask)
+                         b.tgt_mask, specaugment=specaugment)
     return (float(metrics["loss"]),
             {path: p.grad.cpu().double()
              for path, p in named_leaves(state.params)
@@ -1822,21 +1886,33 @@ def one_ulp_off(torch, params, seed=9):
         0, 2, t.shape, generator=signs) * 2 - 1) * 2.0 ** -23), params)
 
 
-def f32_noise_ratios(torch, grads_dev, grads_cpu, grads_ulp):
+def f32_noise_ratios(torch, grads_dev, grads_cpu, grads_ulp, grads_f32=None):
     """Per leaf: the card's distance from the CPU step, the CPU's own noise
-    (its step with the weights one ulp off, at least NOISE_FLOOR), both over
-    the leaf's largest entry, and their ratio."""
+    (its step with the weights one ulp off, at least NOISE_FLOOR; with
+    ``grads_f32``, the CPU's float32 step where ``grads_cpu`` is its
+    float64 one, at least that step's distance from it), both over the
+    leaf's largest entry, and their ratio."""
     out = {}
     for k in grads_cpu:
         err = _rel_err(grads_dev[k], grads_cpu[k])
         noise = max(_rel_err(grads_ulp[k], grads_cpu[k]), NOISE_FLOOR)
+        if grads_f32 is not None:
+            noise = max(noise, _rel_err(grads_f32[k], grads_cpu[k]))
         out[k] = (err, noise, err / noise)
     return out
 
 
-def card_vs_cpu_step(torch, device, params, cfg, batch, seed=0):
-    """One train step on ``device`` and on the CPU from the same parameters
-    and batch (the dropout masks are the same on both).  The loss must
+def card_vs_cpu_step(torch, device, params, cfg, batch, seed=0,
+                     specaugment=False, step_on=_step_on, cpu_dtype=None):
+    """One train step (``step_on``, by default the acoustic model's, with
+    SpecAugment where ``specaugment``) on ``device`` and on the CPU from
+    the same parameters and batch (the dropout and SpecAugment masks are
+    the same on both).  ``cpu_dtype`` float64 takes the CPU's steps in
+    float64, for models whose float32 gradients are long sums that cancel
+    (the tdnnf's, PERF.md §6): the card is held to the
+    exact step, and an ill-conditioned leaf's noise is also the CPU's own
+    float32 step's distance from it (float32's summation error, which the
+    one-ulp step, summing in the same order, does not show).  The loss must
     agree within STEP_LOSS_RTOL and every gradient leaf within
     STEP_GRAD_RTOL of its largest entry.  A leaf whose float32 gradient is
     ill-conditioned (a sum over tens of thousands of frames that cancels)
@@ -1845,31 +1921,41 @@ def card_vs_cpu_step(torch, device, params, cfg, batch, seed=0):
     (``one_ulp_off``), and the card may be at most F32_NOISE_RATIO times
     that step's distance from the CPU's (``f32_noise_ratios``).  Returns
     the numbers."""
-    loss_dev, grads_dev = _step_on(torch, device, params, cfg, batch,
-                                   seed=seed)
+    kw = dict(specaugment=specaugment) if specaugment else {}
+    ref = dict(kw, dtype=cpu_dtype) if cpu_dtype else kw
+    loss_dev, grads_dev = step_on(torch, device, params, cfg, batch,
+                                  seed=seed, **kw)
     t0 = time.perf_counter()
-    loss_cpu, grads_cpu = (cpu_step(torch, params, cfg, batch) if seed == 0
-                           else _step_on(torch, "cpu", params, cfg, batch,
-                                         seed=seed))
+    loss_cpu, grads_cpu = (
+        cpu_step(torch, params, cfg, batch, **ref)
+        if seed == 0 and step_on is _step_on
+        else step_on(torch, "cpu", params, cfg, batch, seed=seed, **ref))
     cpu_s = time.perf_counter() - t0
     loss_err = abs(loss_dev - loss_cpu) / abs(loss_cpu)
     errs = {k: _rel_err(grads_dev[k], grads_cpu[k]) for k in grads_cpu}
     worst = max(errs, key=errs.get)
-    out = {"loss": loss_dev, "loss_cpu": loss_cpu, "loss_rel_err": loss_err,
+    out = {"cpu_dtype": str(cpu_dtype or torch.float32),
+           "loss": loss_dev, "loss_cpu": loss_cpu, "loss_rel_err": loss_err,
            "grad_rel_err": errs[worst], "worst_leaf": str(worst),
            "cpu_step_s": cpu_s, "noise_checks": {}}
     if loss_err > STEP_LOSS_RTOL:
         raise AssertionError(f"train step {device} vs cpu: loss {loss_err}")
     over = [k for k, e in errs.items() if e > STEP_GRAD_RTOL]
     if over:
-        _, grads_ulp = _step_on(torch, "cpu", one_ulp_off(torch, params),
-                                cfg, batch, seed=seed)
-        ratios = f32_noise_ratios(torch, grads_dev, grads_cpu, grads_ulp)
+        _, grads_ulp = step_on(torch, "cpu", one_ulp_off(torch, params),
+                               cfg, batch, seed=seed, **ref)
+        grads_f32 = (cpu_step(torch, params, cfg, batch, **kw)[1]
+                     if cpu_dtype and step_on is _step_on else None)
+        ratios = f32_noise_ratios(torch, grads_dev, grads_cpu, grads_ulp,
+                                  grads_f32)
         for k in over:
             err, noise, ratio = ratios[k]
             out["noise_checks"][str(k)] = {"card_vs_cpu": err,
                                            "cpu_noise": noise,
                                            "ratio": ratio}
+            if grads_f32 is not None:
+                out["noise_checks"][str(k)]["cpu_float32_vs_cpu"] = \
+                    _rel_err(grads_f32[k], grads_cpu[k])
             if ratio > F32_NOISE_RATIO:
                 raise AssertionError(
                     f"train step {device} vs cpu: gradient {k} differs by "
@@ -2093,6 +2179,7 @@ def run_train(torch, corpus=TIMIT, device="cuda", model_args=None, utts=None,
     spec = corpus["train"]
     utts, batch = utts or spec["utts"], batch or spec["batch"]
     epochs = spec["epochs"]
+    specaugment = spec.get("specaugment", False)
     work = WORK / corpus["name"] / "train"
     if work.exists():
         shutil.rmtree(work)
@@ -2128,7 +2215,8 @@ def run_train(torch, corpus=TIMIT, device="cuda", model_args=None, utts=None,
         "-load_model_file", str(model), "-save_model_dir", str(exp),
         "-batch_size", str(batch), "-epoch", str(epochs),
         "-save_interval", "1", "-optim_start_lr", "0.001",
-        "-optim_soft_coefficient", "25000", "-device", device])
+        "-optim_soft_coefficient", "25000", "-device", device,
+        *(["-specaugment"] if specaugment else [])])
     sync()
     train_s = time.perf_counter() - t0
     if rc != 0:
@@ -2173,10 +2261,13 @@ def run_train(torch, corpus=TIMIT, device="cuda", model_args=None, utts=None,
         check = bf16_card_vs_cpu_step(torch, device, ckpt["params"],
                                       ckpt["cfg"], rows_of_first)
     else:
-        check = card_vs_cpu_step(torch, device, ckpt["params"], ckpt["cfg"],
-                                 rows_of_first)
+        check = card_vs_cpu_step(
+            torch, device, ckpt["params"], ckpt["cfg"], rows_of_first,
+            specaugment=specaugment,
+            cpu_dtype=getattr(torch, spec.get("cpu_dtype", "float32")))
     print(f"{corpus['name']}: one train step of {rows} utterances at dropout "
-          f"{ckpt['cfg'].en_dropout}/{ckpt['cfg'].de_dropout}, {device} vs "
+          f"{ckpt['cfg'].en_dropout}/{ckpt['cfg'].de_dropout}"
+          f"{', SpecAugment on' if specaugment else ''}, {device} vs "
           f"cpu: " + json.dumps(check))
 
     # the train step's time at the recipe's dropout, on one full batch
@@ -2185,14 +2276,16 @@ def run_train(torch, corpus=TIMIT, device="cuda", model_args=None, utts=None,
     b = to_device(first, device)
 
     def step():
-        train_step(state, ckpt["cfg"], b.src, b.src_mask, b.tgt, b.tgt_mask)
+        train_step(state, ckpt["cfg"], b.src, b.src_mask, b.tgt, b.tgt_mask,
+                   specaugment=specaugment)
 
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    [step_ms] = time_steps(step, sync)
+    [step_ms] = time_steps(step, sync, n_steps=spec.get("timed_steps", 10))
     peak_gb = (torch.cuda.max_memory_allocated() / 1e9 if device == "cuda"
                else None)
-    profile = profile_steps(torch, step) if device == "cuda" else None
+    profile = (profile_steps(torch, step, n=spec.get("profiled_steps", 3))
+               if device == "cuda" else None)
     if profile is not None:
         check_profile_kernels(profile, cfg)
     batch_frames = int(first.src_mask.sum())
@@ -2202,7 +2295,9 @@ def run_train(torch, corpus=TIMIT, device="cuda", model_args=None, utts=None,
         "metrics": records, "checkpoints": names, "launches": launches,
         "dropout_sites": dropout_sites(ckpt["cfg"]),
         "compute_dtype": ckpt["cfg"].compute_dtype,
-        "en_layers": ckpt["cfg"].en_layers, "step_ms": step_ms,
+        "specaugment": specaugment,
+        "en_layers": ckpt["cfg"].en_layers,
+        "encoder_type": ckpt["cfg"].encoder_type, "step_ms": step_ms,
         "step_frames": batch_frames,
         "step_padded_frames": int(first.src_mask.size),
         "frames_per_s": batch_frames / step_ms * 1e3,
@@ -2309,17 +2404,264 @@ def run_bench_step(torch, device="cuda", **size):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the TIMIT recipe's other switches: SpecAugment, the neural LM, fusion, int8
+# ---------------------------------------------------------------------------
+
+
+def check_step_launches(what, launches, want):
+    """Every wrapper's count in ``launches`` equals ``want``'s (absent:
+    0)."""
+    for name, n in launches.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"{what}: {name} launched {n} times, "
+                                 f"expected {want.get(name, 0)}")
+
+
+def run_specaugment_step(torch, corpus=TIMIT, device="cuda", rows=20):
+    """One banded TIMIT train step with SpecAugment on, card against CPU
+    (``card_vs_cpu_step``: the masks are the same on both), from run_train's
+    model.init and the first ``rows`` utterances of its first batch (the
+    CPU's step at batch 100 and its one-ulp twin took 46 s); the card's
+    step alone launches K2a, K2b and K2c once per encoder layer and K3 once
+    per dropout site each way."""
+    from pytorch_kaldi_asr_tpu_torch.data import read_vocab
+    from pytorch_kaldi_asr_tpu_torch.data.loader import make_batch_loader
+    from pytorch_kaldi_asr_tpu_torch.train import load_checkpoint
+
+    work = WORK / corpus["name"] / "train"
+    ckpt = load_checkpoint(str(work / "model.init"))
+    cfg = ckpt["cfg"]
+    loader = make_batch_loader(str(work / "train"),
+                               read_vocab(str(work / "train" / "vocab.txt")),
+                               corpus["train"]["batch"], mode="drop")
+    first = next(iter(loader))
+    first = type(first)(*(x[:rows] for x in first))
+    reset_launch_counts()
+    check = card_vs_cpu_step(torch, device, ckpt["params"], cfg, first,
+                             specaugment=True)
+    launches = launch_counts()
+    sites = dropout_sites(cfg)["float32"]
+    if device == "cuda":
+        check_step_launches(f"{corpus['name']} step with SpecAugment",
+                            launches, {
+                                "banded_attention_fwd": cfg.en_layers,
+                                "banded_attention_dq": cfg.en_layers,
+                                "banded_attention_dkv": cfg.en_layers,
+                                "fused_dropout_forward": sites,
+                                "fused_dropout_backward": sites})
+    print(f"{corpus['name']}: one train step with SpecAugment, {device} vs "
+          f"cpu: " + json.dumps(check))
+    return {"corpus": corpus["name"], "launches": launches,
+            "card_vs_cpu_step": check}
+
+
+def _nlm_step_on(torch, device, params, cfg, batch, seed=0):
+    """One ``train_nlm`` step of the LM from ``params`` on ``device`` over
+    ``batch`` = (tokens, mask) numpy rows; returns (mean per-token loss,
+    {leaf path: gradient on the CPU in float64})."""
+    from pytorch_kaldi_asr_tpu_torch.models.transformer import tree_map
+    from pytorch_kaldi_asr_tpu_torch.recipes.train_nlm import nlm_train_step
+    from pytorch_kaldi_asr_tpu_torch.train import create_train_state
+    from pytorch_kaldi_asr_tpu_torch.train.optim import named_leaves
+
+    state = create_train_state(
+        tree_map(lambda t: t.detach().to(device, copy=True), params),
+        seed=seed)
+    toks, mask = (torch.from_numpy(x).to(device) for x in batch)
+    loss, _, n = nlm_train_step(state, cfg, toks.long(), mask)
+    return (float(loss / n),
+            {path: p.grad.cpu().double()
+             for path, p in named_leaves(state.params)})
+
+
+def run_nlm(torch, decoded, device="cuda"):
+    """Stage 2's ``train_nlm`` (NLM's flags) on the TIMIT training
+    transcripts with K3's launches exact, one LM step card against CPU, the
+    step's time and profile, and ``score_lm -nlm_model_dir`` on the n-best
+    file ``decoded``, card against CPU within NLM_SCORE_ATOL."""
+    import numpy as np
+
+    from pytorch_kaldi_asr_tpu_torch.data import read_vocab
+    from pytorch_kaldi_asr_tpu_torch.models.nlm import (
+        encode_sentences,
+        load_nlm,
+    )
+    from pytorch_kaldi_asr_tpu_torch.models.transformer import tree_map
+    from pytorch_kaldi_asr_tpu_torch.recipes import score_lm, train_nlm
+    from pytorch_kaldi_asr_tpu_torch.train import create_train_state
+
+    work = WORK / "nlm"
+    if work.exists():
+        shutil.rmtree(work)
+    data = WORK / TIMIT["name"] / "train" / "train"
+    text, vocab = data / "text", data / "vocab.txt"
+    sync = _sync(torch, device)
+    reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    train_nlm.main(["-text", str(text), "-read_vocab_file", str(vocab),
+                    "-save_model_dir", str(work / "nlm"), "-max_len",
+                    str(NLM["max_len"]), "-epoch", str(NLM["epochs"]),
+                    "-batch_size", str(NLM["batch"]), "-device", device])
+    sync()
+    train_s = time.perf_counter() - t0
+    launches = launch_counts()
+    params, cfg, meta = load_nlm(str(work / "nlm"))
+    sentences = train_nlm.read_sentences(str(text))
+    steps = NLM["epochs"] * max(1, len(sentences) // NLM["batch"])
+    sites = 2 + 3 * cfg.de_layers  # embeddings, per layer 3, the output
+    if meta["step"] != steps:
+        raise AssertionError(f"train_nlm took {meta['step']} steps, "
+                             f"expected {steps}")
+    if device == "cuda":
+        check_step_launches("train_nlm", launches, {
+            "fused_dropout_forward": sites * steps,
+            "fused_dropout_backward": sites * steps})
+
+    batch = encode_sentences(sentences[:NLM["batch"]], read_vocab(str(vocab)),
+                             NLM["max_len"])
+    check = card_vs_cpu_step(torch, device, params, cfg, batch,
+                             step_on=_nlm_step_on)
+    print(f"nlm: one train_nlm step of {NLM['batch']} sentences at dropout "
+          f"{cfg.de_dropout}, {device} vs cpu: " + json.dumps(check))
+
+    state = create_train_state(tree_map(
+        lambda t: t.detach().to(device, copy=True), params))
+    toks, mask = (torch.from_numpy(x).to(device) for x in batch)
+
+    def step():
+        train_nlm.nlm_train_step(state, cfg, toks.long(), mask)
+
+    [step_ms] = time_steps(step, sync)
+    profile = profile_steps(torch, step) if device == "cuda" else None
+
+    scores = {}
+    for where in (device, "cpu"):
+        out = work / f"nlm_score_{where}.txt"
+        score_lm.main(["-decode_file", str(decoded), "-nlm_model_dir",
+                       str(work / "nlm"), "-read_vocab_file", str(vocab),
+                       "-save_score_file", str(out), "-device", where])
+        scores[where] = np.loadtxt(out)
+    score_err = float(np.abs(scores[device] - scores["cpu"]).max())
+    if not np.isfinite(scores[device]).all() or score_err > NLM_SCORE_ATOL:
+        raise AssertionError(f"score_lm -nlm_model_dir: card vs cpu "
+                             f"{score_err} (limit {NLM_SCORE_ATOL})")
+    out = {"corpus": "nlm", "model": str(work / "nlm"), "train_cli_s": train_s,
+           "train_steps": steps, "dropout_sites": sites, "launches": launches,
+           "card_vs_cpu_step": check, "step_ms": step_ms,
+           "step_tokens": int(batch[1].sum()), "step_profile": profile,
+           "score_lm_lines": int(scores[device].size),
+           "score_lm_card_vs_cpu": score_err}
+    print(f"nlm: train_nlm {steps} steps in {train_s:.2f} s; step {step_ms:.3f}"
+          " ms" + (f", {profile['device_ms_per_step']:.2f} ms of device time, "
+                   f"idle share {profile['idle_share']:.3f}, "
+                   f"{profile['kernels_per_step']:.0f} kernels; top kernels "
+                   + json.dumps(profile["top_kernels_ms_per_step"][:5])
+                   if profile else ""))
+    return out
+
+
+def run_lm_decodes(torch, decoded, nlm_dir, device="cuda"):
+    """The banded TIMIT decode of run_slice (``decoded``, its summary) with
+    the neural LM fused at NLM's weight, with int8 weights, and with both;
+    each's first batch again on the CPU (``compare_nbest``).  On the card,
+    ``-lm_weight 0`` writes the unfused decode's lines exactly (tokens and
+    scores bit-equal).  Records each decode's RTF, its time split, its K1
+    launches, its peak device memory and the parameter bytes of the float32
+    and int8 trees."""
+    from pytorch_kaldi_asr_tpu_torch.models.nlm import load_nlm
+    from pytorch_kaldi_asr_tpu_torch.ops.quant import quantize_tree, tree_bytes
+    from pytorch_kaldi_asr_tpu_torch.recipes import decode
+    from pytorch_kaldi_asr_tpu_torch.train import load_checkpoint
+
+    spec = TIMIT["decode"]
+    work = WORK / TIMIT["name"] / "decode"
+    data, model = work / "data", Path(decoded["model"])
+    vocab = data / "vocab.txt"
+    en_layers = load_checkpoint(str(model))["cfg"].en_layers
+    fused = ["-nlm_model_dir", str(nlm_dir), "-lm_weight"]
+    variants = {"unfused": [], "lm_weight_0": fused + ["0"],
+                "fused": fused + [str(NLM["lm_weight"])],
+                "int8": ["-quantize_weights"],
+                "fused_int8": fused + [str(NLM["lm_weight"]),
+                                       "-quantize_weights"]}
+    sync = _sync(torch, device)
+    audio_s = decoded["frames"] * 0.010
+    out = {}
+    for name, extra in variants.items():
+        path = work / f"decode_{name}.txt"
+        reset_launch_counts()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        split = {}
+        sync()
+        t0 = time.perf_counter()
+        decode.main(stage5_args(spec, data, vocab, model, path, device)
+                    + extra, timings=split)
+        sync()
+        decode_s = time.perf_counter() - t0
+        split["other_s"] = decode_s - sum(split.values())
+        launches = launch_counts()
+        if device == "cuda":
+            check_step_launches(f"{name} decode", launches, {
+                "banded_attention": en_layers * decoded["batches"]})
+        row = {"decode_s": decode_s, "rtf": decode_s / audio_s,
+               "time_split_s": split, "launches": launches,
+               "peak_memory_gb": (torch.cuda.max_memory_allocated() / 1e9
+                                  if device == "cuda" else None)}
+        gpu = read_nbest(path)
+        if len(gpu) != spec["utts"]:
+            raise AssertionError(f"{name} decode: {len(gpu)} utterances")
+        if name in ("fused", "int8", "fused_int8"):
+            cpu_path = work / f"decode_{name}_cpu.txt"
+            t0 = time.perf_counter()
+            decode.main(stage5_args(spec, work / "data_first_batch", vocab,
+                                    model, cpu_path, "cpu") + extra)
+            row["cpu_first_batch_s"] = time.perf_counter() - t0
+            cpu = read_nbest(cpu_path)
+            if sorted(cpu) != sorted(decoded["first_batch_keys"]):
+                raise AssertionError("the CPU decode covered other "
+                                     "utterances")
+            row["cpu_vs_card_max_score_err"] = compare_nbest(gpu, cpu)
+        out[name] = row
+        print(f"timit {name} decode: RTF {row['rtf']:.4f}, "
+              + json.dumps(row))
+    same = (work / "decode_lm_weight_0.txt").read_text() == \
+        (work / "decode_unfused.txt").read_text()
+    if device == "cuda" and not same:
+        raise AssertionError("-lm_weight 0 did not write the unfused "
+                             "decode's lines exactly")
+    if (work / "decode_fused.txt").read_text() == \
+            (work / "decode_unfused.txt").read_text():
+        raise AssertionError("the fused decode wrote the unfused lines")
+    params = load_checkpoint(str(model))["params"]
+    lm, _, _ = load_nlm(str(nlm_dir))
+    out["param_bytes"] = {
+        "am_float32": tree_bytes(params),
+        "am_int8": tree_bytes(quantize_tree(params)[0]),
+        "lm_float32": tree_bytes(lm), "lm_int8": tree_bytes(
+            quantize_tree(lm)[0])}
+    out["lm_weight_0_equals_unfused"] = same
+    print("timit decodes with the LM and int8: parameter bytes "
+          + json.dumps(out["param_bytes"]) + "; peak memory (GB) "
+          + json.dumps({k: v["peak_memory_gb"] for k, v in out.items()
+                        if isinstance(v, dict) and "peak_memory_gb" in v}))
+    return out
+
+
 def check_profile_kernels(profile, cfg):
     """A profiled train step of ``cfg`` ran the attention kernels of its
     compute dtype, and none of the other: on bfloat16 compute the bfloat16
-    K2a-c and no float32 fwd_kernel, dq_kernel or dkv_kernel (the tdnn
-    encoder has no attention kernel)."""
+    K2a-c and no float32 fwd_kernel, dq_kernel or dkv_kernel (the tdnn,
+    tdnnf and blstm encoders have no attention kernel)."""
     ours = profile["port_kernels_ms_and_launches_per_step"]
     bf16 = cfg.compute_dtype == "bfloat16"
     want = ("_bf16", "") if bf16 else ("", "_bf16")
     for kernel in ("K2a", "K2b", "K2c"):
         ran, other = (ours[kernel + sfx][1] for sfx in want)
-        if other or (cfg.encoder_type != "tdnn" and not ran):
+        if other or (cfg.encoder_type in ATTENDING and not ran):
             raise AssertionError(f"the {cfg.compute_dtype} step launched "
                                  f"{kernel}{want[0]} {ran} and "
                                  f"{kernel}{want[1]} {other} times a step")
@@ -2512,6 +2854,96 @@ def noisy_leaf_only(torch):
                                      spec["batch"], mode="drop"))
     return f32_gate_readings(torch, "cuda", ckpt["params"], ckpt["cfg"],
                              [next(batches), next(batches)])
+
+
+def spliced_precision(torch, encoder):
+    """``--spliced-precision``: one train step (dropout 0, SpecAugment on)
+    of the TIMIT-width ``encoder`` (tdnn or tdnnf) on run_train's first
+    batch (100 utterances), its spliced products through cuDNN's
+    convolution (``common.spliced_linear``, the tdnn's route) and through
+    splice then matmul (the tdnnf's), each on the card, again (the card's
+    reductions are not all deterministic), with cuDNN's deterministic
+    algorithms, and on the CPU in float32, against the CPU's float64 step:
+    per route the loss's and the largest leaf's distance (``_rel_err``)
+    from it, over the encoder's leaves and the decoder's.  About a minute,
+    most of it the CPU's."""
+    from pytorch_kaldi_asr_tpu_torch.data import read_vocab
+    from pytorch_kaldi_asr_tpu_torch.data.loader import make_batch_loader
+    from pytorch_kaldi_asr_tpu_torch.io import kaldi_io
+    from pytorch_kaldi_asr_tpu_torch.models import common, encoders
+    from pytorch_kaldi_asr_tpu_torch.train import load_checkpoint
+
+    work = WORK / f"spliced_precision_{encoder}"
+    if work.exists():
+        shutil.rmtree(work)
+    data = work / "train"
+    write_data_dir(data, kaldi_io, torch, TIMIT, TIMIT["train"]["utts"]
+                   ["train"], seed=1)
+    model = [{"0.35": "0.0", "banded": encoder}.get(x, x)
+             for x in RECIPE_MODEL]
+    initialize(TIMIT, data / "feats.scp", data / "vocab.txt",
+               work / "model.init", model)
+    ckpt = load_checkpoint(str(work / "model.init"))
+    batch = next(iter(make_batch_loader(
+        str(data), read_vocab(str(data / "vocab.txt")),
+        TIMIT["train"]["batch"], mode="drop")))
+
+    def step(device, dtype=None):
+        return _step_on(torch, device, ckpt["params"], ckpt["cfg"], batch,
+                        dtype=dtype, specaugment=True)
+
+    def conv_product(h, w, b, dtype=None):  # the tdnnf's through the conv
+        if isinstance(h, tuple):
+            return common.spliced_linear(h[0], w, b, h[1], dtype)
+        return common.linear(h, w, b, dtype)
+
+    def matmul_product(x, w, b, context, dtype=None):  # the tdnn's
+        return common.linear(common.splice_frames(x, context), w, b, dtype)
+
+    other = ({"splice_frames": lambda x, context: (x, context),
+              "linear": conv_product} if encoder == "tdnnf"
+             else {"spliced_linear": matmul_product})
+    module = encoders if encoder == "tdnnf" else common
+
+    @contextlib.contextmanager
+    def route(name):
+        """The model's own route, or the other one patched in."""
+        if name == ("matmul" if encoder == "tdnnf" else "conv"):
+            yield
+            return
+        kept = {k: getattr(module, k) for k in other}
+        for k, fn in other.items():
+            setattr(module, k, fn)
+        try:
+            yield
+        finally:
+            for k, fn in kept.items():
+                setattr(module, k, fn)
+
+    ref_loss, ref = step("cpu", torch.float64)
+    runs = {}
+    for name in ("conv", "matmul"):
+        with route(name):
+            runs[f"{name}_card"] = step("cuda")
+            runs[f"{name}_card_again"] = step("cuda")
+            torch.backends.cudnn.deterministic = True
+            try:
+                runs[f"{name}_card_deterministic"] = step("cuda")
+            finally:
+                torch.backends.cudnn.deterministic = False
+            runs[f"{name}_cpu"] = step("cpu")
+    out = {}
+    for name, (loss, grads) in runs.items():
+        errs = {k: _rel_err(grads[k], ref[k]) for k in ref}
+        enc = {k: v for k, v in errs.items() if k[0] == "encoder"}
+        dec = {k: v for k, v in errs.items() if k[0] == "decoder"}
+        out[name] = {
+            "loss": abs(loss - ref_loss) / abs(ref_loss),
+            "encoder_max": max(enc.values()),
+            "encoder_worst": str(max(enc, key=enc.get)),
+            "decoder_max": max(dec.values()),
+            "decoder_worst": str(max(dec, key=dec.get))}
+    return out
 
 
 BF16_FAULTS = ("dropout_scale_unrounded", "swish_rounded_once",
@@ -2809,14 +3241,17 @@ def bf16_compute_gate_readings(torch, device="cuda"):
 def check_train_launches(training):
     """K2a-c at exactly en_layers x steps on the compute dtype (none on the
     other), K3 at exactly (dropout sites) x steps each way for each dtype,
-    and K1 on the compute dtype in the evaluations."""
+    and K1 on the compute dtype in the evaluations; encoders that do not
+    attend (tdnn, tdnnf, blstm) launch no K1 and no K2."""
     launches, steps = training["launches"], training["train_steps"]
     sites = training["dropout_sites"]
     ours, other = (("_bf16", "") if training["compute_dtype"] == "bfloat16"
                    else ("", "_bf16"))
     want = {}
+    attention_layers = training["en_layers"] if training["encoder_type"] \
+        in ATTENDING else 0
     for k in ("fwd", "dq", "dkv"):
-        want[f"banded_attention_{k}{ours}"] = training["en_layers"] * steps
+        want[f"banded_attention_{k}{ours}"] = attention_layers * steps
         want[f"banded_attention_{k}{other}"] = 0
     for way in ("forward", "backward"):
         want[f"fused_dropout_{way}"] = sites["float32"] * steps
@@ -2826,7 +3261,7 @@ def check_train_launches(training):
             raise AssertionError(f"{training['corpus']}: {name} launched "
                                  f"{launches[name]} times in training, "
                                  f"expected {n}")
-    if launches[f"banded_attention{ours}"] == 0 \
+    if bool(launches[f"banded_attention{ours}"]) != bool(attention_layers) \
             or launches[f"banded_attention{other}"]:
         raise AssertionError(f"banded_attention{ours} (K1) not launched by "
                              f"the training path's evaluations, or K1 on the "
@@ -2877,6 +3312,7 @@ def main():
         return 2
     step_only = sys.argv[1:2] == ["--train-step"]
     noisy_leaf = sys.argv[1:2] == ["--noisy-leaf"]
+    spliced = sys.argv[1:2] == ["--spliced-precision"]
     bf16_gates = sys.argv[1:2] == ["--bf16-gates"]
     bf16_compute_gates = sys.argv[1:2] == ["--bf16-compute-gates"]
     sources = ([Path(p).resolve() for p in sys.argv[2:]]
@@ -2905,6 +3341,12 @@ def main():
     card = card_line()
     print(f"card: {card}")
     disable_tf32()
+    if spliced:  # launches no kernel of the port: nothing to build
+        for encoder in ("tdnn", "tdnnf"):
+            print("SPLICED_PRECISION " + json.dumps(
+                {"card": card, "encoder": encoder,
+                 "routes": spliced_precision(torch, encoder)}))
+        return 0
 
     t0 = time.perf_counter()
     procs = start_k2_builds(sources) if sources else None
@@ -2951,9 +3393,10 @@ def main():
     def decode_path(corpus):
         name = corpus["name"]
         summary = run_slice(torch, corpus)
-        en_layers = int(corpus["model"][corpus["model"].index("-en_layers")
-                                        + 1])
-        expected = en_layers * summary["batches"]
+        model = corpus["model"]
+        en_layers = int(model[model.index("-en_layers") + 1])
+        attends = model[model.index("-encoder_type") + 1] in ATTENDING
+        expected = en_layers * summary["batches"] if attends else 0
         ours, other = (("_bf16", "") if corpus.get("compute_dtype")
                        == "bfloat16" else ("", "_bf16"))
         launched = summary["launches"]
@@ -3004,6 +3447,22 @@ def main():
     for corpus in (TIMIT_BF16, LIBRISPEECH_BF16_COMPUTE):
         decode_path(corpus)
         train_path(corpus)
+    # the TIMIT recipe's other switches: the tdnnf with SpecAugment and the
+    # blstm, the banded step with SpecAugment, the neural LM, fusion, int8
+    for corpus in (TIMIT_TDNNF, TIMIT_BLSTM):
+        decode_path(corpus)
+        train_path(corpus)
+    extra = {"specaugment_step": run_specaugment_step(torch)}
+    extra["nlm"] = run_nlm(torch, WORK / TIMIT["name"] / "decode"
+                           / "decode.txt")
+    print("nlm: " + json.dumps(extra["nlm"]))
+    lm_decodes = run_lm_decodes(torch, timit, extra["nlm"]["model"])
+    extra.update({f"decode_{k}": v for k, v in lm_decodes.items()
+                  if isinstance(v, dict) and "launches" in v})
+    for name, row in extra.items():
+        row["card"] = card
+    print("lm and int8 decodes: " + json.dumps(lm_decodes))
+    print(f"lm paths done at {time.perf_counter() - t_start:.1f} s")
     for name in ("librispeech", "librispeech_bf16",
                  "librispeech_bf16_compute"):
         profile = trainings[name]["step_profile"]
@@ -3017,7 +3476,7 @@ def main():
     def total(name, paths):
         return sum(p["launches"][name] for p in paths)
 
-    paths = [*decodes.values(), *trainings.values()]
+    paths = [*decodes.values(), *trainings.values(), *extra.values()]
     jax_file = "pytorch_kaldi_asr_tpu/ops/banded_attention.py"
     source = "pytorch_kaldi_asr_tpu_torch/ops/csrc/banded_attention_train.cu"
     kernels = []

@@ -7,7 +7,8 @@ an explicit ``device``, explicit ``torch.Generator``s.  It imports neither JAX
 nor anything of the JAX package; what it needs from the JAX-free host modules
 (Kaldi I/O, data loading, constants) it keeps as its own copies.
 
-Ported so far (stages 3-5 of the attention-transformer recipe and of the
+Ported so far (stages 2-5 of the attention-transformer recipe but its
+n-gram LM's training and the rescoring, and stages 3-5 of the
 conformer-librispeech recipe: initialize, train + combine, decode):
 
 - ``utils``   constants, logging, metrics logging, a small msgpack codec for
@@ -15,19 +16,22 @@ conformer-librispeech recipe: initialize, train + combine, decode):
 - ``io``      Kaldi ark/scp reading (plain, text and CM/CM2/CM3 compressed).
 - ``data``    vocab/text handling, the bucketed batch loader and the
               ``.npz`` batch archives.
-- ``models``  the transformer with the ``tdnn``, ``banded`` and
-              ``conformer`` encoders, inference and training (dropout)
-              branches.
+- ``models``  the transformer with every encoder family (``tdnn``,
+              ``banded``, ``blstm``, ``conformer``, ``tdnnf``), inference
+              and training (dropout) branches; the neural LM.
 - ``ops``     hand-written CUDA kernels for Hopper beside their plain
               PyTorch versions: banded attention (the inference kernel; the
               trainable forward and its two backward kernels) and fused
-              dropout.
-- ``decode``  the KV-cached beam search and the n-best writer.
+              dropout; SpecAugment and weight-only int8 in plain PyTorch.
+- ``lm``      the n-gram LM's read side (ARPA files, backoff scoring).
+- ``decode``  the KV-cached and the fixed-buffer beam searches, shallow
+              fusion of the neural LM, and the n-best writer.
 - ``train``   loss, Adam with the hyperbolic LR schedule, train state and
               steps, the epoch driver and checkpoint averaging, checkpoints
               in the flax on-disk layout (optimizer state port-native).
 - ``recipes`` the ``initialize_model``, ``generate_archive``, ``train``,
-              ``combine`` and ``decode`` entry points.
+              ``combine``, ``decode``, ``train_nlm`` and ``score_lm``
+              entry points.
 
 Entry points run on ``cuda`` unless the caller asks for ``cpu``; without a
 card they raise rather than fall back.

@@ -1,1 +1,2 @@
-"""Beam search and n-best output (the KV-cached search of the recipe)."""
+"""Beam search (KV-cached and fixed-buffer), shallow fusion of the neural
+LM, and n-best output."""

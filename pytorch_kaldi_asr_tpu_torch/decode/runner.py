@@ -15,7 +15,9 @@ import torch
 from pytorch_kaldi_asr_tpu_torch.data.loader import to_device
 from pytorch_kaldi_asr_tpu_torch.decode.beam import beam_search_memory
 from pytorch_kaldi_asr_tpu_torch.decode.fast_beam import fast_beam_search_memory
+from pytorch_kaldi_asr_tpu_torch.decode.fusion import make_fused_search
 from pytorch_kaldi_asr_tpu_torch.models.transformer import encode
+from pytorch_kaldi_asr_tpu_torch.ops.quant import dequantize_tree, quantize_tree
 from pytorch_kaldi_asr_tpu_torch.utils import constants
 from pytorch_kaldi_asr_tpu_torch.utils.logging import info
 
@@ -52,18 +54,38 @@ def ids_to_words(ids, idx2word):
 
 def decode_dataset(params, cfg, loader, word2idx, *, beam_size, nbest,
                    max_token_seq_len, save_result_file, device,
-                   use_cache=True, timings=None):
+                   use_cache=True, quantize_weights=False, fusion=None,
+                   timings=None):
     """Decode every batch of ``loader`` (mode='all') on ``device`` and write
     the n-best file: the KV-cached search where the decoder band is causal
     and ``use_cache``, else the fixed-buffer search.  Returns the number of
-    lines written.  With a ``timings`` dict, adds the wall seconds of the
-    data loading, the encoder, the search's steps and the writing to its
-    ``data_s``, ``encoder_s``, ``search_s`` and ``write_s``, the card
-    synchronised around each."""
+    lines written.
+
+    ``quantize_weights`` serves weight-only int8 (ops/quant.py): the tree
+    on the device is int8 with per-channel scales, and each batch's search
+    call (the encoder and the search steps) runs on a float tree
+    dequantized for it.  ``fusion`` = (lm_params, lm_cfg, lm_weight)
+    searches with per-step shallow fusion (decode/fusion.py); with
+    ``quantize_weights`` the LM is int8 too.
+
+    With a ``timings`` dict, adds the wall seconds of the data loading, the
+    dequantization (``dequantize_s``, with ``quantize_weights`` only), the
+    encoder, the search's steps and the writing to its ``data_s``,
+    ``encoder_s``, ``search_s`` and ``write_s``, the card synchronised
+    around each."""
     if nbest > beam_size:
         raise ValueError("nbest should not be larger than beam_size")
-    search = _pick_search(cfg, use_cache)
+    if fusion is not None:
+        lm_params, lm_cfg, lm_weight = fusion
+        search = make_fused_search(lm_params, lm_cfg, lm_weight,
+                                   quantize=quantize_weights)
+    else:
+        search = _pick_search(cfg, use_cache)
     info("decoding with %s", search.__name__)
+    if quantize_weights:
+        params, n_quantized = quantize_tree(params)
+        info("decoding with int8 weights (%d tensors quantized)",
+             n_quantized)
     idx2word = {index: word for word, index in word2idx.items()}
     lines = 0
     clock = _Clock(timings, device)
@@ -75,11 +97,15 @@ def decode_dataset(params, cfg, loader, word2idx, *, beam_size, nbest,
                 if batch is None:
                     break
                 on_device = to_device(batch, device)
+            weights = params
+            if quantize_weights:
+                with clock("dequantize_s"):
+                    weights = dequantize_tree(params)
             with clock("encoder_s"), torch.no_grad():
-                enc_output, src_mask_f = encode(params, cfg, on_device.src,
+                enc_output, src_mask_f = encode(weights, cfg, on_device.src,
                                                 on_device.src_mask)
             with clock("search_s"):
-                result = search(params, cfg, enc_output, src_mask_f,
+                result = search(weights, cfg, enc_output, src_mask_f,
                                 beam_size=beam_size,
                                 max_len=max_token_seq_len)
             with clock("write_s"):

@@ -1,2 +1,3 @@
-"""The attention transformer (models/transformer.py) and its encoder
-families (models/encoders.py), over parameter trees of tensors."""
+"""The attention transformer (models/transformer.py), its encoder families
+(models/encoders.py) and the neural LM (models/nlm.py), over parameter
+trees of tensors."""

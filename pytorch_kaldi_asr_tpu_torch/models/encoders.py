@@ -1,6 +1,5 @@
-"""Encoder families beyond the flagship TDNN/LDA frontend.
-
-Ported so far:
+"""Encoder families beyond the flagship TDNN/LDA frontend: every family of
+the JAX package's ``models/encoders.py``.
 
 - ``banded``, the self-attention encoder with a banded window (the
   reference's ``Encoder`` class made alive): src projection, one sinusoid
@@ -11,12 +10,20 @@ Ported so far:
   module (pointwise GLU, pre-conv mask, depthwise conv centered or causal,
   LN, swish, pointwise) and a second half-step FFN.  The conv module uses
   layer norm where the paper has batch norm, as the JAX package does.
+- ``blstm``: stacked bidirectional LSTMs with a masked recurrence (state
+  frozen on padded frames), always float32; a Python loop over time with
+  both directions in one batched product per step, the same code on the
+  CPU and the card.
+- ``tdnnf``: the factorized TDNN (splice → bottleneck ``factor`` → ``up``
+  with bias → ReLU → ``x = 0.66·x + h``), with ``semi_orthogonal_step``
+  for its factors.
 
-Both run their banded self-attention the same way.  Inference
-(``train=False``) goes through ``ops.banded_attention`` (K1); training
-through ``ops.banded_attention_trainable`` (K2a/K2b/K2c), with the
-attention probabilities dropped by the kernels' hash mask from a seed drawn
-per site and step.  Either takes the Hopper kernels for CUDA tensors and the
+``blstm`` and ``tdnnf`` attend nowhere; their dropout sites run K3.
+``banded`` and ``conformer`` run their banded self-attention the same
+way.  Inference (``train=False``) goes through ``ops.banded_attention``
+(K1); training through ``ops.banded_attention_trainable`` (K2a/K2b/K2c),
+with the attention probabilities dropped by the kernels' hash mask from a
+seed drawn per site and step.  Either takes the Hopper kernels for CUDA tensors and the
 plain PyTorch versions for CPU tensors.  Unlike the JAX package there is no
 length threshold, environment knob or config switch: the JAX package trains
 short banded sequences through masked full attention with ``jax.random``
@@ -55,10 +62,10 @@ from pytorch_kaldi_asr_tpu_torch.models.common import (
     layer_norm,
     linear,
     position_encoding_table,
+    splice_frames,
     xavier_normal,
 )
 from pytorch_kaldi_asr_tpu_torch.models.transformer import (
-    ROADMAP_ENCODERS,
     _drop,
     _init_ffn,
     _init_mha,
@@ -293,25 +300,178 @@ def conformer_encode(params, cfg, src_seq, src_mask, *, train=False,
     return x, src_mask
 
 
+# ---------------------------------------------------------------------------
+# BLSTM
+# ---------------------------------------------------------------------------
+
+
+def _init_lstm(generator, d_in, d_hidden):
+    return {
+        "wx": xavier_normal(generator, (d_in, 4 * d_hidden), d_in,
+                            4 * d_hidden),
+        "wh": xavier_normal(generator, (d_hidden, 4 * d_hidden), d_hidden,
+                            4 * d_hidden),
+        "b": torch.zeros(4 * d_hidden),
+    }
+
+
+def init_blstm_encoder(generator, cfg):
+    """Per layer a forward and a backward LSTM of ``en_d_model // 2`` units
+    each (their concatenation is the layer's output); the first layer reads
+    the folded features."""
+    d_hidden = cfg.en_d_model // 2
+    layers = []
+    d_in = cfg.src_dim * cfg.src_fold
+    for _ in range(cfg.en_layers):
+        layers.append({"fwd": _init_lstm(generator, d_in, d_hidden),
+                       "bwd": _init_lstm(generator, d_in, d_hidden)})
+        d_in = cfg.en_d_model
+    return {"layers": layers}
+
+
+def _bilstm_scan(layer, x, mask):
+    """Both directions of one BLSTM layer over x [B, S, D] (float32).
+
+    The JAX package's ``_lstm_scan``, twice: gates ``i, f, g, o`` with one
+    bias, the input projection hoisted out of the recurrence as one product
+    over every frame, and the state frozen on padded frames (``h`` and ``c``
+    kept where the mask is 0).  The backward direction runs over the flipped
+    sequence, so it starts from zeros through the tail pads.  The two
+    directions run together: their states are stacked [2, B, H] and every
+    time step is one batched product with the two ``wh`` stacked."""
+    b, s, _ = x.shape
+    fwd, bwd = layer["fwd"], layer["bwd"]
+    d_hidden = fwd["wh"].shape[0]
+    xs = x.transpose(0, 1)  # [S, B, D]
+    gates_x = torch.stack([xs @ fwd["wx"] + fwd["b"],
+                           xs.flip(0) @ bwd["wx"] + bwd["b"]], dim=1)
+    m = mask.transpose(0, 1).bool()[:, None, :, None]  # [S, 1, B, 1]
+    ms = torch.cat([m, m.flip(0)], dim=1)  # [S, 2, B, 1]
+    wh = torch.stack([fwd["wh"], bwd["wh"]])  # [2, H, 4H]
+    h = x.new_zeros((2, b, d_hidden))
+    c = x.new_zeros((2, b, d_hidden))
+    hs = []
+    for t in range(s):
+        z = torch.baddbmm(gates_x[t], h, wh)  # [2, B, 4H]
+        i, f, g, o = z.chunk(4, dim=-1)
+        c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h_new = torch.sigmoid(o) * torch.tanh(c_new)
+        h = torch.where(ms[t], h_new, h)
+        c = torch.where(ms[t], c_new, c)
+        hs.append(h)
+    hs = torch.stack(hs)  # [S, 2, B, H]
+    return torch.cat([hs[:, 0], hs[:, 1].flip(0)], dim=-1).transpose(0, 1)
+
+
+def blstm_encode(params, cfg, src_seq, src_mask, *, train=False, rngs=None):
+    """Stacked BLSTM layers, dropout after each; in the weights' dtype
+    (float32) whatever the compute dtype, as in the JAX package."""
+    x = src_seq.to(params["layers"][0]["fwd"]["wx"].dtype)
+    for layer in params["layers"]:
+        x = _drop(_bilstm_scan(layer, x, src_mask), cfg.en_dropout, rngs,
+                  train)
+    return x, src_mask
+
+
+# ---------------------------------------------------------------------------
+# TDNN-F
+# ---------------------------------------------------------------------------
+
+
+def init_tdnnf_encoder(generator, cfg):
+    """Factorized TDNN: a projection, then per context a splice, a linear to
+    the ``tdnnf_bottleneck`` (the ``factor``, kept semi-orthogonal by
+    :func:`semi_orthogonal_step`), a linear back up with bias, ReLU and a
+    scaled residual."""
+    d = cfg.en_d_model
+    d_in = cfg.src_dim * cfg.src_fold
+    bottleneck = cfg.tdnnf_bottleneck
+    return {
+        "src_proj": {"w": xavier_normal(generator, (d_in, d), d_in, d)},
+        "layers": [
+            {
+                "factor": xavier_normal(generator, (d * len(ctx), bottleneck),
+                                        d * len(ctx), bottleneck),
+                "up": {"w": xavier_normal(generator, (bottleneck, d),
+                                          bottleneck, d),
+                       "b": torch.zeros(d)},
+            }
+            for ctx in cfg.tdnn_contexts
+        ],
+    }
+
+
+def tdnnf_encode(params, cfg, src_seq, src_mask, *, train=False, rngs=None):
+    """``x = 0.66·x + dropout(relu(up(factor(splice(x)))))`` per context,
+    the stream float32.  In bfloat16 compute the projection, the spliced
+    product and ``up`` (``x @ w + b``, rounded twice) are bfloat16 and the
+    ReLU float32, where the JAX package casts."""
+    dtype = compute_dtype(cfg)
+
+    def stream(t):  # bfloat16 products come back to the float32 stream
+        return t if dtype is None else t.float()
+
+    x = stream(linear(src_seq, params["src_proj"]["w"], None, dtype))
+    for ctx, layer in zip(cfg.tdnn_contexts, params["layers"]):
+        # splice then matmul, as the JAX package writes it: through cuDNN's
+        # float32 convolution (common.spliced_linear) the card's step left
+        # the encoder's gradients up to 4.1e-4 of their size from float64
+        # and a decoder leaf 2.8e-3, through the matmul up to 1.6e-4 and
+        # 6.2e-7 (chip_smoke.py --spliced-precision; PERF.md §6)
+        h = linear(splice_frames(x, ctx), layer["factor"], None, dtype)
+        h = linear(h, layer["up"]["w"], layer["up"]["b"], dtype)
+        h = _drop(torch.relu(stream(h)), cfg.en_dropout, rngs, train)
+        x = 0.66 * x + h  # Kaldi-style scaled skip connection
+    return x, src_mask
+
+
+@torch.no_grad()
+def semi_orthogonal_step(params, alpha=0.125):
+    """One step of Povey-style semi-orthogonality on every TDNN-F
+    ``factor`` matrix M of the tree: with W = M (or Mᵀ where M is wide),
+    P = WᵀW and s = tr(PP)/tr(P), W ← W − (α/s)·W(P − s·I).  Returns a new
+    tree; the other leaves are the same tensors."""
+
+    def fix(tree, under_factor):
+        if isinstance(tree, dict):
+            return {k: fix(v, under_factor or k == "factor")
+                    for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [fix(v, under_factor) for v in tree]
+        if not under_factor:
+            return tree
+        transpose = tree.shape[0] < tree.shape[1]
+        w = tree.T if transpose else tree
+        p = w.T @ w
+        scale = torch.trace(p @ p) / torch.trace(p)
+        update = p - scale * torch.eye(p.shape[0], dtype=p.dtype,
+                                       device=p.device)
+        w = w - (alpha / scale) * (w @ update)
+        return w.T if transpose else w
+
+    return fix(params, False)
+
+
 _ENCODERS = {
     "banded": (init_banded_encoder, banded_encode),
+    "blstm": (init_blstm_encoder, blstm_encode),
     "conformer": (init_conformer_encoder, conformer_encode),
+    "tdnnf": (init_tdnnf_encoder, tdnnf_encode),
 }
 
 
 def _family(encoder_type):
     if encoder_type not in _ENCODERS:
-        raise NotImplementedError(
-            f"encoder_type={encoder_type!r} is not ported yet "
-            f"({ROADMAP_ENCODERS})")
+        raise ValueError(f"unknown encoder_type={encoder_type!r}: tdnn or "
+                         f"one of {sorted(_ENCODERS)}")
     return _ENCODERS[encoder_type]
 
 
 def encoder_init(encoder_type):
-    """Init function of an encoder family (raises for unported ones)."""
+    """Init function of an encoder family."""
     return _family(encoder_type)[0]
 
 
 def encoder_apply(encoder_type):
-    """Apply function of an encoder family (raises for unported ones)."""
+    """Apply function of an encoder family."""
     return _family(encoder_type)[1]

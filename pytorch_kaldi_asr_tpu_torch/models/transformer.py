@@ -13,8 +13,8 @@ package by tests/test_torch_models.py):
 - post-LN residuals with the eps=1e-3 unbiased-std layer norm;
 - banded decoder self-attention window ``decoder_sub_sequence``;
 - the ``tdnn`` encoder is splice → frozen LDA affine → src_projection →
-  TDNN stack → +sinusoid positions; ``banded`` and ``conformer`` live in
-  models/encoders.py;
+  TDNN stack → +sinusoid positions; ``banded``, ``blstm``, ``conformer``
+  and ``tdnnf`` live in models/encoders.py;
 - decoder: word+position embeddings → [self-attn, cross-attn, FFN]×N →
   vocab projection (no bias), with enc_dec_projection en_d_model→de_d_model.
 
@@ -53,10 +53,6 @@ from pytorch_kaldi_asr_tpu_torch.models.common import (
     torch_default_uniform,
     xavier_normal,
 )
-
-# the ROADMAP.md item named by the errors of what this slice leaves out
-ROADMAP_ENCODERS = "ROADMAP.md queue 1, 'Encoder zoo'"
-
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
@@ -353,9 +349,10 @@ def encode(params, cfg: TransformerConfig, src_seq, src_mask, *,
 
 def decode_logits(params, cfg: TransformerConfig, tgt_seq, tgt_mask,
                   src_mask, enc_output, *, train=False, rngs=None):
-    """Teacher-forced decoder: returns [B, T, vocab] logits (float32; in
-    bfloat16 compute the encoder projection and the vocabulary projection
-    are bfloat16 products)."""
+    """Teacher-forced decoder: returns [B, T, vocab] logits (in the
+    weights' dtype, float32; in bfloat16 compute the encoder projection and
+    the vocabulary projection are bfloat16 products, their results
+    float32)."""
     p = params["decoder"]
     t = tgt_seq.shape[1]
     device = enc_output.device
@@ -364,8 +361,10 @@ def decode_logits(params, cfg: TransformerConfig, tgt_seq, tgt_mask,
 
     pos_table = position_encoding_table(cfg.decoder_max_len, cfg.de_d_model,
                                         device=device)
-    # a bfloat16 encoder stream enters the float32 decoder here
-    enc = linear(enc_output, p["enc_dec_proj"]["w"], None, dtype).float()
+    # a bfloat16 encoder stream enters the decoder in the weights' dtype
+    # here (``linear``'s cast); a bfloat16 product comes back to float32
+    enc = linear(enc_output, p["enc_dec_proj"]["w"], None, dtype)
+    enc = enc if dtype is None else enc.float()
     x = p["embed"][tgt_seq] + pos_table[:t][None, :, :]
 
     slf_blocked = padding_attn_mask(tgt_mask, tgt_mask) | banded_attn_mask(
@@ -381,7 +380,8 @@ def decode_logits(params, cfg: TransformerConfig, tgt_seq, tgt_mask,
                                  cfg, rate, rngs, train)
         x = feed_forward(layer["ffn"], x, cfg, rate, rngs, train)
     x = _drop(x, rate, rngs, train)
-    return linear(x, p["word_proj"]["w"], None, dtype).float()
+    logits = linear(x, p["word_proj"]["w"], None, dtype)
+    return logits if dtype is None else logits.float()
 
 
 def transformer_forward(params, cfg: TransformerConfig, src_seq, src_mask,

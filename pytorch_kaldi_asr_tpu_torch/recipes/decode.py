@@ -5,10 +5,13 @@ Same flags as ``pytorch_kaldi_asr_tpu.recipes.decode`` plus ``-device``
 (``cuda`` by default; ``cpu`` on request).  Without a visible card and
 without ``-device cpu`` it raises rather than fall back.  ``-use_gpu`` is
 accepted for recipe compatibility.  The search is the KV-cached one where
-the model's decoder band is causal, else the fixed-buffer one.  A caller
-in Python may pass ``timings={}`` to :func:`main` to get the wall seconds
-of the checkpoint and vocabulary loading (``load_s``) and of each part of
-the decode (``runner.decode_dataset``)."""
+the model's decoder band is causal, else the fixed-buffer one;
+``-nlm_model_dir`` (a checkpoint of recipes.train_nlm) fuses a neural LM
+into the KV-cached search at ``-lm_weight`` (decode/fusion.py), and
+``-quantize_weights`` decodes from int8 weights (ops/quant.py), the LM's
+too.  A caller in Python may pass ``timings={}`` to :func:`main` to get
+the wall seconds of the checkpoint, vocabulary and LM loading (``load_s``)
+and of each part of the decode (``runner.decode_dataset``)."""
 
 import argparse
 import time
@@ -18,6 +21,7 @@ import torch
 from pytorch_kaldi_asr_tpu_torch.data import read_vocab
 from pytorch_kaldi_asr_tpu_torch.data.loader import make_batch_loader
 from pytorch_kaldi_asr_tpu_torch.decode.runner import decode_dataset
+from pytorch_kaldi_asr_tpu_torch.models.nlm import load_nlm
 from pytorch_kaldi_asr_tpu_torch.train import load_checkpoint
 from pytorch_kaldi_asr_tpu_torch.utils.device import disable_tf32, resolve_device
 from pytorch_kaldi_asr_tpu_torch.utils.logging import info
@@ -42,24 +46,17 @@ def main(argv=None, *, timings=None):
     parser.add_argument("-use_gpu", action="store_true",
                         help="accepted for recipe compatibility")
     parser.add_argument("-quantize_weights", action="store_true",
-                        help="weight-only int8 decoding (not ported yet)")
+                        help="weight-only int8 decoding (ops/quant.py)")
     parser.add_argument("-nlm_model_dir", default=None,
-                        help="neural LM for shallow fusion (not ported yet)")
+                        help="neural LM checkpoint for per-step shallow "
+                             "fusion (decode/fusion.py); must share the "
+                             "recipe vocabulary")
     parser.add_argument("-lm_weight", type=float, default=0.3,
                         help="shallow-fusion LM weight")
     opt = parser.parse_args(argv)
 
     if opt.nbest > opt.beam_size:
         parser.error("nbest should not be larger than beam_size")
-    if opt.quantize_weights:
-        raise NotImplementedError(
-            "-quantize_weights is not ported yet (ROADMAP.md queue 1, "
-            "'Augmentation and int8 serving')")
-    if opt.nlm_model_dir:
-        raise NotImplementedError(
-            "-nlm_model_dir is not ported yet (ROADMAP.md queue 1, "
-            "'Neural LM and fusion')")
-
     device = resolve_device(opt.device)
     disable_tf32()
     t0 = time.perf_counter()
@@ -69,6 +66,12 @@ def main(argv=None, *, timings=None):
     loader = make_batch_loader(opt.read_data_dir, vocab, opt.batch_size,
                                mode="all", shuffle=False,
                                num_buckets=opt.num_buckets)
+    fusion = None
+    if opt.nlm_model_dir:
+        lm_params, lm_cfg, _ = load_nlm(opt.nlm_model_dir, device=device)
+        fusion = (lm_params, lm_cfg, opt.lm_weight)
+        info("shallow fusion: %s at weight %.2f", opt.nlm_model_dir,
+             opt.lm_weight)
     if timings is not None:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
@@ -78,6 +81,7 @@ def main(argv=None, *, timings=None):
         beam_size=opt.beam_size, nbest=opt.nbest,
         max_token_seq_len=opt.max_token_seq_len,
         save_result_file=opt.save_result_file, device=device,
+        quantize_weights=opt.quantize_weights, fusion=fusion,
         timings=timings,
     )
     return 0

@@ -5,9 +5,10 @@ output dims come from the data (``src_dim`` from the first scp matrix, the
 vocabulary size from the vocab file), the frozen LDA affine from
 ``lda.mat`` (or identity), hyperparameters from the flags with the TIMIT
 defaults.  Weights are drawn on the CPU from ``torch.Generator`` seeded by
-``-seed`` and saved in the JAX package's checkpoint layout.  The ``tdnn``,
-``banded`` and ``conformer`` encoder families are ported; the conformer's
-residual stream is float32 or bfloat16 (``-conformer_stream_dtype``).
+``-seed`` and saved in the JAX package's checkpoint layout.  Every encoder
+family of the JAX package is offered (``tdnn``, ``banded``, ``blstm``,
+``conformer``, ``tdnnf``); the conformer's residual stream is float32 or
+bfloat16 (``-conformer_stream_dtype``).
 """
 
 import argparse
@@ -88,8 +89,8 @@ def main(argv=None):
     parser.add_argument("-encoder_type", default="tdnn",
                         choices=["tdnn", "banded", "blstm", "conformer",
                                  "tdnnf"],
-                        help="encoder family (models/encoders.py); tdnn, "
-                             "banded and conformer are ported")
+                        help="encoder family (models/transformer.py, "
+                             "models/encoders.py)")
     parser.add_argument("-conformer_stream_dtype", default="float32",
                         choices=["float32", "bfloat16"],
                         help="Conformer residual-stream dtype (the "

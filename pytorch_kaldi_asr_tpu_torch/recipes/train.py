@@ -9,7 +9,8 @@ PREEMPT_EXIT_CODE (75) after a preemption.  ``-use_gpu`` is accepted for
 recipe compatibility.  ``-train_archive_dir`` streams the training set from
 pre-packed archives (recipes.generate_archive) with the archives' own
 epoch shuffling, seeded by ``-seed`` (the JAX CLI leaves that loader at
-seed 0; the two agree at the default seed)."""
+seed 0; the two agree at the default seed).  ``-specaugment`` masks the
+features inside every train step (ops/specaugment.py)."""
 
 import argparse
 import os
@@ -59,16 +60,14 @@ def main(argv=None):
     parser.add_argument("-use_gpu", action="store_true",
                         help="accepted for recipe compatibility")
     parser.add_argument("-specaugment", action="store_true",
-                        help="SpecAugment masking in the train step (not "
-                             "ported yet)")
+                        help="SpecAugment masking inside the train step "
+                             "(ops/specaugment.py defaults; off by "
+                             "default, as the reference has no feature "
+                             "augmentation)")
     parser.add_argument("-device", default="cuda",
                         help="cuda (default), cuda:N or cpu")
     opt = parser.parse_args(argv)
 
-    if opt.specaugment:
-        raise NotImplementedError(
-            "-specaugment is not ported yet (ROADMAP.md queue 1, "
-            "'Augmentation and int8 serving')")
     device = resolve_device(opt.device)
     disable_tf32()
 
@@ -110,6 +109,7 @@ def main(argv=None):
         resume=opt.resume,
         metrics_path=os.path.join(opt.save_model_dir, "metrics.jsonl"),
         device=device,
+        specaugment=opt.specaugment,
     )
     if result.preempted:
         procedure("preempted: exiting %d for launcher resubmission"

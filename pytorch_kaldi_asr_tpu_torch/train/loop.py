@@ -56,10 +56,11 @@ def _per_word(totals):
 
 
 def run_train_epoch(state, cfg, loader, device, *, smoothing=False,
-                    stop_flag=None):
+                    specaugment=False, stop_flag=None):
     """One full training pass over ``loader``, updating ``state`` in place;
     returns (loss per word, accuracy).  The metric sums stay on the device
-    until the pass ends.  ``stop_flag`` (a callable) ends the pass after
+    until the pass ends.  ``specaugment`` masks each batch's features in
+    the step.  ``stop_flag`` (a callable) ends the pass after
     the current batch: the preemption hook.  In bfloat16 compute the
     features go to the device as bfloat16, as the JAX package's loop sends
     them: every encoder casts them there first, so the step's numbers are
@@ -72,7 +73,7 @@ def run_train_epoch(state, cfg, loader, device, *, smoothing=False,
         b = to_device(batch, device, src_dtype)
         totals = _sum_metrics(totals, train_step(
             state, cfg, b.src, b.src_mask, b.tgt, b.tgt_mask,
-            smoothing=smoothing))
+            smoothing=smoothing, specaugment=specaugment))
     return _per_word(totals)
 
 
@@ -151,10 +152,12 @@ def _best_so_far(save_model_dir):
 def train_model(params, cfg, train_loader, dev_loader, test_loader,
                 save_model_dir, *, epochs=500, start_lr=0.001,
                 soft_coefficient=25000.0, save_interval=1, smoothing=False,
-                seed=0, resume=False, metrics_path=None, device="cuda"):
+                seed=0, resume=False, metrics_path=None, device="cuda",
+                specaugment=False):
     """Full training driver on ``device``; returns a ``TrainResult``.
 
-    ``resume=True`` continues from the newest epoch.N checkpoint or the
+    ``specaugment`` masks the features in every train step (never in the
+    evaluations).  ``resume=True`` continues from the newest epoch.N checkpoint or the
     newer preempt snapshot: params, Adam state (``opt_state.pt``) and step.
     A checkpoint without ``opt_state.pt`` (one written by the JAX package)
     resumes with fresh Adam moments and the step, so the LR schedule and
@@ -182,7 +185,7 @@ def train_model(params, cfg, train_loader, dev_loader, test_loader,
                       start_lr=start_lr, soft_coefficient=soft_coefficient,
                       save_interval=save_interval, smoothing=smoothing,
                       seed=seed, resume=resume, metrics_path=metrics_path,
-                      device=device)
+                      device=device, specaugment=specaugment)
     finally:
         if installed:
             signal.signal(signal.SIGTERM, previous)
@@ -190,7 +193,7 @@ def train_model(params, cfg, train_loader, dev_loader, test_loader,
 
 def _train(params, cfg, train_loader, dev_loader, test_loader, save_model_dir,
            preempted, *, epochs, start_lr, soft_coefficient, save_interval,
-           smoothing, seed, resume, metrics_path, device):
+           smoothing, seed, resume, metrics_path, device, specaugment):
     opts = dict(start_lr=start_lr, soft_coefficient=soft_coefficient,
                 seed=seed)
     start_epoch = 1
@@ -240,6 +243,7 @@ def _train(params, cfg, train_loader, dev_loader, test_loader, save_model_dir,
         start = time.time()
         loss, accu = run_train_epoch(state, cfg, train_loader, device,
                                      smoothing=smoothing,
+                                     specaugment=specaugment,
                                      stop_flag=lambda: preempted["flag"])
         if preempted["flag"]:
             ppath = os.path.join(save_model_dir, "preempt")

@@ -20,6 +20,7 @@ import torch
 
 from pytorch_kaldi_asr_tpu_torch.models.common import DropoutRngs
 from pytorch_kaldi_asr_tpu_torch.models.transformer import transformer_forward
+from pytorch_kaldi_asr_tpu_torch.ops.specaugment import spec_augment
 from pytorch_kaldi_asr_tpu_torch.train.loss import cross_entropy_loss
 from pytorch_kaldi_asr_tpu_torch.train.optim import (
     hyperbolic_schedule,
@@ -77,10 +78,16 @@ def loss_and_metrics(params, cfg, src, src_mask, tgt, tgt_mask, *,
                               extra_mask=extra_mask)
 
 
-def train_step(state, cfg, src, src_mask, tgt, tgt_mask, *, smoothing=False):
+def train_step(state, cfg, src, src_mask, tgt, tgt_mask, *, smoothing=False,
+               specaugment=False):
     """One update of ``state`` in place.  Returns the step's metrics
-    ({loss, n_correct, n_words}, detached, on the device)."""
+    ({loss, n_correct, n_words}, detached, on the device).  With
+    ``specaugment`` the features are masked first (ops/specaugment.py, the
+    JAX package's defaults), from the step's generator before it draws the
+    dropout seeds."""
     rngs = step_rngs(state.seed, state.step)
+    if specaugment:
+        src = spec_augment(rngs.seeds, src, src_mask)
     loss, n_correct, n_words = loss_and_metrics(
         state.params, cfg, src, src_mask, tgt, tgt_mask, train=True,
         rngs=rngs, smoothing=smoothing)

@@ -148,8 +148,14 @@ def test_port_init_matches_jax_tree_and_distributions():
 
 
 def test_unported_encoder_raises_with_roadmap_item():
+    """Every family of the JAX package is ported (blstm and tdnnf last,
+    tests/test_torch_encoder_zoo.py); a name outside them raises, naming
+    the families there are."""
     for encoder_type in ("blstm", "tdnnf"):
         cfg = pt.TransformerConfig(**dataclasses.asdict(configs()[1]) | {
             "encoder_type": encoder_type})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pt.init_transformer(torch.Generator().manual_seed(0), cfg)
+        pt.init_transformer(torch.Generator().manual_seed(0), cfg)
+    cfg = pt.TransformerConfig(**dataclasses.asdict(configs()[1]) | {
+        "encoder_type": "lstm"})
+    with pytest.raises(ValueError, match="banded.*blstm.*conformer.*tdnnf"):
+        pt.init_transformer(torch.Generator().manual_seed(0), cfg)

@@ -11,11 +11,13 @@
   banded encoder and for a conformer with the recipe's bfloat16 residual
   stream trained with dropout from archives (tests/test_torch_train_slice.py
   runs train and combine so), and for a banded model in bfloat16 compute
-  (set in its config.json) trained with dropout.
+  (set in its config.json) trained with dropout; and a neural LM trained
+  by ``train_nlm``, scoring the n-best (``score_lm``) and fused into an
+  int8 decode.
 - A decoder band that is not causal decodes through the fixed-buffer
   search: the two packages' decode CLIs agree as above.
 - The entry points refuse what they cannot do: no card without
-  ``-device cpu``, and the options not ported yet.
+  ``-device cpu``, whatever the options.
 """
 
 import subprocess
@@ -103,7 +105,9 @@ _NO_JAX = textwrap.dedent("""
                  "recipes.train", "recipes.combine", "utils.metrics",
                  "ops.fused_dropout", "data.archive",
                  "recipes.generate_archive", "models.torch_import",
-                 "decode.lattice"):
+                 "decode.lattice", "models.nlm", "ops.specaugment",
+                 "ops.quant", "decode.fusion", "recipes.train_nlm",
+                 "recipes.score_lm", "lm.ngram", "lm.arpa"):
         assert pkg.__name__ + "." + name in names, name
     importlib.import_module("chip_smoke")
 
@@ -187,11 +191,28 @@ _NO_JAX = textwrap.dedent("""
                  str(trained), "-save_result_file", str(work / "b.txt"),
                  "-max_token_seq_len", "6", "-batch_size", "2",
                  "-beam_size", "3", "-nbest", "2", "-device", "cpu"])
+
+    # the neural LM: trained, scoring the n-best, fused into an int8 decode
+    from pytorch_kaldi_asr_tpu_torch.recipes import score_lm, train_nlm
+    train_nlm.main(["-text", str(work / "text"), *data, "-save_model_dir",
+                    str(work / "nlm"), "-epoch", "1", "-d_model", "8",
+                    "-layers", "1", "-max_len", "8", "-device", "cpu"])
+    score_lm.main(["-decode_file", str(work / "decode.txt"),
+                   "-nlm_model_dir", str(work / "nlm"), *data,
+                   "-save_score_file", str(work / "nlm.score"),
+                   "-device", "cpu"])
+    decode.main(["-read_data_dir", str(work), *data, "-load_model_file",
+                 str(work / "m"), "-save_result_file", str(work / "f.txt"),
+                 "-max_token_seq_len", "6", "-batch_size", "2",
+                 "-beam_size", "3", "-nbest", "2", "-device", "cpu",
+                 "-nlm_model_dir", str(work / "nlm"), "-quantize_weights"])
     assert not BLOCKED & set(m.split(".")[0] for m in sys.modules)
     print("modules", len(names), "lines",
           len((work / "decode.txt").read_text().splitlines()),
           "conformer", len((work / "c.txt").read_text().splitlines()),
-          "bf16", len((work / "b.txt").read_text().splitlines()))
+          "bf16", len((work / "b.txt").read_text().splitlines()),
+          "scores", len((work / "nlm.score").read_text().splitlines()),
+          "fused", len((work / "f.txt").read_text().splitlines()))
 """)
 
 
@@ -201,8 +222,9 @@ def test_port_runs_with_jax_blocked(tmp_path):
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     last = proc.stdout.strip().splitlines()[-1].split()
-    assert last[0] == "modules" and int(last[1]) >= 35
-    assert last[2:] == ["lines", "6", "conformer", "6", "bf16", "6"]
+    assert last[0] == "modules" and int(last[1]) >= 43
+    assert last[2:] == ["lines", "6", "conformer", "6", "bf16", "6",
+                        "scores", "6", "fused", "6"]
 
 
 def test_entry_points_refuse_what_they_cannot_do(tmp_path, monkeypatch):
@@ -210,9 +232,12 @@ def test_entry_points_refuse_what_they_cannot_do(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="-device cpu"):
         decode.main(args)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # -quantize_weights and -nlm_model_dir are ported (tests/test_torch_
+    # quant.py, tests/test_torch_fusion.py): on the card, or on the CPU
+    # when asked, as every other flag
+    with pytest.raises(RuntimeError, match="-device cpu"):
         decode.main(args + ["-quantize_weights"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="-device cpu"):
         decode.main(args + ["-nlm_model_dir", str(tmp_path)])
     # compute_dtype is float32 or bfloat16 (tests/test_torch_bf16_compute.py)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
