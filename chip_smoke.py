@@ -90,10 +90,30 @@ CUDA card: ``python3 chip_smoke.py`` from the root of a checkout.
    0.5, with ``-quantize_weights`` and with both (``run_lm_decodes``: each's
    CPU cross-check, RTF, split, K1 launches, peak memory; the float32 and
    int8 trees' parameter bytes).
-10. Prints the ``kernels`` JSON line (K1, K2a-c on both dtypes, K3 on both),
+10. The recipe phase (``recipe_phase``): the port's fbank CLI on 16 seeded
+   WAVs of 1.5-5 s, log-mel and MFCC, on the card (twice) and on the CPU,
+   card within FBANK_ATOL of the CPU, with each run's seconds of audio per
+   second (``run_fbank``); run.sh's default encoder, the float32 ``tdnn``,
+   decoded as in 4 with its encoder output held against the CPU's
+   (``TIMIT_TDNN``, ENCODER_RTOL); then the TIMIT port recipe,
+   ``recipes/attention-transformer-timit-cuda/run.sh``, stages 0-5 on the
+   card with the banded encoder, ``cmvn=true``, ``nlm_rescore=true`` and 2
+   epochs at the recipe's widths on the port's TIMIT-shaped corpus
+   (``run_recipe``): it must exit 0 with ``%WER`` reports in both scoring
+   dirs of dev and test, its CLIs logging ``cuda`` and their launches
+   (K2a-c exactly en_layers x steps), and its first dev decode batch
+   decoded again on the CPU from its combined checkpoint must agree
+   (compare_nbest).  Prints each stage's wall seconds, the processes and
+   the share of the wall time their start-ups take, the decode's RTF and
+   the epochs' wall time.  The recipe's launches, read from its logs, join
+   the kernels line's counts.
+11. Prints the ``kernels`` JSON line (K1, K2a-c on both dtypes, K3 on both),
    the card line, and as the last line ``{"ok": true, "device": {...}}``.
    Any failure raises: the script then exits non-zero without the last
    line.
+
+``python3 chip_smoke.py --recipe`` runs the kernel builds and the recipe
+phase (10) alone.
 
 ``python3 chip_smoke.py --train-step TREE [CORPUS]`` runs only the train
 step of CORPUS's model (timit, the default; librispeech, the conformer at
@@ -146,6 +166,8 @@ import contextlib
 import hashlib
 import json
 import math
+import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -346,8 +368,6 @@ PROFILE_NAMES = {
 }
 # the encoder families whose self-attention runs K1 and K2
 ATTENDING = ("banded", "conformer")
-ATTENTION_WRAPPERS = ("banded_attention", "banded_attention_fwd",
-                      "banded_attention_dq", "banded_attention_dkv")
 
 
 def card_line():
@@ -359,27 +379,16 @@ def card_line():
 
 
 def launch_counts():
-    """Every kernel wrapper's launch count, by name."""
-    from pytorch_kaldi_asr_tpu_torch.ops import banded_attention as ba
-    from pytorch_kaldi_asr_tpu_torch.ops import fused_dropout as fd
+    """Every kernel wrapper's launch count, by name (ops/launches.py)."""
+    from pytorch_kaldi_asr_tpu_torch.ops.launches import launch_counts
 
-    counts = {}
-    for name in ATTENTION_WRAPPERS:
-        fn = getattr(ba, name)
-        counts.update({name: fn.launches, f"{name}_bf16": fn.launches_bf16})
-    counts.update({f"fused_dropout_{k}": v
-                   for k, v in fd.fused_dropout.launches.items()})
-    return counts
+    return launch_counts()
 
 
 def reset_launch_counts():
-    from pytorch_kaldi_asr_tpu_torch.ops import banded_attention as ba
-    from pytorch_kaldi_asr_tpu_torch.ops import fused_dropout as fd
+    from pytorch_kaldi_asr_tpu_torch.ops.launches import reset_launch_counts
 
-    for name in ATTENTION_WRAPPERS:
-        getattr(ba, name).launches = getattr(ba, name).launches_bf16 = 0
-    for key in fd.fused_dropout.launches:
-        fd.fused_dropout.launches[key] = 0
+    reset_launch_counts()
 
 
 def dropout_sites(cfg):
@@ -1680,6 +1689,13 @@ def run_slice(torch, corpus=TIMIT, device="cuda", model_args=None):
                 gpu, cpu, read_nbest(work / "decode_cpu_f32.txt"))
         else:
             score_err = compare_nbest(gpu, cpu)
+    encoder = None
+    if corpus.get("check_encoder"):
+        err, largest = encoder_card_vs_cpu(torch, model, data, spec, device)
+        encoder = {"max_abs_err": err, "max_abs": largest}
+        if err > ENCODER_RTOL * largest:
+            raise AssertionError(f"{corpus['name']}: encoder output, card "
+                                 f"vs CPU: {encoder}")
     cpu_s = time.perf_counter() - t0
 
     audio_s = frames * 0.010
@@ -1694,6 +1710,7 @@ def run_slice(torch, corpus=TIMIT, device="cuda", model_args=None):
         "cpu_first_batch_s": cpu_s, "cpu_vs_card_max_score_err": score_err,
         "cpu_bf16_vs_f32_max_score_diff": bf16_error,
         "bf16_compute_decode_check": check,
+        "encoder_card_vs_cpu": encoder,
     }
 
 
@@ -2228,6 +2245,8 @@ def run_train(torch, corpus=TIMIT, device="cuda", model_args=None, utts=None,
                   "-device", device])
     sync()
     launches = launch_counts()
+    phase_s = {"train_cli": train_s,
+               "combine_cli": time.perf_counter() - t0 - train_s}
 
     records = [json.loads(x) for x in open(exp / "metrics.jsonl")]
     if len(records) != epochs:
@@ -2254,6 +2273,7 @@ def run_train(torch, corpus=TIMIT, device="cuda", model_args=None, utts=None,
         loader = make_batch_loader(str(dirs["train"]), read_vocab(str(vocab)),
                                    batch, mode="drop")
     first = next(iter(loader))
+    t0 = time.perf_counter()
     rows = spec["cpu_rows"] or batch
     rows_of_first = type(first)(*(x[:rows] for x in first))
     cfg = ckpt["cfg"]
@@ -2270,7 +2290,10 @@ def run_train(torch, corpus=TIMIT, device="cuda", model_args=None, utts=None,
           f"{', SpecAugment on' if specaugment else ''}, {device} vs "
           f"cpu: " + json.dumps(check))
 
+    phase_s["card_vs_cpu_step"] = time.perf_counter() - t0
+
     # the train step's time at the recipe's dropout, on one full batch
+    t0 = time.perf_counter()
     state = create_train_state(tree_map(
         lambda t: t.detach().to(device, copy=True), ckpt["params"]))
     b = to_device(first, device)
@@ -2284,10 +2307,13 @@ def run_train(torch, corpus=TIMIT, device="cuda", model_args=None, utts=None,
     [step_ms] = time_steps(step, sync, n_steps=spec.get("timed_steps", 10))
     peak_gb = (torch.cuda.max_memory_allocated() / 1e9 if device == "cuda"
                else None)
+    phase_s["timed_steps"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     profile = (profile_steps(torch, step, n=spec.get("profiled_steps", 3))
                if device == "cuda" else None)
     if profile is not None:
         check_profile_kernels(profile, cfg)
+    phase_s["profile"] = time.perf_counter() - t0
     batch_frames = int(first.src_mask.sum())
     return {
         "corpus": corpus["name"], "utterances": utts, "frames": frames,
@@ -2303,6 +2329,7 @@ def run_train(torch, corpus=TIMIT, device="cuda", model_args=None, utts=None,
         "frames_per_s": batch_frames / step_ms * 1e3,
         "peak_memory_gb": peak_gb, "card_vs_cpu_rows": rows,
         "card_vs_cpu_step": check, "step_profile": profile,
+        "phase_s": phase_s,
     }
 
 
@@ -3238,6 +3265,325 @@ def bf16_compute_gate_readings(torch, device="cuda"):
     return readings
 
 
+# ---------------------------------------------------------------------------
+# the recipe phase: fbank on the card, the float32 tdnn decode, and the
+# TIMIT port recipe's run.sh end to end
+# ---------------------------------------------------------------------------
+
+# 16 seeded WAVs of 1.5-5 s at 16 kHz through the fbank CLI
+FBANK = {"utts": 16, "seconds": (1.5, 5.0), "rate": 16000}
+# card vs CPU: the CPU-vs-JAX limits of tests/test_torch_fbank.py
+FBANK_ATOL = {"fbank": 1e-4, "mfcc": 5e-4}
+# the float32 tdnn decode's encoder output, card vs CPU, over its largest
+# entry (the decode's n-best at CPU_SCORE_ATOL, as every float32 decode)
+ENCODER_RTOL = 1e-4
+# run.sh's default encoder (the tdnn), float32, at the TIMIT widths
+TIMIT_TDNN = dict(TIMIT, name="timit_tdnn",
+                  model=[x if x != "banded" else "tdnn"
+                         for x in RECIPE_MODEL], check_encoder=True)
+RECIPE_SH = "recipes/attention-transformer-timit-cuda/run.sh"
+# its knobs, the rest at run.sh's defaults (3 + 3 layers, 2 heads, d_model
+# 256/128, d_k = d_v = 64, dropout 0.35, band (-100, 0), batch_size 100,
+# beam_size 25, nbest 10, decode_batch 8, max_token_seq_len 100)
+RECIPE_KNOBS = {"device": "cuda", "encoder_type": "banded", "cmvn": "true",
+                "nlm_rescore": "true", "nlm_epochs": "2", "epochs": "2",
+                "model_dir": "exp/model"}
+# run.sh's decode knobs at their defaults, for the CPU cross-check
+RECIPE_DECODE = {"decode_batch": "8", "beam_size": "25", "nbest": "10",
+                 "max_token_seq_len": "100"}
+# make_timit_shaped's -scale: 369/38/19 utterances (TIMIT's 3696/384/192)
+RECIPE_SCALE = "0.1"
+# the lines run.sh echoes as each stage starts
+STAGE_LINES = {"0": "[PROCEDURE] preparing instances.",
+               "1": "[PROCEDURE] preparing vocabulary for output label",
+               "2": "[PROCEDURE] preparing language model (arpa).",
+               "3": "[PROCEDURE] reading dimension from data file and "
+                    "initialize the model",
+               "4": "[PROCEDURE] trainning start... log is in train.log",
+               "5": "[PROCEDURE] decoding dev set..."}
+def run_fbank(torch, device="cuda"):
+    """The port's fbank CLI (``tools.fbank``) on FBANK's seeded WAVs, log-mel
+    and MFCC, on ``device`` twice (the first call sets up cuFFT) and on the
+    CPU: the device within FBANK_ATOL of the CPU, and the seconds of audio
+    per wall second of each run."""
+    import numpy as np
+
+    from pytorch_kaldi_asr_tpu_torch.io import kaldi_io
+    from pytorch_kaldi_asr_tpu_torch.tools import fbank, wav
+
+    work = WORK / "fbank"
+    if work.exists():
+        shutil.rmtree(work)
+    work.mkdir(parents=True)
+    rng = np.random.default_rng(SEED)
+    audio_s, lines = 0.0, []
+    for u in range(FBANK["utts"]):
+        n = int(FBANK["rate"] * rng.uniform(*FBANK["seconds"]))
+        x = rng.normal(scale=rng.uniform(100, 3000), size=n)
+        if u == 0:
+            x[: n // 3] = 0.0  # digital silence: the log's floor
+        wav.write_wav(str(work / f"u{u:02d}.wav"), x, FBANK["rate"])
+        lines.append(f"u{u:02d} {work / f'u{u:02d}.wav'}\n")
+        audio_s += n / FBANK["rate"]
+    (work / "wav.scp").write_text("".join(lines))
+    out = {"utterances": FBANK["utts"], "audio_s": audio_s}
+    for kind in ("fbank", "mfcc"):
+        feats, rates = {}, {}
+        for run in (f"{device}_1", f"{device}_2", "cpu"):
+            target = work / f"{kind}_{run}"
+            t0 = time.perf_counter()
+            fbank.main([*(["--mfcc"] if kind == "mfcc" else []),
+                        f"--device={run.split('_')[0]}",
+                        f"scp:{work / 'wav.scp'}",
+                        f"ark,scp:{target}.ark,{target}.scp"])
+            rates[run] = audio_s / (time.perf_counter() - t0)
+            feats[run] = dict(kaldi_io.read_mat_scp(f"{target}.scp"))
+        err = max(float(np.abs(feats[f"{device}_2"][k] - feats["cpu"][k])
+                        .max()) for k in feats["cpu"])
+        again = max(float(np.abs(feats[f"{device}_2"][k]
+                                 - feats[f"{device}_1"][k]).max())
+                    for k in feats["cpu"])
+        if err > FBANK_ATOL[kind] or again:
+            raise AssertionError(f"fbank --{kind}: card vs CPU {err} "
+                                 f"(limit {FBANK_ATOL[kind]}), card vs card "
+                                 f"{again}")
+        out[kind] = {"max_abs_err": err, "audio_s_per_s": rates,
+                     "frames": sum(m.shape[0] for m in feats["cpu"].values())}
+    return out
+
+
+def encoder_card_vs_cpu(torch, model, data, spec, device="cuda"):
+    """The first decode batch's float32 encoder output on ``device`` and on
+    the CPU, over the valid frames: (largest |card - CPU|, largest
+    |CPU|)."""
+    from pytorch_kaldi_asr_tpu_torch.data import read_vocab
+    from pytorch_kaldi_asr_tpu_torch.data.loader import make_batch_loader, to_device
+    from pytorch_kaldi_asr_tpu_torch.models.transformer import encode, tree_map
+    from pytorch_kaldi_asr_tpu_torch.train import load_checkpoint
+
+    ckpt = load_checkpoint(str(model))
+    params, cfg = ckpt["params"], ckpt["cfg"]
+    loader = make_batch_loader(str(data), read_vocab(str(data / "vocab.txt")),
+                               spec["batch"], mode="all", shuffle=False,
+                               num_buckets=spec["buckets"])
+    first = next(iter(loader))
+    b_dev, b_cpu = to_device(first, device), to_device(first, "cpu")
+    with torch.no_grad():
+        enc_dev, _ = encode(tree_map(lambda t: t.to(device), params), cfg,
+                            b_dev.src, b_dev.src_mask)
+        enc_cpu, mask = encode(params, cfg, b_cpu.src, b_cpu.src_mask)
+    keep = (mask > 0) & (b_cpu.valid[:, None] > 0)
+    card, cpu = enc_dev.cpu()[keep], enc_cpu[keep]
+    return float((card - cpu).abs().max()), float(cpu.abs().max())
+
+
+def _trace_commands(trace):
+    """(start time, command) of each command in a ``bash -x`` trace whose
+    PS4 prints the time (``run_recipe``'s ``ps4.sh``)."""
+    out = []
+    for line in trace.splitlines():
+        m = re.match(r"\++ ([0-9]+\.[0-9]+) (.*)", line)
+        if m:
+            out.append((float(m.group(1)), m.group(2)))
+    return out
+
+
+def recipe_processes(trace, end):
+    """The Python processes of a traced run.sh: for each CLI module (the
+    last ``-m`` of a command: a launcher's command names its job), the
+    number of processes and their wall seconds (each command's start to
+    the next command's)."""
+    commands = _trace_commands(trace)
+    procs = {}
+    for i, (t, cmd) in enumerate(commands):
+        if not cmd.startswith("python3 "):
+            continue
+        modules = re.findall(r"-m (\S+)", cmd)
+        t_next = commands[i + 1][0] if i + 1 < len(commands) else end
+        for n, module in enumerate(modules):
+            row = procs.setdefault(module.rsplit(".", 1)[-1],
+                                   {"processes": 0, "wall_s": 0.0})
+            row["processes"] += 1
+            if n == len(modules) - 1:  # the job's wall, not its launcher's
+                row["wall_s"] += t_next - t
+    return procs
+
+
+def recipe_startups(texts):
+    """The start-up seconds the recipe's CLIs logged (``log_startup``:
+    interpreter start to ``main()``), by CLI: processes and seconds."""
+    from pytorch_kaldi_asr_tpu_torch.utils.logging import STARTUP_RE
+
+    out = {}
+    for text in texts:
+        for name, seconds in re.findall(STARTUP_RE, text):
+            row = out.setdefault(name, {"processes": 0, "seconds": 0.0})
+            row["processes"] += 1
+            row["seconds"] += float(seconds)
+    return out
+
+
+def recipe_launches(texts):
+    """The kernel launches the recipe's CLIs logged (ops/launches.py), by
+    kernel, and the devices they ran on."""
+    from pytorch_kaldi_asr_tpu_torch.ops.launches import LOG_RE
+
+    total, devices = {}, set()
+    for text in texts:
+        for device, counts in re.findall(LOG_RE, text):
+            devices.add(device)
+            for name, n in json.loads(counts).items():
+                total[name] = total.get(name, 0) + n
+    return total, devices
+
+
+def run_recipe(torch, device="cuda", knobs=None, scale=RECIPE_SCALE):
+    """The TIMIT port recipe's run.sh, stages 0-5, on a TIMIT-shaped corpus
+    (the port's make_timit_shaped at ``scale``), with RECIPE_KNOBS (or
+    ``knobs``) on ``device``; then the first decode batch of the dev set
+    again on the CPU from the recipe's combined checkpoint, held against
+    the recipe's decode.txt (compare_nbest).  Fails unless run.sh exits 0,
+    the dev and test scoring/ and scoring_nlm/ hold %WER reports and
+    result.txt a %WER line, and the train and decode logs show ``device``.
+    Returns the wall seconds of each stage, the processes, the start-up
+    share, the decode's RTF, the launches and the checks."""
+    from pytorch_kaldi_asr_tpu_torch.data import read_vocab
+    from pytorch_kaldi_asr_tpu_torch.data.loader import make_batch_loader
+    from pytorch_kaldi_asr_tpu_torch.io import kaldi_io
+    from pytorch_kaldi_asr_tpu_torch.recipes import decode
+    from pytorch_kaldi_asr_tpu_torch.tools import make_timit_shaped
+
+    knobs = dict(RECIPE_KNOBS, device=device, **(knobs or {}))
+    work = WORK / "recipe"
+    if work.exists():
+        shutil.rmtree(work)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    make_timit_shaped.main(["-out_dir", str(work), "-scale", scale])
+    corpus_s = time.perf_counter() - t0
+    (work / "ps4.sh").write_text("PS4='+ $(date +%s.%N) '\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO), PYTHONUNBUFFERED="1",
+               BASH_ENV=str(work / "ps4.sh"), **knobs)
+    stage_t, lines = {}, []
+    t_start = time.time()
+    with open(work / "trace.log", "w") as trace:
+        proc = subprocess.Popen(["bash", "-x", str(REPO / RECIPE_SH)],
+                                cwd=str(work), env=env, text=True,
+                                stdout=subprocess.PIPE, stderr=trace)
+        for line in proc.stdout:
+            lines.append(line)
+            for stage, opening in STAGE_LINES.items():
+                if line.startswith(opening) and stage not in stage_t:
+                    stage_t[stage] = time.time()
+        code = proc.wait()
+    t_end = time.time()
+    stdout = "".join(lines)
+    (work / "run.log").write_text(stdout)
+    if code != 0:
+        raise AssertionError(f"{RECIPE_SH} exited {code}: "
+                             + stdout[-2000:]
+                             + (work / "trace.log").read_text()[-2000:])
+    marks = [stage_t[s] for s in sorted(stage_t)] + [t_end]
+    stages_s = {s: b - a for s, a, b in zip(sorted(stage_t), marks,
+                                            marks[1:])}
+    if sorted(stages_s) != list(STAGE_LINES):
+        raise AssertionError(f"stages seen: {sorted(stages_s)}")
+
+    model_dir = work / knobs["model_dir"]
+    results = {}
+    for split in ("dev", "test"):
+        decode_dir = model_dir / f"decode_{split}"
+        for scoring in ("scoring", "scoring_nlm"):
+            reports = list((decode_dir / scoring).glob("*_wer"))
+            if not reports or not all("%WER" in r.read_text()
+                                      for r in reports):
+                raise AssertionError(f"{decode_dir / scoring}: no %WER")
+        result = (decode_dir / "result.txt").read_text()
+        if "%WER" not in result:
+            raise AssertionError(f"{decode_dir}/result.txt: {result!r}")
+        results[split] = result.strip().splitlines()[-1]
+    logs = {"train": (model_dir / "train.log").read_text(),
+            **{f"decode_{s}": (model_dir / f"decode_{s}" / "decode.log")
+               .read_text() for s in ("dev", "test")}}
+    for name, log in logs.items():
+        if f"kernel launches on {device}" not in log:
+            raise AssertionError(f"the {name} log shows no {device} run")
+    launches, devices = recipe_launches([stdout, *logs.values()])
+    if devices != {device}:
+        raise AssertionError(f"the recipe's CLIs ran on {devices}")
+    metrics = [json.loads(line) for line in
+               open(model_dir / "metrics.jsonl")]
+    en_layers = int(knobs.get("en_layers", 3))
+    if device.startswith("cuda") and not (
+            all(launches[f"banded_attention_{k}"]
+                == en_layers * metrics[-1]["step"]
+                for k in ("fwd", "dq", "dkv"))
+            and launches["banded_attention"] > 0
+            and launches["fused_dropout_forward"] > 0
+            and launches["fused_dropout_backward"] > 0):
+        raise AssertionError(f"the recipe's kernel launches: {launches}; "
+                             f"K2a-c expected {en_layers} x "
+                             f"{metrics[-1]['step']} steps")
+
+    # the first decode batch of dev again, on the CPU
+    data = work / "data" / "dev_filtered"
+    vocab = work / "data" / "language" / "vocab.txt"
+    model = sorted(model_dir.glob("combined*"))[-1]
+    flags = {k: knobs.get(k, v) for k, v in RECIPE_DECODE.items()}
+    loader = make_batch_loader(str(data), read_vocab(str(vocab)),
+                               int(flags["decode_batch"]), mode="all",
+                               shuffle=False, num_buckets=4)
+    first = next(iter(loader))
+    keys = [key for key, ok in zip(first.keys, first.valid) if ok]
+    sub = work / "dev_first_batch"
+    sub.mkdir()
+    scp = dict(kaldi_io.scp_entries(str(data / "feats.scp")))
+    (sub / "feats.scp").write_text("".join(f"{k} {scp[k]}\n" for k in keys))
+    (sub / "text").write_text("".join(
+        line for line in open(data / "text") if line.split()[0] in keys))
+    t0 = time.perf_counter()
+    decode.main(["-read_data_dir", str(sub), "-read_vocab_file", str(vocab),
+                 "-load_model_file", str(model), "-save_result_file",
+                 str(work / "decode_cpu.txt"), "-device", "cpu",
+                 "-max_token_seq_len", flags["max_token_seq_len"],
+                 "-batch_size", flags["decode_batch"],
+                 "-beam_size", flags["beam_size"], "-nbest", flags["nbest"]])
+    cpu_s = time.perf_counter() - t0
+    score_err = compare_nbest(read_nbest(model_dir / "decode_dev"
+                                         / "decode.txt"),
+                              read_nbest(work / "decode_cpu.txt"))
+
+    end = t_end - t_start
+    trace = (work / "trace.log").read_text()
+    procs = recipe_processes(trace, t_end)
+    startup = recipe_startups([trace, *logs.values()])
+    startup_total = sum(row["seconds"] for row in startup.values())
+    frames = {split: sum(kaldi_io.read_key_value_text(
+        str(work / "data" / f"{split}_filtered" / "feats.length"),
+        int).get(k, 0) for k in kaldi_io.read_key_value_text(
+            str(work / "data" / f"{split}_filtered" / "text")))
+        for split in ("dev", "test")}
+    decode_s = procs["decode"]["wall_s"]
+    epoch_s = ([b["ts"] - a["ts"] for a, b in zip(metrics, metrics[1:])]
+               if len(metrics) > 1 else [])
+    return {
+        "knobs": knobs, "scale": scale, "corpus_s": corpus_s,
+        "utterances": {split: len((work / "data" / split / "text")
+                                  .read_text().splitlines())
+                       for split in ("train", "dev", "test")},
+        "wall_s": end, "stages_s": stages_s, "processes": procs,
+        "n_processes": sum(r["processes"] for r in procs.values()),
+        "startup_s": startup, "startup_total_s": startup_total,
+        "startup_processes": sum(r["processes"] for r in startup.values()),
+        "startup_share": startup_total / end,
+        "decode_s": decode_s,
+        "decode_rtf": decode_s / (0.010 * sum(frames.values())),
+        "epoch_wall_s": epoch_s, "train_steps": metrics[-1]["step"],
+        "results": results, "launches": launches,
+        "cpu_first_batch_s": cpu_s, "cpu_vs_card_max_score_err": score_err,
+    }
+
+
 def check_train_launches(training):
     """K2a-c at exactly en_layers x steps on the compute dtype (none on the
     other), K3 at exactly (dropout sites) x steps each way for each dtype,
@@ -3315,6 +3661,7 @@ def main():
     spliced = sys.argv[1:2] == ["--spliced-precision"]
     bf16_gates = sys.argv[1:2] == ["--bf16-gates"]
     bf16_compute_gates = sys.argv[1:2] == ["--bf16-compute-gates"]
+    recipe_only = sys.argv[1:2] == ["--recipe"]
     sources = ([Path(p).resolve() for p in sys.argv[2:]]
                if sys.argv[1:2] == ["--k2-sources"] else None)
     if sources == []:
@@ -3385,8 +3732,9 @@ def main():
              **train_step_only(torch, corpus)}))
         return 0
 
-    kp = kernel_phase(torch)
-    print(f"kernel phase done at {time.perf_counter() - t_start:.1f} s")
+    if not recipe_only:
+        kp = kernel_phase(torch)
+        print(f"kernel phase done at {time.perf_counter() - t_start:.1f} s")
 
     decodes, trainings = {}, {}
 
@@ -3411,6 +3759,7 @@ def main():
         print(f"{name} decode: " + json.dumps(summary))
         print(f"{name} decode time split (s): "
               + json.dumps(summary["time_split_s"]))
+        print(f"{name} decode done at {time.perf_counter() - t_start:.1f} s")
         decodes[name] = summary
         return summary
 
@@ -3431,8 +3780,27 @@ def main():
         torch.cuda.empty_cache()
         print(f"{name} done at {time.perf_counter() - t_start:.1f} s")
 
+    def recipe_phase():
+        """fbank on the card, the float32 tdnn decode, and the TIMIT port
+        recipe's run.sh, stages 0-5."""
+        phase = {"fbank": run_fbank(torch)}
+        print("fbank: " + json.dumps(phase["fbank"]))
+        decode_path(TIMIT_TDNN)
+        t0 = time.perf_counter()
+        phase["recipe"] = run_recipe(torch)
+        phase["recipe"]["card"] = card
+        print("recipe: " + json.dumps(phase["recipe"]))
+        print(f"recipe phase: {time.perf_counter() - t0:.1f} s, done at "
+              f"{time.perf_counter() - t_start:.1f} s")
+        return phase
+
+    if recipe_only:
+        recipe_phase()
+        return 0
+
     timit = decode_path(TIMIT)
     searches = check_fixed_buffer_search(torch, TIMIT, timit)
+    print(f"fixed-buffer search done at {time.perf_counter() - t_start:.1f} s")
     decode_path(TIMIT_NONCAUSAL)  # the fixed-buffer search through the CLI
     train_path(TIMIT)
     for corpus in (LIBRISPEECH, LIBRISPEECH_BF16):
@@ -3473,10 +3841,13 @@ def main():
               f"share {profile['idle_share']:.3f}; top kernels "
               + json.dumps(profile["top_kernels_ms_per_step"][:5]))
 
+    recipe = recipe_phase()
+
     def total(name, paths):
         return sum(p["launches"][name] for p in paths)
 
-    paths = [*decodes.values(), *trainings.values(), *extra.values()]
+    paths = [*decodes.values(), *trainings.values(), *extra.values(),
+             recipe["recipe"]]
     jax_file = "pytorch_kaldi_asr_tpu/ops/banded_attention.py"
     source = "pytorch_kaldi_asr_tpu_torch/ops/csrc/banded_attention_train.cu"
     kernels = []

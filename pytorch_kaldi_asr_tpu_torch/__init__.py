@@ -7,31 +7,38 @@ an explicit ``device``, explicit ``torch.Generator``s.  It imports neither JAX
 nor anything of the JAX package; what it needs from the JAX-free host modules
 (Kaldi I/O, data loading, constants) it keeps as its own copies.
 
-Ported so far (stages 2-5 of the attention-transformer recipe but its
-n-gram LM's training and the rescoring, and stages 3-5 of the
-conformer-librispeech recipe: initialize, train + combine, decode):
+Ported so far: both recipes' ``run.sh`` end to end, stages 0-5, in
+``recipes/attention-transformer-timit-cuda/`` and
+``recipes/conformer-librispeech-cuda/``:
 
 - ``utils``   constants, logging, metrics logging, a small msgpack codec for
               flax checkpoints.
-- ``io``      Kaldi ark/scp reading (plain, text and CM/CM2/CM3 compressed).
-- ``data``    vocab/text handling, the bucketed batch loader and the
-              ``.npz`` batch archives.
+- ``io``      Kaldi ark/scp reading (plain, text and CM/CM2/CM3 compressed),
+              binary and text ark writing, the table specifiers.
+- ``data``    vocab building and text handling, the bucketed batch loader
+              and the ``.npz`` batch archives.
 - ``models``  the transformer with every encoder family (``tdnn``,
               ``banded``, ``blstm``, ``conformer``, ``tdnnf``), inference
               and training (dropout) branches; the neural LM.
 - ``ops``     hand-written CUDA kernels for Hopper beside their plain
               PyTorch versions: banded attention (the inference kernel; the
               trainable forward and its two backward kernels) and fused
-              dropout; SpecAugment and weight-only int8 in plain PyTorch.
-- ``lm``      the n-gram LM's read side (ARPA files, backoff scoring).
+              dropout, with their launch counts; SpecAugment and
+              weight-only int8 in plain PyTorch.
+- ``lm``      the backoff n-gram LM: training, ARPA files, scoring.
 - ``decode``  the KV-cached and the fixed-buffer beam searches, shallow
               fusion of the neural LM, and the n-best writer.
 - ``train``   loss, Adam with the hyperbolic LR schedule, train state and
               steps, the epoch driver and checkpoint averaging, checkpoints
               in the flax on-disk layout (optimizer state port-native).
-- ``recipes`` the ``initialize_model``, ``generate_archive``, ``train``,
-              ``combine``, ``decode``, ``train_nlm`` and ``score_lm``
-              entry points.
+- ``score``   n-best rescoring, word error rate, best WER.
+- ``parallel`` the job launcher the recipes name as ``$cuda_cmd``.
+- ``tools``   the recipes' host tools (feat-to-len, length filter, CMVN,
+              WER, best WER), fbank/MFCC with the spectra on the device,
+              WAV I/O, the synthetic corpora and the fusion weight sweep.
+- ``recipes`` the ``prepare_vocab``, ``train_lm``, ``initialize_model``,
+              ``generate_archive``, ``train``, ``combine``, ``decode``,
+              ``train_nlm``, ``score_lm`` and ``rescore`` entry points.
 
 Entry points run on ``cuda`` unless the caller asks for ``cpu``; without a
 card they raise rather than fall back.

@@ -1,6 +1,9 @@
 """Text/vocab/label handling (the port's copy of
 ``pytorch_kaldi_asr_tpu.data.instances``).
 
+- ``build_vocab``: deterministic sorted-set vocabulary with the four reserved
+  control ids PAD=0/UNK=1/BOS=2/EOS=3 and a ``min_word_count`` floor;
+  ``save_vocab`` writes it as a ``word index`` table.
 - ``read_vocab``: ``word index`` symbol table → ``{word: id}``.
 - ``apply_vocab``: word→id with UNK fallback.
 - ``add_control_words``: BOS/EOS wrapping.
@@ -35,6 +38,50 @@ def read_instances(instance_file, language="english"):
         max_length,
     )
     return instances
+
+
+def build_vocab(instances, min_word_count=0):
+    """Deterministic vocabulary: control words first, then the sorted unique
+    word set, skipping words with count <= min_word_count."""
+    vocab = sorted(set(word for key in instances for word in instances[key]))
+
+    word2idx = {
+        constants.PAD_WORD: constants.PAD,
+        constants.UNK_WORD: constants.UNK,
+        constants.BOS_WORD: constants.BOS,
+        constants.EOS_WORD: constants.EOS,
+    }
+
+    word_count = {word: 0 for word in vocab}
+    for key in instances:
+        for word in instances[key]:
+            word_count[word] += 1
+
+    ignored = 0
+    # ids in sorted-vocab order
+    for word in vocab:
+        if word not in word2idx:
+            if word_count[word] > min_word_count:
+                word2idx[word] = len(word2idx)
+            else:
+                ignored += 1
+
+    info("get vocab of size %d (with control words).", len(word2idx))
+    if min_word_count > 0:
+        info(
+            "trimmed by min word count %d, %d words is ignored.",
+            min_word_count,
+            ignored,
+        )
+    return word2idx
+
+
+def save_vocab(vocab, vocab_file):
+    """Write a ``word index`` symbol table, one entry per line."""
+    with open(vocab_file, "w", encoding="utf-8") as f:
+        for word, index in vocab.items():
+            f.write(f"{word} {index}\n")
+    info("vocab_file is saved to %s.", vocab_file)
 
 
 def read_vocab(vocab_file):

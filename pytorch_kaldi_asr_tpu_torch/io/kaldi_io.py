@@ -1,8 +1,10 @@
-"""Kaldi binary/text archive (ark) and script (scp) reading, plus a plain
-binary ark writer.
+"""Kaldi binary/text archive (ark) and script (scp) I/O, and the table
+specifiers (``scp:``, ``ark:``, ``ark,t:``, ``ark,scp:``) of the Kaldi CLI
+contract the recipe's tools take.
 
-The port's own copy of the read side of ``pytorch_kaldi_asr_tpu.io.kaldi_io``
-(pure Python; the JAX package's ctypes parser in ``native/`` stays its own).
+The port's own copy of ``pytorch_kaldi_asr_tpu.io.kaldi_io`` without the
+compressed writers and the vectors (pure Python; the JAX package's ctypes
+parser in ``native/`` stays its own).
 
 Supported object types
 ----------------------
@@ -14,8 +16,8 @@ Supported object types
 
 Rxfilename handling follows Kaldi: ``path``, ``path:offset`` (offset points
 at the object header inside an ark), ``-`` (stdin), and trailing-``|``
-command pipes.  :class:`ArkWriter` writes uncompressed binary float
-matrices, with an optional paired scp.
+command pipes.  :class:`ArkWriter` writes uncompressed float matrices,
+binary or text, with an optional paired scp.
 """
 
 from __future__ import annotations
@@ -88,6 +90,20 @@ def open_rx(rxfilename):
 # ---------------------------------------------------------------------------
 # low-level binary readers
 # ---------------------------------------------------------------------------
+
+
+def _read_key(f):
+    """Read a whitespace-terminated token (the utterance key) from an ark."""
+    chars = []
+    while True:
+        c = f.read(1)
+        if not c:  # EOF
+            return None
+        if c in (b" ", b"\t", b"\n"):
+            if chars:
+                return b"".join(chars).decode("utf-8")
+            continue  # skip leading whitespace
+        chars.append(c)
 
 
 def _expect_binary(f):
@@ -266,8 +282,128 @@ def read_mat_scp(scp_rxfilename):
         yield key, read_mat(rxfilename)
 
 
+def read_mat_ark(rxfilename):
+    """Iterate ``(key, matrix)`` over a (binary or text) archive."""
+    f = open_rx(rxfilename)
+    try:
+        while True:
+            key = _read_key(f)
+            if key is None:
+                return
+            is_binary, peeked = _expect_binary(f)
+            if is_binary:
+                yield key, _read_matrix_binary(f)
+            else:
+                # text archives interleave "key [ ... ]" records: read up to
+                # the closing bracket only, and serve the rest first next
+                chunks = [peeked]
+                while b"]" not in chunks[-1]:
+                    c = f.read(4096)
+                    if not c:
+                        break
+                    chunks.append(c)
+                data = b"".join(chunks)
+                end = data.index(b"]") + 1
+                yield key, _read_matrix_text(_io.BytesIO(data[:end]))
+                f = _Concat(data[end:], f)
+    finally:
+        f.close()
+
+
+class _Concat:
+    """Minimal file-like that serves buffered bytes before the wrapped file."""
+
+    def __init__(self, head, f):
+        self._head = head
+        self._f = f
+
+    def read(self, n=-1):
+        if self._head:
+            if n < 0 or n >= len(self._head):
+                out, self._head = self._head, b""
+                if n < 0:
+                    return out + self._f.read()
+                return out + self._f.read(n - len(out))
+            out, self._head = self._head[:n], self._head[n:]
+            return out
+        return self._f.read(n)
+
+    def close(self):
+        self._f.close()
+
+
+def read_key_value_text(path, value_type=str):
+    """Read a ``key value...`` text table (feats.length, utt2spk, text)."""
+    out = {}
+    with open(path, encoding="utf-8") as f:
+        for line in f:
+            parts = line.split()
+            if not parts:
+                continue
+            if value_type is str:
+                # may be empty (an empty decode hypothesis)
+                out[parts[0]] = " ".join(parts[1:])
+            elif len(parts) < 2:
+                raise ValueError(
+                    f"{path}: key {parts[0]!r} has no value (expected "
+                    f"{value_type.__name__})"
+                )
+            else:
+                out[parts[0]] = value_type(parts[1])
+    return out
+
+
+def write_key_value_text(path, table):
+    """Write a ``key value`` text table in key order of the mapping."""
+    with open(path, "w", encoding="utf-8") as f:
+        for key, value in table.items():
+            f.write(f"{key} {value}\n")
+
+
 # ---------------------------------------------------------------------------
-# writer
+# rspecifiers / wspecifiers
+# ---------------------------------------------------------------------------
+
+
+def parse_specifier(spec):
+    """Split 'ark,t:path' → (kind, {options}, path).  kind ∈ {ark, scp}."""
+    head, _, path = spec.partition(":")
+    if not path:
+        raise ValueError(f"not a table specifier: {spec!r}")
+    parts = head.split(",")
+    kind = parts[0]
+    if kind not in ("ark", "scp"):
+        raise ValueError(f"unsupported specifier kind {kind!r} in {spec!r}")
+    return kind, set(parts[1:]), path
+
+
+def read_table(rspecifier):
+    """Iterate (key, matrix) from an rspecifier ('scp:f', 'ark:f')."""
+    kind, _opts, path = parse_specifier(rspecifier)
+    if kind == "scp":
+        return read_mat_scp(path)
+    return read_mat_ark(path)
+
+
+def open_writer(wspecifier):
+    """An :class:`ArkWriter` for a wspecifier: 'ark:f', 'ark,t:f' or
+    'ark,scp:f.ark,f.scp'."""
+    head, _, rest = wspecifier.partition(":")
+    parts = head.split(",")
+    if parts[0] != "ark":
+        raise ValueError(f"unsupported wspecifier {wspecifier!r}")
+    text = "t" in parts[1:]
+    if "scp" in parts[1:]:
+        ark_path, _, scp_path = rest.partition(",")
+        if not scp_path:
+            raise ValueError(
+                f"ark,scp wspecifier needs two paths: {wspecifier!r}")
+        return ArkWriter(ark_path, scp_path, text=text)
+    return ArkWriter(rest, text=text)
+
+
+# ---------------------------------------------------------------------------
+# writers
 # ---------------------------------------------------------------------------
 
 
@@ -286,17 +422,19 @@ def _matrix_binary_bytes(mat):
 
 
 class ArkWriter:
-    """Write a binary archive of uncompressed matrices, optionally with a
-    paired scp (the ``ark,scp:foo.ark,foo.scp`` contract)::
+    """Write an archive of uncompressed matrices, binary or text
+    (``text=True``, the ``ark,t:`` form), optionally with a paired scp (the
+    ``ark,scp:foo.ark,foo.scp`` contract)::
 
         with ArkWriter("feats.ark", "feats.scp") as w:
             w.write("utt1", mat1)
     """
 
-    def __init__(self, ark_path, scp_path=None):
+    def __init__(self, ark_path, scp_path=None, text=False):
         self.ark_path = os.path.abspath(ark_path)
         self._ark = open(ark_path, "wb")
         self._scp = open(scp_path, "w", encoding="utf-8") if scp_path else None
+        self.text = text
 
     def write(self, key, mat):
         mat = np.asarray(mat)
@@ -304,8 +442,13 @@ class ArkWriter:
             raise ValueError("ArkWriter writes 2-D matrices only")
         self._ark.write(key.encode("utf-8") + b" ")
         offset = self._ark.tell()
-        self._ark.write(b"\x00B")
-        self._ark.write(_matrix_binary_bytes(mat))
+        if self.text:
+            lines = "\n  ".join(" ".join(f"{v:g}" for v in row)
+                                for row in mat)
+            self._ark.write(f"[\n  {lines} ]\n".encode("utf-8"))
+        else:
+            self._ark.write(b"\x00B")
+            self._ark.write(_matrix_binary_bytes(mat))
         if self._scp is not None:
             self._scp.write(f"{key} {self.ark_path}:{offset}\n")
 

@@ -1,5 +1,5 @@
-"""ARPA files, read side (the JAX package's ``lm/arpa.py`` without
-``write_arpa``): the recipe's gzipped ``lm.3k.gz`` or a plain file."""
+"""ARPA files (the JAX package's ``lm/arpa.py``): the recipe's gzipped
+``lm.3k.gz`` or a plain file, gzip chosen by the extension."""
 
 from __future__ import annotations
 
@@ -8,10 +8,32 @@ import gzip
 from pytorch_kaldi_asr_tpu_torch.lm.ngram import NgramLM
 
 
-def _open(path):
+def _open(path, mode="r"):
     if path.endswith(".gz"):
-        return gzip.open(path, "rt", encoding="utf-8")
-    return open(path, encoding="utf-8")
+        return gzip.open(path, mode + "t", encoding="utf-8")
+    return open(path, mode, encoding="utf-8")
+
+
+def write_arpa(lm: NgramLM, path):
+    """Serialize to ARPA: \\data\\ header, per-order sections, log10
+    probs, optional trailing backoff weight per line."""
+    by_order = {}
+    for gram in lm.logprob:
+        by_order.setdefault(len(gram), []).append(gram)
+    with _open(path, "w") as f:
+        f.write("\n\\data\\\n")
+        for n in range(1, lm.order + 1):
+            f.write(f"ngram {n}={len(by_order.get(n, []))}\n")
+        for n in range(1, lm.order + 1):
+            f.write(f"\n\\{n}-grams:\n")
+            for gram in sorted(by_order.get(n, [])):
+                lp = lm.logprob[gram]
+                line = f"{lp:.7f}\t{' '.join(gram)}"
+                if n < lm.order and gram in lm.backoff:
+                    line += f"\t{lm.backoff[gram]:.7f}"
+                f.write(line + "\n")
+        f.write("\n\\end\\\n")
+    return path
 
 
 def read_arpa(path):

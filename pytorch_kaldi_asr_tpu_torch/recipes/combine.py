@@ -16,6 +16,7 @@ from pytorch_kaldi_asr_tpu_torch.train import (
     read_checkpoint_config,
 )
 from pytorch_kaldi_asr_tpu_torch.utils.device import disable_tf32, resolve_device
+from pytorch_kaldi_asr_tpu_torch.utils.logging import log_startup
 
 
 def main(argv=None):
@@ -43,4 +44,5 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    log_startup()
     raise SystemExit(main())

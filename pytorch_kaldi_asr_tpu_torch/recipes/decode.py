@@ -22,9 +22,10 @@ from pytorch_kaldi_asr_tpu_torch.data import read_vocab
 from pytorch_kaldi_asr_tpu_torch.data.loader import make_batch_loader
 from pytorch_kaldi_asr_tpu_torch.decode.runner import decode_dataset
 from pytorch_kaldi_asr_tpu_torch.models.nlm import load_nlm
+from pytorch_kaldi_asr_tpu_torch.ops.launches import log_launch_counts
 from pytorch_kaldi_asr_tpu_torch.train import load_checkpoint
 from pytorch_kaldi_asr_tpu_torch.utils.device import disable_tf32, resolve_device
-from pytorch_kaldi_asr_tpu_torch.utils.logging import info
+from pytorch_kaldi_asr_tpu_torch.utils.logging import info, log_startup
 
 
 def main(argv=None, *, timings=None):
@@ -84,8 +85,10 @@ def main(argv=None, *, timings=None):
         quantize_weights=opt.quantize_weights, fusion=fusion,
         timings=timings,
     )
+    log_launch_counts(device)
     return 0
 
 
 if __name__ == "__main__":
+    log_startup()
     raise SystemExit(main())

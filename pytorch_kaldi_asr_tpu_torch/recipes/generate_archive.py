@@ -8,6 +8,7 @@ import argparse
 from pytorch_kaldi_asr_tpu_torch.data import read_vocab
 from pytorch_kaldi_asr_tpu_torch.data.archive import generate_archives
 from pytorch_kaldi_asr_tpu_torch.data.loader import build_triples
+from pytorch_kaldi_asr_tpu_torch.utils.logging import log_startup
 
 
 def main(argv=None):
@@ -28,4 +29,5 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    log_startup()
     raise SystemExit(main())

@@ -22,7 +22,7 @@ from pytorch_kaldi_asr_tpu_torch.models.transformer import (
     init_transformer,
 )
 from pytorch_kaldi_asr_tpu_torch.train import save_checkpoint
-from pytorch_kaldi_asr_tpu_torch.utils.logging import info
+from pytorch_kaldi_asr_tpu_torch.utils.logging import info, log_startup
 
 
 def str2tuple(s):
@@ -121,4 +121,5 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    log_startup()
     raise SystemExit(main())

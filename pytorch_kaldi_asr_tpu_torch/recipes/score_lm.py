@@ -12,8 +12,9 @@ hypothesis's first word, is not reproduced."""
 
 import argparse
 
+from pytorch_kaldi_asr_tpu_torch.ops.launches import log_launch_counts
 from pytorch_kaldi_asr_tpu_torch.utils.device import disable_tf32, resolve_device
-from pytorch_kaldi_asr_tpu_torch.utils.logging import info
+from pytorch_kaldi_asr_tpu_torch.utils.logging import info, log_startup
 
 
 def read_hypotheses(path):
@@ -78,8 +79,10 @@ def main(argv=None):
             fout.write(f"{lp:.4f}\n")
     info("scored %d hypotheses with %s -> %s", len(scores), what,
          opt.save_score_file)
+    log_launch_counts(device)
     return 0
 
 
 if __name__ == "__main__":
+    log_startup()
     raise SystemExit(main())

@@ -18,6 +18,7 @@ import os
 from pytorch_kaldi_asr_tpu_torch.data import read_vocab
 from pytorch_kaldi_asr_tpu_torch.data.archive import ArchiveBatchLoader
 from pytorch_kaldi_asr_tpu_torch.data.loader import make_batch_loader
+from pytorch_kaldi_asr_tpu_torch.ops.launches import log_launch_counts
 from pytorch_kaldi_asr_tpu_torch.train import (
     combine_checkpoints,
     load_checkpoint,
@@ -25,7 +26,7 @@ from pytorch_kaldi_asr_tpu_torch.train import (
 )
 from pytorch_kaldi_asr_tpu_torch.utils.constants import PREEMPT_EXIT_CODE
 from pytorch_kaldi_asr_tpu_torch.utils.device import disable_tf32, resolve_device
-from pytorch_kaldi_asr_tpu_torch.utils.logging import info, procedure
+from pytorch_kaldi_asr_tpu_torch.utils.logging import info, log_startup, procedure
 
 
 def main(argv=None):
@@ -120,8 +121,10 @@ def main(argv=None):
     num_model = 30 if opt.epoch > 30 else opt.epoch
     combine_checkpoints(opt.save_model_dir, result.best_epoch, cfg,
                         dev_loader, num_model=num_model, device=device)
+    log_launch_counts(device)
     return 0
 
 
 if __name__ == "__main__":
+    log_startup()
     raise SystemExit(main())

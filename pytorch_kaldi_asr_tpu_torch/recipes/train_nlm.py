@@ -36,6 +36,7 @@ from pytorch_kaldi_asr_tpu_torch.models.transformer import (
     TransformerConfig,
     tree_map,
 )
+from pytorch_kaldi_asr_tpu_torch.ops.launches import log_launch_counts
 from pytorch_kaldi_asr_tpu_torch.train.checkpoint import save_checkpoint
 from pytorch_kaldi_asr_tpu_torch.train.optim import set_learning_rate
 from pytorch_kaldi_asr_tpu_torch.train.state import (
@@ -43,7 +44,7 @@ from pytorch_kaldi_asr_tpu_torch.train.state import (
     step_rngs,
 )
 from pytorch_kaldi_asr_tpu_torch.utils.device import disable_tf32, resolve_device
-from pytorch_kaldi_asr_tpu_torch.utils.logging import info, procedure
+from pytorch_kaldi_asr_tpu_torch.utils.logging import info, log_startup, procedure
 
 
 def read_sentences(path):
@@ -167,8 +168,10 @@ def main(argv=None):
         layers=opt.layers, n_head=opt.n_head, max_len=opt.max_len,
         dropout=opt.dropout, lr=opt.optim_start_lr, device=device,
     )
+    log_launch_counts(device)
     return 0
 
 
 if __name__ == "__main__":
+    log_startup()
     raise SystemExit(main())

@@ -7,6 +7,7 @@ route through ``logging`` so structured handlers can be attached.
 """
 
 import logging
+import os
 import sys
 import time
 from contextlib import contextmanager
@@ -20,6 +21,10 @@ if not _logger.handlers:
     # own handler only: with propagate=True a configured root logger would
     # emit every [INFO]/[WARNING] line twice
     _logger.propagate = False
+
+
+# the line log_startup writes: the CLI's module and its start-up seconds
+STARTUP_RE = r"\[INFO\] (\S+) started in ([0-9.]+) s"
 
 
 def info(msg, *args):
@@ -44,3 +49,32 @@ def timed(label):
     start = time.time()
     yield
     info("%s: elapse %3.2f min", label, (time.time() - start) / 60.0)
+
+
+def process_seconds():
+    """Wall seconds since this process started, from Linux's ``/proc``
+    (10 ms ticks), or None where that cannot be read."""
+    try:
+        with open("/proc/self/stat") as f:
+            # field 22, starttime, counted after the parenthesised name
+            start = int(f.read().rsplit(")", 1)[1].split()[19])
+        with open("/proc/uptime") as f:
+            uptime = float(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        return None
+    return uptime - start / os.sysconf("SC_CLK_TCK")
+
+
+def log_startup():
+    """``[INFO] <module> started in X s`` on stderr (a CLI's stdout is often
+    its result file): the wall seconds from the process's start to now, the
+    interpreter's start-up and the CLI's imports.  Each CLI calls it in its
+    ``__main__`` block, just before ``main()``; STARTUP_RE reads it back."""
+    seconds = process_seconds()
+    if seconds is None:
+        return
+    spec = getattr(sys.modules["__main__"], "__spec__", None)
+    name = (spec.name.rsplit(".", 1)[-1] if spec
+            else os.path.splitext(os.path.basename(sys.argv[0]))[0])
+    print(f"[INFO] {name} started in {seconds:.2f} s", file=sys.stderr,
+          flush=True)

@@ -107,7 +107,16 @@ _NO_JAX = textwrap.dedent("""
                  "recipes.generate_archive", "models.torch_import",
                  "decode.lattice", "models.nlm", "ops.specaugment",
                  "ops.quant", "decode.fusion", "recipes.train_nlm",
-                 "recipes.score_lm", "lm.ngram", "lm.arpa"):
+                 "recipes.score_lm", "lm.ngram", "lm.arpa",
+                 "tools.feat_to_len", "tools.trim_instance_length",
+                 "tools.cmvn", "tools.compute_cmvn_stats", "tools.wav",
+                 "tools.fbank", "recipes.prepare_vocab", "recipes.train_lm",
+                 "score.rescore", "recipes.rescore", "score.wer",
+                 "tools.compute_wer", "score.best_wer", "tools.best_wer",
+                 "parallel.launch", "tools.make_timit_shaped",
+                 "tools.make_librispeech_shaped",
+                 "tools.make_synthetic_data", "tools.sweep_fusion",
+                 "ops.launches"):
         assert pkg.__name__ + "." + name in names, name
     importlib.import_module("chip_smoke")
 
@@ -206,6 +215,28 @@ _NO_JAX = textwrap.dedent("""
                  "-max_token_seq_len", "6", "-batch_size", "2",
                  "-beam_size", "3", "-nbest", "2", "-device", "cpu",
                  "-nlm_model_dir", str(work / "nlm"), "-quantize_weights"])
+    # the recipes' host tools, stages 0-2 and 5's scoring
+    from pytorch_kaldi_asr_tpu_torch.recipes import (
+        prepare_vocab, rescore, train_lm)
+    from pytorch_kaldi_asr_tpu_torch.tools import (
+        compute_wer, fbank, feat_to_len, wav)
+    wav.write_wav(str(work / "a.wav"), rng.normal(size=4000) * 100, 16000)
+    (work / "wav.scp").write_text(f"a {work / 'a.wav'}\\n")
+    fbank.main(["--device=cpu", f"scp:{work / 'wav.scp'}",
+                f"ark,scp:{work}/fb.ark,{work}/fb.scp"])
+    feat_to_len.main([f"scp:{work}/fb.scp", f"ark,t:{work}/fb.len"])
+    prepare_vocab.main(["-read_instances_file", str(work / "text"),
+                        "-save_vocab_file", str(work / "v.txt")])
+    train_lm.main(["-text", str(work / "text"), "-lm", str(work / "lm.gz")])
+    score_lm.main(["-decode_file", str(work / "decode.txt"), "-lm",
+                   str(work / "lm.gz"), "-save_score_file",
+                   str(work / "lm.score"), "-device", "cpu"])
+    rescore.main(["-decode_file", str(work / "decode.txt"), "-lm_score",
+                  str(work / "lm.score"), "-inv_weight_list", "10,20",
+                  "-save_dir", str(work / "scoring")])
+    compute_wer.main(["--mode=present", f"ark:{work / 'text'}",
+                      f"ark:{work / 'scoring' / 'rescore_10.0'}"])
+    assert (work / "fb.len").read_text().startswith("a 23")
     assert not BLOCKED & set(m.split(".")[0] for m in sys.modules)
     print("modules", len(names), "lines",
           len((work / "decode.txt").read_text().splitlines()),
@@ -222,9 +253,28 @@ def test_port_runs_with_jax_blocked(tmp_path):
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     last = proc.stdout.strip().splitlines()[-1].split()
-    assert last[0] == "modules" and int(last[1]) >= 43
+    assert last[0] == "modules" and int(last[1]) >= 67
+    assert "%WER" in proc.stdout
     assert last[2:] == ["lines", "6", "conformer", "6", "bf16", "6",
                         "scores", "6", "fused", "6"]
+
+
+@pytest.mark.parametrize("recipe", ["attention-transformer-timit-cuda",
+                                    "conformer-librispeech-cuda"])
+def test_port_recipes_call_only_the_port(recipe):
+    """The port's recipes name modules of the port only: every
+    ``pytorch_kaldi_asr_tpu`` in their scripts is followed by ``_torch``."""
+    root = REPO / "recipes" / recipe
+    scripts = sorted(root.rglob("*.sh"))
+    assert [p.name for p in scripts if p.parent == root] == ["path.sh",
+                                                             "run.sh"]
+    called = 0
+    for path in scripts:
+        text = path.read_text()
+        assert "pytorch_kaldi_asr_tpu." not in text, path
+        assert "pytorch_kaldi_asr_tpu " not in text, path
+        called += text.count("pytorch_kaldi_asr_tpu_torch.")
+    assert called >= 12
 
 
 def test_entry_points_refuse_what_they_cannot_do(tmp_path, monkeypatch):
