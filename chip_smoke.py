@@ -107,13 +107,38 @@ CUDA card: ``python3 chip_smoke.py`` from the root of a checkout.
    the share of the wall time their start-ups take, the decode's RTF and
    the epochs' wall time.  The recipe's launches, read from its logs, join
    the kernels line's counts.
-11. Prints the ``kernels`` JSON line (K1, K2a-c on both dtypes, K3 on both),
+11. The hybrid phase (``hybrid_phase``): the long-form recipe,
+   ``recipes/longform-conformer-cuda/run.sh``, stages 0-4 on the card at
+   its defaults (``run_hybrid``: 64/8/8 synthetic utterances of about
+   2,000-3,500 frames, the conformer AM trained by ``train_am``, its
+   posteriors dumped by ``dump_posteriors``, the HLG of ``mkgraph``, the
+   host search of ``latgen``, WER, and ``align_ctm``'s CTM): it must exit
+   0 with a %WER and CTM lines of positive duration for every test
+   utterance, train_am and dump_posteriors logging ``cuda``, K2a-c at
+   exactly en_layers x steps, K3 at exactly the AM's dropout sites x steps
+   each way, K1 launched.  Then card against CPU: one AM train step from
+   the recipe's initial weights on 4 of its utterances
+   (``card_vs_cpu_step``), and from its checkpoint the posteriors (every
+   frame's best class the same, each utterance's best-path cost within
+   HYBRID_COST_ATOL), latgen over both (the same words, costs within
+   HYBRID_COST_ATOL) and the encoder output (ENCODER_RTOL); the CPU's
+   references run beside the recipe.  Prints the stage walls, processes,
+   start-up share, WER, train_am's seconds per step, dump_posteriors',
+   latgen's and align_ctm's seconds per second of audio, and the AM step's
+   time and profile.  K1 and K2a-c at the long-form shape (BH 8, S 3504,
+   band (-100, 50), ragged) are checked among the tile cases and timed in
+   the kernel phase.
+12. Prints the ``kernels`` JSON line (K1, K2a-c on both dtypes, K3 on both),
    the card line, and as the last line ``{"ok": true, "device": {...}}``.
    Any failure raises: the script then exits non-zero without the last
    line.
 
 ``python3 chip_smoke.py --recipe`` runs the kernel builds and the recipe
 phase (10) alone.
+
+``python3 chip_smoke.py --hybrid`` runs the kernel builds, the long-form
+kernel case (K1 and K2a-c against their plain versions and timed at the
+long-form shapes, ``longform_kernels``) and the hybrid phase (11) alone.
 
 ``python3 chip_smoke.py --train-step TREE [CORPUS]`` runs only the train
 step of CORPUS's model (timit, the default; librispeech, the conformer at
@@ -391,7 +416,7 @@ def reset_launch_counts():
     reset_launch_counts()
 
 
-def dropout_sites(cfg):
+def dropout_sites(cfg, decoder=True):
     """K3 launches of one train step, each way, by dtype ({"float32": n,
     "bfloat16": m}), counted from the model code (models/transformer.py,
     models/encoders.py).  The tdnn encoder: after the projection and each
@@ -404,7 +429,8 @@ def dropout_sites(cfg):
     stream's dtype).  The tdnnf: after each layer's ReLU (float32).  The
     blstm: after each layer (float32).  The decoder: its embedding and
     output dropouts (float32), per layer the self- and cross-attention
-    probabilities and outputs and the FFN's output (the compute dtype)."""
+    probabilities and outputs and the FFN's output (the compute dtype);
+    the hybrid AM (``decoder=False``) has none of the decoder's."""
     counts = {"float32": 0, "bfloat16": 0}
     compute = cfg.compute_dtype
 
@@ -426,8 +452,9 @@ def dropout_sites(cfg):
         add(cfg.en_layers, "float32")
     else:
         raise ValueError(f"no site count for {cfg.encoder_type}")
-    add(2, "float32")
-    add(5 * cfg.de_layers, compute)
+    if decoder:
+        add(2, "float32")
+        add(5 * cfg.de_layers, compute)
     return counts
 
 
@@ -469,11 +496,21 @@ def _lengths(torch, corpus, n_utts, heads, s, seed):
     return torch.as_tensor(lens).repeat_interleave(heads)
 
 
+# the long-form recipe's utterances (recipes/longform-conformer-cuda/run.sh:
+# 80-140 words of 23-27 frames), cut at 3,504 frames, about the longest its
+# corpus draws (its train set pads to 3,528, the kernels' tile to 3,584)
+LONGFORM = {"name": "longform", "frames": (1840, 3504)}
+# its train batch's attention at the kernels: 4 utterances x 2 heads, ragged
+# (lengths that end inside a tile, a short one) under band (-100, 50)
+LONGFORM_LENGTHS = [3504, 3504, 3100, 3100, 2411, 2411, 1990, 1990]
+
 # (bh, s, d, band, corpus, utterances, heads) of K1 and K2 at each path
 ATTN_SHAPES = {
     "timit_decode": (16, 504, 64, (-100, 0), TIMIT, 8, 2),
     "conformer_decode": (32, 1600, 64, (-256, 256), LIBRISPEECH, 8, 4),
     "conformer_train": (128, 1600, 64, (-256, 256), LIBRISPEECH, 32, 4),
+    # dump_posteriors' batch: the 8 test utterances x 2 heads
+    "longform_decode": (16, 3504, 64, (-100, 50), LONGFORM, 8, 2),
 }
 
 
@@ -483,7 +520,9 @@ def _tile_cases(torch, scale, bf16=False):
     whole invalid key tiles and dead query tiles, 8-key chunks wholly in
     band beside partial ones, a key mask that is no prefix, dv != d, d a
     multiple of 4 but not of 8 (``bf16``: d 24, which ends inside a 16-deep
-    mma step), and the largest head dims."""
+    mma step), the largest head dims, and the long-form recipe's train
+    batch (S 3504, band (-100, 50), ragged: many dead query tiles and
+    invalid key tiles beside live ones)."""
     odd = ((4, 256, 24, 24, [256, 180, 90, 0], -40, 8, 0.3, "d 24") if bf16
            else (4, 256, 12, 12, [256, 180, 90, 0], -40, 8, 0.3, "d 12"))
     return [
@@ -501,12 +540,16 @@ def _tile_cases(torch, scale, bf16=False):
         (4, 256, 64, 32, [256, 180, 90, 0], -64, 32, scale, "d 64, dv 32"),
         odd,
         (2, 256, 128, 128, [256, 100], -100, 20, scale, "d 128"),
+        (8, 3504, 64, 64, LONGFORM_LENGTHS, -100, 50, scale,
+         "long-form S 3504 band (-100,50)"),
     ]
 
 
-def check_banded_attention(torch, ba):
+def check_banded_attention(torch, ba, cases=None):
     """Kernel vs plain version on the card, at the paths' shapes and at
-    the tile-skip cases; returns the max abs error."""
+    the tile-skip cases (or at ``cases``); returns the max abs error."""
+    if cases is not None:
+        return _check_k1(torch, ba, cases)
     scale = 1.0 / math.sqrt(256.0)
     # (bh, s, d, dv, lengths, start, end, scale, name)
     cases = []
@@ -525,6 +568,10 @@ def check_banded_attention(torch, ba):
         (4, 504, 64, 64, [504, 300, 150, 33], -100, 0, scale, "S=504"),
         *_tile_cases(torch, scale),
     ]
+    return _check_k1(torch, ba, cases)
+
+
+def _check_k1(torch, ba, cases):
     worst = 0.0
     for bh, s, d, dv, lengths, start, end, sc, name in cases:
         q, k, v, valid = _attention_inputs(torch, bh, s, d, dv, lengths,
@@ -662,15 +709,15 @@ def _grads(fn, q, k, v, dout):
     return out.detach(), q.grad, k.grad, v.grad
 
 
-def check_trainable_attention(torch, ba):
+def check_trainable_attention(torch, ba, cases=None):
     """K2a/K2b/K2c through the autograd function vs autograd of the plain
     trainable version on the card, at dropout 0 and 0.35, at the paths'
     shapes and at the cases that reach each skip of the kernels' tiling
-    (``_tile_cases``).  Returns the max abs error per kernel: K2a out and
-    lse, K2b dq, K2c dk and dv."""
+    (``_tile_cases``), or at ``cases``.  Returns the max abs error per
+    kernel: K2a out and lse, K2b dq, K2c dk and dv."""
     scale = 1.0 / math.sqrt(256.0)
     bh, s, d, (start, end), corpus, n, heads = ATTN_SHAPES["conformer_train"]
-    cases = [
+    cases = cases or [
         (200, 504, 64, 64, _lengths(torch, TIMIT, 100, 2, 504, 2), -100, 0,
          scale, "timit_train shape"),
         # the conformer's band at S 1600, 8 of its 32 utterances
@@ -1012,6 +1059,8 @@ TRAIN_TIMING_SHAPES = {
     "timit_train": (200, 512, 64, (-100, 0), "timit", DROPOUT),
     # the conformer's train batch: 32 x 4 heads, archives padded to 1600
     "conformer_train": (128, 1600, 64, (-256, 256), "librispeech", 0.1),
+    # the long-form recipe's AM train batch: 4 x 2 heads, S 3504
+    "longform_train": (8, 3504, 64, (-100, 50), "longform", 0.1),
 }
 
 
@@ -1019,15 +1068,19 @@ def train_timing_inputs(torch, ba, shape, dtype=None):
     """(q, k, v, valid, dout, out, lse, seed, kw) at ``shape``
     (TRAIN_TIMING_SHAPES): seeded inputs on the card in ``dtype`` (float32
     by default), the forward's out and lse, and the kernels' keyword
-    arguments at the path's rate."""
+    arguments at the path's rate.  S is padded to the 64-frame tile as the
+    trainable wrapper pads it, the padded keys invalid."""
     bh, s, d, (start, end), lengths, rate = TRAIN_TIMING_SHAPES[shape]
     scale, seed = 1.0 / math.sqrt(256.0), 99
     g = torch.Generator().manual_seed(5)
     if lengths == "timit":
         lengths = torch.randint(412, 505, (bh // 2,),
                                 generator=g).repeat_interleave(2)
+    elif lengths == "longform":
+        lengths = LONGFORM_LENGTHS
     else:
         lengths = _lengths(torch, LIBRISPEECH, bh // 4, 4, s, 5)
+    s = -(-s // ba.BLOCK) * ba.BLOCK
     q, k, v, valid = _attention_inputs(torch, bh, s, d, d, lengths, seed=8)
     dout = torch.randn((bh, s, d), generator=g).cuda()
     q, k, v, dout = (x.to(dtype or torch.float32) for x in (q, k, v, dout))
@@ -1046,9 +1099,10 @@ def time_trainable_attention(torch, ba, shape, dtype=None):
     on the same dtype."""
     import torch.nn.functional as F
 
-    bh, s, d, (start, end), _, rate = TRAIN_TIMING_SHAPES[shape]
+    bh, _, d, (start, end), _, rate = TRAIN_TIMING_SHAPES[shape]
     q, k, v, valid, dout, out, lse, seed, kw = train_timing_inputs(
         torch, ba, shape, dtype)
+    s = q.shape[1]  # padded to the tile
     bf16 = q.dtype == torch.bfloat16
     scale = kw["scale"]
     dq_args = (q, k, v, valid, dout, out, lse, seed)
@@ -3437,6 +3491,53 @@ def recipe_launches(texts):
     return total, devices
 
 
+def _fresh(work):
+    """``work``, emptied."""
+    if work.exists():
+        shutil.rmtree(work)
+    work.mkdir(parents=True)
+    return work
+
+
+def run_traced(script, work, knobs, stage_lines, on_stage=None):
+    """``bash -x script`` in ``work`` with ``knobs`` in its environment, its
+    trace (each command stamped with its start time by PS4) in
+    ``work/trace.log`` and its output in ``work/run.log``.  Fails unless it
+    exits 0 and prints each of ``stage_lines`` ({stage: the line it echoes
+    as the stage starts}); ``on_stage(stage)`` is called as each starts.
+    Returns (its output, the wall seconds of each stage, its start and end
+    times)."""
+    (work / "ps4.sh").write_text("PS4='+ $(date +%s.%N) '\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO), PYTHONUNBUFFERED="1",
+               BASH_ENV=str(work / "ps4.sh"), **knobs)
+    stage_t, lines = {}, []
+    t_start = time.time()
+    with open(work / "trace.log", "w") as trace:
+        proc = subprocess.Popen(["bash", "-x", str(REPO / script)],
+                                cwd=str(work), env=env, text=True,
+                                stdout=subprocess.PIPE, stderr=trace)
+        for line in proc.stdout:
+            lines.append(line)
+            for stage, opening in stage_lines.items():
+                if line.startswith(opening) and stage not in stage_t:
+                    stage_t[stage] = time.time()
+                    if on_stage is not None:
+                        on_stage(stage)
+        code = proc.wait()
+    t_end = time.time()
+    stdout = "".join(lines)
+    (work / "run.log").write_text(stdout)
+    if code != 0:
+        raise AssertionError(f"{script} exited {code}: " + stdout[-2000:]
+                             + (work / "trace.log").read_text()[-2000:])
+    marks = [stage_t[s] for s in sorted(stage_t)] + [t_end]
+    stages_s = {s: b - a for s, a, b in zip(sorted(stage_t), marks,
+                                            marks[1:])}
+    if sorted(stages_s) != list(stage_lines):
+        raise AssertionError(f"{script}: stages seen {sorted(stages_s)}")
+    return stdout, stages_s, t_start, t_end
+
+
 def run_recipe(torch, device="cuda", knobs=None, scale=RECIPE_SCALE):
     """The TIMIT port recipe's run.sh, stages 0-5, on a TIMIT-shaped corpus
     (the port's make_timit_shaped at ``scale``), with RECIPE_KNOBS (or
@@ -3454,40 +3555,12 @@ def run_recipe(torch, device="cuda", knobs=None, scale=RECIPE_SCALE):
     from pytorch_kaldi_asr_tpu_torch.tools import make_timit_shaped
 
     knobs = dict(RECIPE_KNOBS, device=device, **(knobs or {}))
-    work = WORK / "recipe"
-    if work.exists():
-        shutil.rmtree(work)
-    work.mkdir(parents=True)
+    work = _fresh(WORK / "recipe")
     t0 = time.perf_counter()
     make_timit_shaped.main(["-out_dir", str(work), "-scale", scale])
     corpus_s = time.perf_counter() - t0
-    (work / "ps4.sh").write_text("PS4='+ $(date +%s.%N) '\n")
-    env = dict(os.environ, PYTHONPATH=str(REPO), PYTHONUNBUFFERED="1",
-               BASH_ENV=str(work / "ps4.sh"), **knobs)
-    stage_t, lines = {}, []
-    t_start = time.time()
-    with open(work / "trace.log", "w") as trace:
-        proc = subprocess.Popen(["bash", "-x", str(REPO / RECIPE_SH)],
-                                cwd=str(work), env=env, text=True,
-                                stdout=subprocess.PIPE, stderr=trace)
-        for line in proc.stdout:
-            lines.append(line)
-            for stage, opening in STAGE_LINES.items():
-                if line.startswith(opening) and stage not in stage_t:
-                    stage_t[stage] = time.time()
-        code = proc.wait()
-    t_end = time.time()
-    stdout = "".join(lines)
-    (work / "run.log").write_text(stdout)
-    if code != 0:
-        raise AssertionError(f"{RECIPE_SH} exited {code}: "
-                             + stdout[-2000:]
-                             + (work / "trace.log").read_text()[-2000:])
-    marks = [stage_t[s] for s in sorted(stage_t)] + [t_end]
-    stages_s = {s: b - a for s, a, b in zip(sorted(stage_t), marks,
-                                            marks[1:])}
-    if sorted(stages_s) != list(STAGE_LINES):
-        raise AssertionError(f"stages seen: {sorted(stages_s)}")
+    stdout, stages_s, t_start, t_end = run_traced(RECIPE_SH, work, knobs,
+                                                  STAGE_LINES)
 
     model_dir = work / knobs["model_dir"]
     results = {}
@@ -3584,6 +3657,321 @@ def run_recipe(torch, device="cuda", knobs=None, scale=RECIPE_SCALE):
     }
 
 
+# ---------------------------------------------------------------------------
+# the hybrid phase: the long-form recipe (train_am, dump_posteriors,
+# mkgraph, latgen, align_ctm)
+# ---------------------------------------------------------------------------
+
+HYBRID_SH = "recipes/longform-conformer-cuda/run.sh"
+# its knobs: run.sh's defaults (recipes/longform-conformer/run.sh:30-49),
+# 64/8/8 utterances of 80-140 words x 25 frames of 40-dim features, the
+# conformer AM at 3 layers, d_model 144, 2 heads of d_k = d_v = 64, conv
+# kernel 15, dropout 0.1, band (-100, 50), float32, batch 4, 10 epochs, lr
+# 0.003; a 3-gram LM, latgen at beam 14 and max_active 2000
+HYBRID_KNOBS = {"device": "cuda"}
+# the AM run.sh trains at those defaults (train_am's flags), for the CPU
+# references that start while it trains
+HYBRID_MODEL = dict(encoder_type="conformer", en_d_model=144,
+                    encoder_sub_sequence=(-100, 50), en_dropout=0.1)
+HYBRID_BATCH = 4
+# torch threads of the CPU references beside the recipe (of the host's 8
+# cores: the recipe's host work keeps the others)
+CPU_SIDE_THREADS = 6
+HYBRID_STAGE_LINES = {
+    "0": "[PROCEDURE] preparing the long-form corpus.",
+    "1": "[PROCEDURE] training language model.",
+    "2": "[PROCEDURE] AM training.",
+    "3": "[PROCEDURE] posterior dump + graph decode.",
+    "4": "[PROCEDURE] forced-alignment CTM (word time boundaries).",
+}
+# card vs CPU: each utterance's best-path cost (the posteriors' and
+# latgen's), and the encoder output over its largest entry (ENCODER_RTOL)
+HYBRID_COST_ATOL = 1e-3
+
+
+def _am_step_on(torch, device, params, cfg, batch, seed=0, dtype=None):
+    """One hybrid-AM train step (recipes/train_am.py's) from ``params`` on
+    ``device``, the dropout masks from ``seed``; returns (loss, {leaf path:
+    gradient on the CPU in float64})."""
+    from pytorch_kaldi_asr_tpu_torch.data.loader import to_device
+    from pytorch_kaldi_asr_tpu_torch.models.transformer import tree_map
+    from pytorch_kaldi_asr_tpu_torch.recipes.train_am import (
+        am_train_step,
+        create_am_state,
+    )
+    from pytorch_kaldi_asr_tpu_torch.train.optim import named_leaves
+
+    dtype = dtype or torch.float32
+    state = create_am_state(tree_map(
+        lambda t: t.detach().to(device, dtype, copy=True), params),
+        seed=seed)
+    b = to_device(batch, device)
+    loss, _ = am_train_step(state, cfg, b.src.to(dtype), b.src_mask, b.tgt)
+    return (float(loss), {path: p.grad.cpu().double()
+                          for path, p in named_leaves(state.params)})
+
+
+def check_hybrid_launches(launches, steps, cfg):
+    """K2a-c at exactly en_layers x train steps, K3 at exactly the AM's
+    dropout sites x steps each way (float32), K1 in the evaluations and the
+    dump, no bfloat16 instantiation."""
+    sites = dropout_sites(cfg, decoder=False)
+    want = {f"banded_attention_{k}": cfg.en_layers * steps
+            for k in ("fwd", "dq", "dkv")}
+    want.update({f"fused_dropout_{way}": sites["float32"] * steps
+                 for way in ("forward", "backward")})
+    want.update({name: 0 for name in launches if name.endswith("_bf16")})
+    wrong = {k: (launches.get(k), n) for k, n in want.items()
+             if launches.get(k) != n}
+    if wrong or not launches.get("banded_attention"):
+        raise AssertionError(f"the hybrid recipe's launches {launches}: "
+                             f"(launched, expected) {wrong}; K1 "
+                             f"{launches.get('banded_attention')}")
+
+
+def run_hybrid(torch, device="cuda", knobs=None):
+    """The long-form recipe's run.sh (HYBRID_SH), stages 0-4, with
+    HYBRID_KNOBS (or ``knobs``) on ``device``.  Fails unless it exits 0
+    with a %WER in exp/wer and CTM lines with positive durations for every
+    test utterance, the device-running CLIs logging ``device``, and K2a-c,
+    K3 and K1 launched as ``check_hybrid_launches`` says.  Then card
+    against CPU: one AM train step from the recipe's initial weights (as
+    every path's step starts from model.init: the trained AM's frames are
+    near certain, its mean NLL near 0, where float32 resolves a log-softmax
+    coarsely; PERF.md §6) on its first batch of 4 training utterances
+    (``card_vs_cpu_step``); from the recipe's checkpoint, dump_posteriors on
+    the CPU against the card's posteriors (every frame's best class the
+    same, each utterance's best-path cost within HYBRID_COST_ATOL), latgen
+    over both (the same words, costs within HYBRID_COST_ATOL; the card's as
+    run.sh wrote them) and the encoder output on the test batch (within
+    ENCODER_RTOL of its largest entry); on the card, the AM step's time
+    (3 x 10 steps) and profile (3 steps).  The CPU's references start as the
+    stages that give them their inputs start (the step's when stage 2 does,
+    the dump's and the encoder's when stage 3 does) and run beside the
+    recipe on CPU_SIDE_THREADS threads.  Returns the stage walls,
+    processes, start-up share, WER, rates and checks."""
+    import concurrent.futures
+
+    from pytorch_kaldi_asr_tpu_torch.data.loader import BatchLoader, to_device
+    from pytorch_kaldi_asr_tpu_torch.decode.latgen import latgen
+    from pytorch_kaldi_asr_tpu_torch.fst.openfst_io import read_fst
+    from pytorch_kaldi_asr_tpu_torch.io import kaldi_io
+    from pytorch_kaldi_asr_tpu_torch.models.transformer import encode, tree_map
+    from pytorch_kaldi_asr_tpu_torch.recipes import dump_posteriors
+    from pytorch_kaldi_asr_tpu_torch.recipes.train_am import (
+        am_setup,
+        am_train_step,
+        create_am_state,
+    )
+    from pytorch_kaldi_asr_tpu_torch.train import load_checkpoint
+
+    import numpy as np
+
+    knobs = dict(HYBRID_KNOBS, device=device, **(knobs or {}))
+    work = _fresh(WORK / "hybrid")
+    exp, data = work / "exp", work / "data"
+
+    def test_batch():
+        loader = BatchLoader([(k, rx, np.zeros(1, np.int32)) for k, rx in
+                              kaldi_io.scp_entries(str(data / "test"
+                                                       / "feats.scp"))],
+                             16, mode="all", shuffle=False)
+        return next(iter(loader))
+
+    ref, side_s = {}, {}
+
+    def timed(name, fn):
+        def job():
+            t0 = time.perf_counter()
+            out = fn()
+            side_s[name] = time.perf_counter() - t0
+            return out
+        return job
+
+    def cpu_step_job():
+        loader, _, cfg, init = am_setup(str(data / "train"),
+                                        str(data / "dev"), HYBRID_BATCH,
+                                        **HYBRID_MODEL)
+        batch = next(iter(loader))  # train_am's first batch
+        return cfg, init, batch, _am_step_on(torch, "cpu", init, cfg, batch)
+
+    def cpu_dump_job():
+        assert dump_posteriors.main([
+            "-read_data_dir", str(data / "test"), "-load_model_file",
+            str(exp / "am"), "-wspecifier",
+            f"ark,scp:{work}/post_cpu.ark,{work}/post_cpu.scp",
+            "-device", "cpu"]) == 0
+        ckpt = load_checkpoint(str(exp / "am"))
+        b = to_device(test_batch(), "cpu")
+        with torch.no_grad():
+            enc, mask = encode(ckpt["params"], ckpt["cfg"], b.src,
+                               b.src_mask)
+        return enc, (mask > 0) & (b.valid[:, None] > 0)
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(CPU_SIDE_THREADS)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        def on_stage(stage):
+            if stage == "2":
+                ref["step"] = pool.submit(timed("step", cpu_step_job))
+            elif stage == "3":
+                ref["dump"] = pool.submit(timed("dump", cpu_dump_job))
+
+        stdout, stages_s, t_start, t_end = run_traced(
+            HYBRID_SH, work, knobs, HYBRID_STAGE_LINES, on_stage)
+        t0 = time.perf_counter()
+        cfg0, init, batch, step_cpu = ref["step"].result()
+        enc_cpu, keep = ref["dump"].result()
+        waited_s = time.perf_counter() - t0
+    torch.set_num_threads(threads)
+
+    wer_text = (exp / "wer").read_text()
+    if "%WER" not in wer_text:
+        raise AssertionError(f"exp/wer: {wer_text!r}")
+    texts = kaldi_io.read_key_value_text(str(data / "test" / "text"))
+    ctm = [line.split() for line in (exp / "test.ctm").read_text()
+           .splitlines()]
+    if {row[0] for row in ctm} != set(texts) or not all(
+            len(row) == 6 and float(row[3]) > 0 for row in ctm):
+        raise AssertionError(f"exp/test.ctm: {len(ctm)} lines over "
+                             f"{len({row[0] for row in ctm})} of "
+                             f"{len(texts)} utterances, or a duration <= 0")
+    launches, devices = recipe_launches([stdout])
+    if devices != {device} or stdout.count(f"kernel launches on {device}") \
+            != 2:
+        raise AssertionError(f"train_am and dump_posteriors ran on "
+                             f"{devices}")
+    ckpt = load_checkpoint(str(exp / "am"))
+    params, cfg, steps = ckpt["params"], ckpt["cfg"], ckpt["step"]
+    if cfg != cfg0:
+        raise AssertionError(f"run.sh trained {cfg}, the CPU references "
+                             f"took {cfg0}")
+    if device.startswith("cuda"):
+        check_hybrid_launches(launches, steps, cfg)
+    trace = (work / "trace.log").read_text()
+    procs = recipe_processes(trace, t_end)
+    startup = recipe_startups([trace])
+    startup_total = sum(row["seconds"] for row in startup.values())
+    frames = kaldi_io.read_key_value_text(
+        str(data / "test" / "feats.length"), int)
+    audio_s = 0.010 * sum(frames.values())
+
+    def per_audio_s(cli):
+        wall = procs[cli]["wall_s"]
+        start = startup.get(cli, {}).get("seconds", 0.0)
+        return {"wall_s": wall, "startup_s": start,
+                "wall_per_audio_s": wall / audio_s,
+                "after_startup_per_audio_s": (wall - start) / audio_s}
+
+    out = {
+        "knobs": knobs, "wall_s": t_end - t_start, "stages_s": stages_s,
+        "processes": procs,
+        "n_processes": sum(r["processes"] for r in procs.values()),
+        "startup_s": startup, "startup_total_s": startup_total,
+        "startup_share": startup_total / (t_end - t_start),
+        "wer": wer_text.strip().splitlines()[0], "ctm_lines": len(ctm),
+        "test_audio_s": audio_s, "train_steps": steps,
+        "launches": launches, "dropout_sites": dropout_sites(cfg, False),
+        "train_am_s_per_step": procs["train_am"]["wall_s"] / steps,
+        **{cli: per_audio_s(cli) for cli in ("dump_posteriors", "latgen",
+                                             "align_ctm")},
+        "cpu_side_s": side_s, "cpu_side_waited_s": waited_s,
+    }
+    print("hybrid recipe: " + json.dumps(out))
+
+    def step_on(torch, device, params, cfg, batch, seed=0):
+        if device == "cpu" and params is init and seed == 0:
+            return step_cpu  # taken beside the recipe
+        return _am_step_on(torch, device, params, cfg, batch, seed=seed)
+
+    t0 = time.perf_counter()
+    out["step"] = card_vs_cpu_step(torch, device, init, cfg, batch,
+                                   step_on=step_on)
+    out["step"]["s"] = time.perf_counter() - t0
+    print("hybrid train step card vs CPU: " + json.dumps(out["step"]))
+    if device.startswith("cuda"):  # the AM step's time and profile
+        state = create_am_state(tree_map(
+            lambda t: t.detach().to(device, copy=True), init), lr=0.003)
+        b = to_device(batch, device)
+
+        def step():
+            am_train_step(state, cfg, b.src, b.src_mask, b.tgt)
+
+        out["step_ms"] = time_steps(step, torch.cuda.synchronize,
+                                    repeats=3)
+        out["real_frames"] = int(batch.src_mask.sum())
+        out["step_profile"] = profile_steps(torch, step)
+        print(f"hybrid AM step (batch {HYBRID_BATCH}, "
+              f"{out['real_frames']} real frames of S {batch.src.shape[1]}):"
+              f" {out['step_ms']} ms; profile "
+              + json.dumps(out["step_profile"]))
+
+    card = dict(kaldi_io.read_mat_scp(str(exp / "post.scp")))
+    cpu = dict(kaldi_io.read_mat_scp(str(work / "post_cpu.scp")))
+    if list(card) != list(cpu) or any(card[k].shape != cpu[k].shape
+                                      for k in cpu):
+        raise AssertionError("posteriors: card and CPU differ in keys or "
+                             "shapes")
+    post_err = max(float(np.abs(card[k] - cpu[k]).max()) for k in cpu)
+    flips = sum(int((card[k].argmax(1) != cpu[k].argmax(1)).sum())
+                for k in cpu)
+    post_cost = max(abs(float(card[k].max(1).astype(np.float64).sum()
+                              - cpu[k].max(1).astype(np.float64).sum()))
+                    for k in cpu)
+    out["posteriors"] = {"max_abs_err": post_err, "best_class_flips": flips,
+                         "max_cost_err": post_cost}
+    if flips or post_cost > HYBRID_COST_ATOL:
+        raise AssertionError(f"posteriors card vs CPU: {out['posteriors']}")
+
+    t0 = time.perf_counter()
+    graph = read_fst(str(exp / "graph" / "HLG.fst"))
+    kw = dict(beam=float(knobs.get("beam", 14)),
+              max_active=int(knobs.get("max_active", 2000)),
+              acoustic_scale=float(knobs.get("acoustic_scale", 1.0)))
+    words = {int(v): w for w, v in (line.split() for line in
+                                    open(exp / "graph" / "words.txt"))}
+    written = kaldi_io.read_key_value_text(str(exp / "decode.txt"))
+    lat_err = 0.0
+    for key in cpu:
+        (ids, _, cost), (cpu_ids, _, cpu_cost) = (
+            latgen(graph, post[key], **kw) for post in (card, cpu))
+        lat_err = max(lat_err, abs(cost - cpu_cost))
+        if ids != cpu_ids or not abs(cost - cpu_cost) <= HYBRID_COST_ATOL \
+                or " ".join(words[i] for i in ids) != written.get(key, ""):
+            raise AssertionError(f"latgen {key}: card {cost} vs CPU "
+                                 f"{cpu_cost}, words differ: {ids != cpu_ids}")
+    out["latgen"] = {"max_cost_err": lat_err,
+                     "decodes_s": time.perf_counter() - t0}
+
+    with torch.no_grad():
+        b = to_device(test_batch(), device)
+        enc_dev, _ = encode(tree_map(lambda t: t.to(device), params), cfg,
+                            b.src, b.src_mask)
+    enc_err = float((enc_dev.cpu()[keep] - enc_cpu[keep]).abs().max())
+    enc_max = float(enc_cpu[keep].abs().max())
+    out["encoder"] = {"max_abs_err": enc_err, "max_abs": enc_max}
+    if not enc_err <= ENCODER_RTOL * enc_max:
+        raise AssertionError(f"encoder output card vs CPU: {enc_err} over "
+                             f"{enc_max}")
+    print("hybrid card vs CPU: " + json.dumps(
+        {k: out[k] for k in ("posteriors", "latgen", "encoder")}))
+    return out
+
+
+def longform_kernels(torch, ba):
+    """K1 and K2a-c at the long-form tile case against their plain
+    versions (the same checks as the kernel phase's), and their times at
+    the long-form shapes beside their bounds."""
+    scale = 1.0 / math.sqrt(256.0)
+    case = [c for c in _tile_cases(torch, scale) if c[1] == 3504]
+    out = {"k1_err": check_banded_attention(torch, ba, case),
+           "k2_errs": check_trainable_attention(torch, ba, case),
+           "k1": time_banded_attention(torch, ba, "longform_decode"),
+           "k2": time_trainable_attention(torch, ba, "longform_train")}
+    torch.cuda.empty_cache()
+    return out
+
+
 def check_train_launches(training):
     """K2a-c at exactly en_layers x steps on the compute dtype (none on the
     other), K3 at exactly (dropout sites) x steps each way for each dtype,
@@ -3637,7 +4025,8 @@ def kernel_phase(torch):
     for key, dtype in (("", None), ("_bf16", bf16)):
         kp[f"timing{key}"] = {
             shape: time_banded_attention(torch, ba, shape, dtype)
-            for shape in ("timit_decode", "conformer_decode")}
+            for shape in ("timit_decode", "conformer_decode",
+                          "longform_decode")}
         kp[f"train_timing{key}"] = {
             shape: time_trainable_attention(torch, ba, shape, dtype)
             for shape in TRAIN_TIMING_SHAPES}
@@ -3662,6 +4051,7 @@ def main():
     bf16_gates = sys.argv[1:2] == ["--bf16-gates"]
     bf16_compute_gates = sys.argv[1:2] == ["--bf16-compute-gates"]
     recipe_only = sys.argv[1:2] == ["--recipe"]
+    hybrid_only = sys.argv[1:2] == ["--hybrid"]
     sources = ([Path(p).resolve() for p in sys.argv[2:]]
                if sys.argv[1:2] == ["--k2-sources"] else None)
     if sources == []:
@@ -3732,7 +4122,7 @@ def main():
              **train_step_only(torch, corpus)}))
         return 0
 
-    if not recipe_only:
+    if not (recipe_only or hybrid_only):
         kp = kernel_phase(torch)
         print(f"kernel phase done at {time.perf_counter() - t_start:.1f} s")
 
@@ -3794,8 +4184,26 @@ def main():
               f"{time.perf_counter() - t_start:.1f} s")
         return phase
 
+    def hybrid_phase(kernels):
+        """The long-form kernel case (``kernels``: checked and timed here,
+        else by the kernel phase), then the long-form recipe."""
+        t0 = time.perf_counter()
+        phase = {}
+        if kernels:
+            from pytorch_kaldi_asr_tpu_torch.ops import banded_attention as ba
+
+            phase["kernels"] = longform_kernels(torch, ba)
+        phase["recipe"] = run_hybrid(torch)
+        phase["recipe"]["card"] = card
+        print(f"hybrid phase: {time.perf_counter() - t0:.1f} s, done at "
+              f"{time.perf_counter() - t_start:.1f} s")
+        return phase
+
     if recipe_only:
         recipe_phase()
+        return 0
+    if hybrid_only:
+        hybrid_phase(kernels=True)
         return 0
 
     timit = decode_path(TIMIT)
@@ -3842,12 +4250,13 @@ def main():
               + json.dumps(profile["top_kernels_ms_per_step"][:5]))
 
     recipe = recipe_phase()
+    hybrid = hybrid_phase(kernels=False)
 
     def total(name, paths):
         return sum(p["launches"][name] for p in paths)
 
     paths = [*decodes.values(), *trainings.values(), *extra.values(),
-             recipe["recipe"]]
+             recipe["recipe"], hybrid["recipe"]]
     jax_file = "pytorch_kaldi_asr_tpu/ops/banded_attention.py"
     source = "pytorch_kaldi_asr_tpu_torch/ops/csrc/banded_attention_train.cu"
     kernels = []

@@ -9,7 +9,8 @@ nor anything of the JAX package; what it needs from the JAX-free host modules
 
 Ported so far: both recipes' ``run.sh`` end to end, stages 0-5, in
 ``recipes/attention-transformer-timit-cuda/`` and
-``recipes/conformer-librispeech-cuda/``:
+``recipes/conformer-librispeech-cuda/``, and the long-form hybrid recipe's,
+stages 0-4, in ``recipes/longform-conformer-cuda/``:
 
 - ``utils``   constants, logging, metrics logging, a small msgpack codec for
               flax checkpoints.
@@ -19,7 +20,8 @@ Ported so far: both recipes' ``run.sh`` end to end, stages 0-5, in
               and the ``.npz`` batch archives.
 - ``models``  the transformer with every encoder family (``tdnn``,
               ``banded``, ``blstm``, ``conformer``, ``tdnnf``), inference
-              and training (dropout) branches; the neural LM.
+              and training (dropout) branches; the neural LM; the hybrid
+              acoustic model (per-frame log-posteriors, ``models/am.py``).
 - ``ops``     hand-written CUDA kernels for Hopper beside their plain
               PyTorch versions: banded attention (the inference kernel; the
               trainable forward and its two backward kernels) and fused
@@ -27,7 +29,10 @@ Ported so far: both recipes' ``run.sh`` end to end, stages 0-5, in
               weight-only int8 in plain PyTorch.
 - ``lm``      the backoff n-gram LM: training, ARPA files, scoring.
 - ``decode``  the KV-cached and the fixed-buffer beam searches, shallow
-              fusion of the neural LM, and the n-best writer.
+              fusion of the neural LM, and the n-best writer; token passing
+              over an HLG graph on the host and forced alignment.
+- ``fst``     the host WFST core: compose, determinize, minimize, the
+              HLG compilation and OpenFst's binary files.
 - ``train``   loss, Adam with the hyperbolic LR schedule, train state and
               steps, the epoch driver and checkpoint averaging, checkpoints
               in the flax on-disk layout (optimizer state port-native).
@@ -38,7 +43,10 @@ Ported so far: both recipes' ``run.sh`` end to end, stages 0-5, in
               WAV I/O, the synthetic corpora and the fusion weight sweep.
 - ``recipes`` the ``prepare_vocab``, ``train_lm``, ``initialize_model``,
               ``generate_archive``, ``train``, ``combine``, ``decode``,
-              ``train_nlm``, ``score_lm`` and ``rescore`` entry points.
+              ``train_nlm``, ``score_lm`` and ``rescore`` entry points; the
+              hybrid path's ``train_am``, ``dump_posteriors``, ``mkgraph``
+              and ``latgen`` (with ``tools/compute_priors``,
+              ``tools/align_ctm``).
 
 Entry points run on ``cuda`` unless the caller asks for ``cpu``; without a
 card they raise rather than fall back.

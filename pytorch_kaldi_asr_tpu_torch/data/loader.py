@@ -112,6 +112,10 @@ class BatchLoader:
     pre_load:   read every feature matrix up front; otherwise per batch.
     src_pad / tgt_pad: static padded lengths; default = corpus max rounded
                 up to ``pad_multiple`` frames / 8 tokens.
+    frame_targets: the labels are aligned with the frames (the hybrid
+                AM's alignments, recipes/train_am.py): each batch pads its
+                targets to its own src pad, so per-frame losses never see
+                a src/tgt shape mismatch.
     num_buckets: >1 groups utterances into length buckets, each padded to
                 its own length; batches are drawn within buckets.
     seed:       epoch shuffling seed (the epoch index is mixed in).
@@ -133,6 +137,7 @@ class BatchLoader:
         shuffle=True,
         num_buckets=1,
         pad_multiple=8,
+        frame_targets=False,
         num_workers=1,
     ):
         if mode not in ("drop", "all"):
@@ -160,9 +165,13 @@ class BatchLoader:
             if self._feats is not None
             else [kaldi_io.mat_num_rows(r) for r in self.src_refs]
         )
+        self.frame_targets = frame_targets
         self.src_pad = src_pad or _round_up(max(src_lens), pad_multiple)
-        self.tgt_pad = tgt_pad or _round_up(
-            max(len(l) for l in self.labels), 8)
+        if frame_targets:
+            self.tgt_pad = self.src_pad
+        else:
+            self.tgt_pad = tgt_pad or _round_up(
+                max(len(l) for l in self.labels), 8)
         self.feat_dim = (
             self._feats[0].shape[1]
             if self._feats is not None
@@ -260,7 +269,9 @@ class BatchLoader:
         src, src_mask = instances_handler.pad_to_longest(
             feats, src_pad or self.src_pad
         )
-        tgt, tgt_mask = instances_handler.pad_to_longest(labels, self.tgt_pad)
+        tgt_pad = (src_pad or self.src_pad) if self.frame_targets \
+            else self.tgt_pad
+        tgt, tgt_mask = instances_handler.pad_to_longest(labels, tgt_pad)
         valid = np.zeros(self.batch_size, dtype=np.uint8)
         valid[:n_valid] = 1
         return Batch(

@@ -13,7 +13,8 @@
   runs train and combine so), and for a banded model in bfloat16 compute
   (set in its config.json) trained with dropout; and a neural LM trained
   by ``train_nlm``, scoring the n-best (``score_lm``) and fused into an
-  int8 decode.
+  int8 decode; and the hybrid AM's path: ``train_am``, ``compute_priors``,
+  ``dump_posteriors``, ``mkgraph``, ``latgen`` and ``align_ctm``.
 - A decoder band that is not causal decodes through the fixed-buffer
   search: the two packages' decode CLIs agree as above.
 - The entry points refuse what they cannot do: no card without
@@ -116,7 +117,11 @@ _NO_JAX = textwrap.dedent("""
                  "parallel.launch", "tools.make_timit_shaped",
                  "tools.make_librispeech_shaped",
                  "tools.make_synthetic_data", "tools.sweep_fusion",
-                 "ops.launches"):
+                 "ops.launches", "models.am", "recipes.train_am",
+                 "recipes.dump_posteriors", "tools.compute_priors",
+                 "fst.core", "fst.ops", "fst.graph", "fst.openfst_io",
+                 "recipes.mkgraph", "decode.latgen", "recipes.latgen",
+                 "decode.align", "tools.align_ctm"):
         assert pkg.__name__ + "." + name in names, name
     importlib.import_module("chip_smoke")
 
@@ -237,13 +242,53 @@ _NO_JAX = textwrap.dedent("""
     compute_wer.main(["--mode=present", f"ark:{work / 'text'}",
                       f"ark:{work / 'scoring' / 'rescore_10.0'}"])
     assert (work / "fb.len").read_text().startswith("a 23")
+
+    # the hybrid AM and its WFST decode: train_am, dump_posteriors (with
+    # priors), mkgraph, latgen, align_ctm
+    from pytorch_kaldi_asr_tpu_torch.recipes import (
+        dump_posteriors, latgen, mkgraph, train_am)
+    from pytorch_kaldi_asr_tpu_torch.tools import (
+        align_ctm, compute_priors, make_synthetic_data)
+    make_synthetic_data.main(["-out_dir", str(work / "h"), "-n_train", "4",
+                              "-n_dev", "2", "-n_test", "2", "-feat_dim",
+                              "6"])
+    hd = work / "h" / "data"
+    assert train_am.main(["-read_train_dir", str(hd / "train"),
+                          "-read_dev_dir", str(hd / "dev"),
+                          "-save_model_dir", str(work / "am"),
+                          "-encoder_type", "conformer", "-en_d_model", "16",
+                          "-encoder_sub_sequence", "(-4,2)", "-epoch", "1",
+                          "-batch_size", "2", "-device", "cpu"]) == 0
+    compute_priors.main(["-ali", str(hd / "train" / "ali.txt"),
+                         "-n_targets", "12", "-save_priors_file",
+                         str(work / "priors.txt")])
+    dump_posteriors.main(["-read_data_dir", str(hd / "test"),
+                          "-load_model_file", str(work / "am"),
+                          "-priors_file", str(work / "priors.txt"),
+                          "-wspecifier", f"ark,scp:{work}/p.ark,{work}/p.scp",
+                          "-device", "cpu"])
+    train_lm.main(["-text", str(hd / "train" / "text"), "-lm",
+                   str(work / "h.gz")])
+    mkgraph.main(["-phones", str(hd / "phones.txt"), "-self_lexicon", "-lm",
+                  str(work / "h.gz"), "-graph_dir", str(work / "graph")])
+    latgen.main(["-graph_dir", str(work / "graph"), "-rspecifier",
+                 f"scp:{work}/p.scp", "-save_result_file",
+                 str(work / "hyb.txt")])
+    (work / "lex.txt").write_text("".join(
+        f"{p} {p}\\n" for p, _ in (l.split() for l in
+                                   open(hd / "phones.txt"))))
+    align_ctm.main(["-lexicon", str(work / "lex.txt"), "-phones",
+                    str(hd / "phones.txt"), "-text", str(hd / "test" / "text"),
+                    f"scp:{work}/p.scp", str(work / "h.ctm")])
+    assert (work / "h.ctm").read_text().strip()
     assert not BLOCKED & set(m.split(".")[0] for m in sys.modules)
     print("modules", len(names), "lines",
           len((work / "decode.txt").read_text().splitlines()),
           "conformer", len((work / "c.txt").read_text().splitlines()),
           "bf16", len((work / "b.txt").read_text().splitlines()),
           "scores", len((work / "nlm.score").read_text().splitlines()),
-          "fused", len((work / "f.txt").read_text().splitlines()))
+          "fused", len((work / "f.txt").read_text().splitlines()),
+          "hybrid", len((work / "hyb.txt").read_text().splitlines()))
 """)
 
 
@@ -253,10 +298,10 @@ def test_port_runs_with_jax_blocked(tmp_path):
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     last = proc.stdout.strip().splitlines()[-1].split()
-    assert last[0] == "modules" and int(last[1]) >= 67
+    assert last[0] == "modules" and int(last[1]) >= 80
     assert "%WER" in proc.stdout
     assert last[2:] == ["lines", "6", "conformer", "6", "bf16", "6",
-                        "scores", "6", "fused", "6"]
+                        "scores", "6", "fused", "6", "hybrid", "2"]
 
 
 @pytest.mark.parametrize("recipe", ["attention-transformer-timit-cuda",
