@@ -6,7 +6,11 @@ CUDA card: ``python3 chip_smoke.py`` from the root of a checkout.
    turns TF32 off for matmuls and cuDNN, and cuBLAS's reduced-precision
    sums in bfloat16 GEMMs.
 2. Builds every CUDA kernel of the port from ``ops/csrc`` (one nvcc per
-   source, all started together) and prints what ptxas reports.
+   translation unit, all started together: the attention source as one
+   unit per element type) and prints what ptxas reports.  Meanwhile a
+   thread takes the CPU reference steps of the conformer training paths
+   (``prefetch_cpu_steps``), which those paths then find in ``cpu_step``'s
+   cache (keyed by a hash of the weights and the batch).
 3. Kernel phase: holds each kernel against its plain PyTorch version on the
    card at the paths' shapes and at edge cases, then times the kernel, the
    plain version and the PyTorch library call that computes the same
@@ -128,10 +132,33 @@ CUDA card: ``python3 chip_smoke.py`` from the root of a checkout.
    time and profile.  K1 and K2a-c at the long-form shape (BH 8, S 3504,
    band (-100, 50), ragged) are checked among the tile cases and timed in
    the kernel phase.
-12. Prints the ``kernels`` JSON line (K1, K2a-c on both dtypes, K3 on both),
-   the card line, and as the last line ``{"ok": true, "device": {...}}``.
-   Any failure raises: the script then exits non-zero without the last
-   line.
+12. The serve phase (``serve_phase``, ``run_serve``): the recognition
+   server, ``python3 -m pytorch_kaldi_asr_tpu_torch.recipes.serve``, as two
+   processes on free ports.  First a causal copy of the long-form AM (band
+   (-100, 0), ``conformer_causal_conv``; the recipe's band reads ahead and
+   cannot stream) is trained in this process for 2 epochs over the
+   long-form train set (``train_serve_am``).  The attention server on the
+   TIMIT decode path's banded checkpoint (``-beam_size 8 -max_batch 8``):
+   /healthz; the 16 utterances through /recognize, each top hypothesis
+   against the decode CLI's at the same beam; 8 of them at once, coalesced
+   by the micro-batcher, equal to the solo results; 2 of the fbank phase's
+   WAVs; 2 streaming sessions past encoder_max_len in 40-frame partial
+   pushes (the partials say "truncated" past the memory cap, the finish
+   equals /recognize of the same audio); a /reload to the TIMIT training
+   path's combined checkpoint and a refused one to another configuration.
+   The streaming banded encoder on the card against the offline one.  The
+   hybrid server on the causal AM and the hybrid phase's HLG: /recognize at
+   n-best 1 and 4 on the 8 test utterances against decode.latgen.latgen
+   over the same AM's posteriors, and 2 streaming sessions in 40-frame
+   pushes.  Both must exit 0 on SIGTERM, their K1 launches (and no other
+   kernel's) read from their exit logs into the kernels line.  Prints each
+   server's start-up and warm-up seconds, /recognize p50/p95 and RTF, the
+   partial and push p50s, the streaming RTF and the phase's seconds.
+13. Prints the ``kernels`` JSON line (K1, K2a-c on both dtypes, K3 on both),
+   the seconds of every CPU reference the run took (each also on its own
+   ``cpu reference`` line as it ends), the card line, and as the last line
+   ``{"ok": true, "device": {...}}``.  Any failure raises: the script then
+   exits non-zero without the last line.
 
 ``python3 chip_smoke.py --recipe`` runs the kernel builds and the recipe
 phase (10) alone.
@@ -139,6 +166,10 @@ phase (10) alone.
 ``python3 chip_smoke.py --hybrid`` runs the kernel builds, the long-form
 kernel case (K1 and K2a-c against their plain versions and timed at the
 long-form shapes, ``longform_kernels``) and the hybrid phase (11) alone.
+
+``python3 chip_smoke.py --serve`` runs the kernel builds, the TIMIT decode
+and training paths, the fbank phase and the hybrid phase (the serve phase's
+inputs), then the serve phase (12).
 
 ``python3 chip_smoke.py --train-step TREE [CORPUS]`` runs only the train
 step of CORPUS's model (timit, the default; librispeech, the conformer at
@@ -187,6 +218,7 @@ decode shapes; one ``K2_SOURCES`` JSON line per shape.
 Everything it writes goes under ``build/chip_smoke/`` in the checkout.
 """
 
+import concurrent.futures
 import contextlib
 import hashlib
 import json
@@ -194,9 +226,11 @@ import math
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -913,7 +947,7 @@ def mma_bf16_probe(torch, n=4096):
     from pytorch_kaldi_asr_tpu_torch.ops import _build
     from pytorch_kaldi_asr_tpu_torch.ops import banded_attention as ba
 
-    fn = _build.load("banded_attention_train").mma_bf16_probe
+    fn = _build.load("banded_attention_train", "bf16").mma_bf16_probe
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     g = torch.Generator(device="cuda").manual_seed(11)
@@ -1751,6 +1785,7 @@ def run_slice(torch, corpus=TIMIT, device="cuda", model_args=None):
             raise AssertionError(f"{corpus['name']}: encoder output, card "
                                  f"vs CPU: {encoder}")
     cpu_s = time.perf_counter() - t0
+    cpu_reference_done(f"{corpus['name']} decode, first batch", cpu_s)
 
     audio_s = frames * 0.010
     return {
@@ -1879,7 +1914,16 @@ def check_fixed_buffer_search(torch, corpus, summary, device="cuda"):
 # the CPU's train steps by their inputs: the conformer paths share their
 # references (the float32 model's step is the bfloat16 stream's yardstick,
 # the bfloat16 stream's step bfloat16 compute's)
-CPU_STEPS = {}
+CPU_STEPS = {}  # key -> Future of a CPU reference step (cpu_step)
+CPU_STEPS_LOCK = threading.Lock()
+CPU_REFERENCES = []  # (label, wall seconds) of each CPU reference of the run
+
+
+def cpu_reference_done(label, seconds):
+    """Record one CPU reference's wall seconds and print them on a line of
+    their own."""
+    CPU_REFERENCES.append((label, seconds))
+    print(f"cpu reference {label}: {seconds:.1f} s", flush=True)
 
 
 def _digest(torch, params, batch):
@@ -1911,11 +1955,26 @@ def cpu_step(torch, params, cfg, batch, specaugment=False, dtype=None):
     """``_step_on`` the CPU at dropout seed 0, taken once for the same
     inputs (CPU_STEPS).  Only the main paths' references come from here:
     a fault planted in memory is not among the inputs."""
+    dtype = dtype or torch.float32  # None and float32 are one step
     key = (repr(cfg), _digest(torch, params, batch), specaugment, dtype)
-    if key not in CPU_STEPS:
-        CPU_STEPS[key] = _step_on(torch, "cpu", params, cfg, batch,
-                                  dtype=dtype, specaugment=specaugment)
-    return CPU_STEPS[key]
+    with CPU_STEPS_LOCK:  # a step another thread takes is waited for
+        mine = key not in CPU_STEPS
+        if mine:
+            CPU_STEPS[key] = concurrent.futures.Future()
+        step = CPU_STEPS[key]
+    if mine:
+        t0 = time.perf_counter()
+        try:
+            step.set_result(_step_on(torch, "cpu", params, cfg, batch,
+                                     dtype=dtype, specaugment=specaugment))
+        except BaseException as e:
+            step.set_exception(e)
+            raise
+        cpu_reference_done(
+            f"cpu_step {cfg.encoder_type} compute {cfg.compute_dtype} "
+            f"stream {cfg.conformer_stream_dtype} in {dtype} "
+            f"batch {list(batch.src.shape)}", time.perf_counter() - t0)
+    return step.result()
 
 
 def _step_on(torch, device, params, cfg, batch, dtype=None, seed=0,
@@ -1997,11 +2056,14 @@ def card_vs_cpu_step(torch, device, params, cfg, batch, seed=0,
     loss_dev, grads_dev = step_on(torch, device, params, cfg, batch,
                                   seed=seed, **kw)
     t0 = time.perf_counter()
+    cached = seed == 0 and step_on is _step_on
     loss_cpu, grads_cpu = (
-        cpu_step(torch, params, cfg, batch, **ref)
-        if seed == 0 and step_on is _step_on
+        cpu_step(torch, params, cfg, batch, **ref) if cached
         else step_on(torch, "cpu", params, cfg, batch, seed=seed, **ref))
     cpu_s = time.perf_counter() - t0
+    if not cached:
+        cpu_reference_done(f"card_vs_cpu_step {step_on.__name__} seed "
+                           f"{seed}", cpu_s)
     loss_err = abs(loss_dev - loss_cpu) / abs(loss_cpu)
     errs = {k: _rel_err(grads_dev[k], grads_cpu[k]) for k in grads_cpu}
     worst = max(errs, key=errs.get)
@@ -2013,8 +2075,14 @@ def card_vs_cpu_step(torch, device, params, cfg, batch, seed=0,
         raise AssertionError(f"train step {device} vs cpu: loss {loss_err}")
     over = [k for k, e in errs.items() if e > STEP_GRAD_RTOL]
     if over:
-        _, grads_ulp = step_on(torch, "cpu", one_ulp_off(torch, params),
-                               cfg, batch, seed=seed, **ref)
+        t0 = time.perf_counter()
+        _, grads_ulp = (
+            cpu_step(torch, one_ulp_off(torch, params), cfg, batch, **ref)
+            if cached else step_on(torch, "cpu", one_ulp_off(torch, params),
+                                   cfg, batch, seed=seed, **ref))
+        if not cached:
+            cpu_reference_done(f"card_vs_cpu_step {step_on.__name__} one "
+                               f"ulp off", time.perf_counter() - t0)
         grads_f32 = (cpu_step(torch, params, cfg, batch, **kw)[1]
                      if cpu_dtype and step_on is _step_on else None)
         ratios = f32_noise_ratios(torch, grads_dev, grads_cpu, grads_ulp,
@@ -2223,41 +2291,21 @@ def f32_gate_readings(torch, device, params, cfg, batches, seeds=(0, 1, 2)):
     return rows
 
 
-def run_train(torch, corpus=TIMIT, device="cuda", model_args=None, utts=None,
-              batch=None):
-    """Stages 3-4 of ``corpus``'s recipe with the port on ``device``:
-    initialize, pack archives where the recipe streams them, train (ending
-    in combine), the standalone combine; then one train step at the
-    recipe's dropout on the card and on the CPU, and the step's time and
-    profile.  Returns the run's numbers; ``launches`` are those of the train
-    and combine CLIs."""
-    from pytorch_kaldi_asr_tpu_torch.data import read_vocab
-    from pytorch_kaldi_asr_tpu_torch.data.archive import ArchiveBatchLoader
-    from pytorch_kaldi_asr_tpu_torch.data.loader import make_batch_loader, to_device
+def train_setup(torch, corpus, work, model_args=None, utts=None):
+    """run_train's inputs, made anew in ``work``: the train/dev/test data
+    dirs, the vocabulary, model.init and, where the recipe streams them,
+    the archives.  Returns (dirs, vocab, model, frames, the train CLI's
+    archive flags)."""
     from pytorch_kaldi_asr_tpu_torch.io import kaldi_io
-    from pytorch_kaldi_asr_tpu_torch.models.transformer import tree_map
-    from pytorch_kaldi_asr_tpu_torch.recipes import (
-        combine,
-        generate_archive,
-        train,
-    )
-    from pytorch_kaldi_asr_tpu_torch.train import (
-        create_train_state,
-        load_checkpoint,
-        train_step,
-    )
+    from pytorch_kaldi_asr_tpu_torch.recipes import generate_archive
 
     spec = corpus["train"]
-    utts, batch = utts or spec["utts"], batch or spec["batch"]
-    epochs = spec["epochs"]
-    specaugment = spec.get("specaugment", False)
-    work = WORK / corpus["name"] / "train"
     if work.exists():
         shutil.rmtree(work)
-    dirs = {name: work / name for name in utts}
+    dirs = {name: work / name for name in utts or spec["utts"]}
     frames = {name: write_data_dir(dirs[name], kaldi_io, torch, corpus, n,
                                    seed=i + 1)
-              for i, (name, n) in enumerate(utts.items())}
+              for i, (name, n) in enumerate((utts or spec["utts"]).items())}
     vocab = dirs["train"] / "vocab.txt"
     model = work / "model.init"
     initialize(corpus, dirs["train"] / "feats.scp", vocab, model, model_args)
@@ -2272,6 +2320,83 @@ def run_train(torch, corpus=TIMIT, device="cuda", model_args=None, utts=None,
         print(f"{corpus['name']}: generate_archive took "
               f"{time.perf_counter() - t0:.2f} s")
         archive_args = ["-train_archive_dir", str(archives)]
+    return dirs, vocab, model, frames, archive_args
+
+
+def step_batches(dirs, vocab, archive_args, batch, cpu_rows):
+    """The first training batch and its first ``cpu_rows`` rows (all with
+    None): the batch the train step is timed on, and the card-vs-CPU
+    step's."""
+    from pytorch_kaldi_asr_tpu_torch.data import read_vocab
+    from pytorch_kaldi_asr_tpu_torch.data.archive import ArchiveBatchLoader
+    from pytorch_kaldi_asr_tpu_torch.data.loader import make_batch_loader
+
+    if archive_args:
+        loader = ArchiveBatchLoader(archive_args[1], batch, mode="drop")
+    else:
+        loader = make_batch_loader(str(dirs["train"]), read_vocab(str(vocab)),
+                                   batch, mode="drop")
+    first = next(iter(loader))
+    rows = cpu_rows or batch
+    return first, type(first)(*(x[:rows] for x in first))
+
+
+# the training paths whose CPU reference steps are taken while the kernels
+# build: the conformer's three, which take about as long as the build
+# (TIMIT's two as well would keep the card waiting after it)
+PREFETCHED = (LIBRISPEECH, LIBRISPEECH_BF16, LIBRISPEECH_BF16_COMPUTE)
+
+
+def prefetch_cpu_steps(torch):
+    """The CPU reference steps of the PREFETCHED training paths, taken
+    while the kernels build (``cpu_step`` keeps them by a hash of the
+    weights and the batch, so a path finds its step taken; inputs that
+    came out otherwise would only be taken again).  Each path's inputs are
+    made as run_train makes them, under ``WORK/prefetch``.  A failure here
+    is printed and left to the path itself."""
+    from pytorch_kaldi_asr_tpu_torch.train import load_checkpoint
+
+    for corpus in PREFETCHED:
+        try:
+            spec = corpus["train"]
+            dirs, vocab, model, _, archive_args = train_setup(
+                torch, corpus, WORK / "prefetch" / corpus["name"])
+            ckpt = load_checkpoint(str(model))
+            params, cfg = ckpt["params"], ckpt["cfg"]
+            _, rows = step_batches(dirs, vocab, archive_args, spec["batch"],
+                                   spec["cpu_rows"])
+            cpu_step(torch, params, cfg, rows)
+            if "bfloat16" in (cfg.conformer_stream_dtype, cfg.compute_dtype):
+                cpu_step(torch, params, own_error_config(cfg), rows)
+        except Exception as e:  # noqa: BLE001 — the path takes it again
+            print(f"prefetch of {corpus['name']}'s CPU steps failed: "
+                  f"{e!r}")
+
+
+def run_train(torch, corpus=TIMIT, device="cuda", model_args=None, utts=None,
+              batch=None):
+    """Stages 3-4 of ``corpus``'s recipe with the port on ``device``:
+    initialize, pack archives where the recipe streams them, train (ending
+    in combine), the standalone combine; then one train step at the
+    recipe's dropout on the card and on the CPU, and the step's time and
+    profile.  Returns the run's numbers; ``launches`` are those of the train
+    and combine CLIs."""
+    from pytorch_kaldi_asr_tpu_torch.data.loader import to_device
+    from pytorch_kaldi_asr_tpu_torch.models.transformer import tree_map
+    from pytorch_kaldi_asr_tpu_torch.recipes import combine, train
+    from pytorch_kaldi_asr_tpu_torch.train import (
+        create_train_state,
+        load_checkpoint,
+        train_step,
+    )
+
+    spec = corpus["train"]
+    utts, batch = utts or spec["utts"], batch or spec["batch"]
+    epochs = spec["epochs"]
+    specaugment = spec.get("specaugment", False)
+    work = WORK / corpus["name"] / "train"
+    dirs, vocab, model, frames, archive_args = train_setup(
+        torch, corpus, work, model_args, utts)
     exp = work / "exp"
     sync = _sync(torch, device)
 
@@ -2321,15 +2446,10 @@ def run_train(torch, corpus=TIMIT, device="cuda", model_args=None, utts=None,
     # one train step from model.init at the recipe's dropout, on the card
     # and on the CPU: the masks are the same on both devices
     ckpt = load_checkpoint(str(model))
-    if archive_args:
-        loader = ArchiveBatchLoader(archive_args[1], batch, mode="drop")
-    else:
-        loader = make_batch_loader(str(dirs["train"]), read_vocab(str(vocab)),
-                                   batch, mode="drop")
-    first = next(iter(loader))
+    first, rows_of_first = step_batches(dirs, vocab, archive_args, batch,
+                                        spec["cpu_rows"])
     t0 = time.perf_counter()
     rows = spec["cpu_rows"] or batch
-    rows_of_first = type(first)(*(x[:rows] for x in first))
     cfg = ckpt["cfg"]
     if "bfloat16" in (cfg.conformer_stream_dtype, cfg.compute_dtype):
         check = bf16_card_vs_cpu_step(torch, device, ckpt["params"],
@@ -2620,9 +2740,12 @@ def run_nlm(torch, decoded, device="cuda"):
     scores = {}
     for where in (device, "cpu"):
         out = work / f"nlm_score_{where}.txt"
+        t0 = time.perf_counter()
         score_lm.main(["-decode_file", str(decoded), "-nlm_model_dir",
                        str(work / "nlm"), "-read_vocab_file", str(vocab),
                        "-save_score_file", str(out), "-device", where])
+        if where == "cpu":
+            cpu_reference_done("nlm score_lm", time.perf_counter() - t0)
         scores[where] = np.loadtxt(out)
     score_err = float(np.abs(scores[device] - scores["cpu"]).max())
     if not np.isfinite(scores[device]).all() or score_err > NLM_SCORE_ATOL:
@@ -2701,6 +2824,8 @@ def run_lm_decodes(torch, decoded, nlm_dir, device="cuda"):
             decode.main(stage5_args(spec, work / "data_first_batch", vocab,
                                     model, cpu_path, "cpu") + extra)
             row["cpu_first_batch_s"] = time.perf_counter() - t0
+            cpu_reference_done(f"timit {name} decode, first batch",
+                               row["cpu_first_batch_s"])
             cpu = read_nbest(cpu_path)
             if sorted(cpu) != sorted(decoded["first_batch_keys"]):
                 raise AssertionError("the CPU decode covered other "
@@ -3391,6 +3516,9 @@ def run_fbank(torch, device="cuda"):
                         f"scp:{work / 'wav.scp'}",
                         f"ark,scp:{target}.ark,{target}.scp"])
             rates[run] = audio_s / (time.perf_counter() - t0)
+            if run == "cpu":
+                cpu_reference_done(f"fbank {kind}",
+                                   time.perf_counter() - t0)
             feats[run] = dict(kaldi_io.read_mat_scp(f"{target}.scp"))
         err = max(float(np.abs(feats[f"{device}_2"][k] - feats["cpu"][k])
                         .max()) for k in feats["cpu"])
@@ -3622,6 +3750,7 @@ def run_recipe(torch, device="cuda", knobs=None, scale=RECIPE_SCALE):
                  "-batch_size", flags["decode_batch"],
                  "-beam_size", flags["beam_size"], "-nbest", flags["nbest"]])
     cpu_s = time.perf_counter() - t0
+    cpu_reference_done("recipe dev decode, first batch", cpu_s)
     score_err = compare_nbest(read_nbest(model_dir / "decode_dev"
                                          / "decode.txt"),
                               read_nbest(work / "decode_cpu.txt"))
@@ -3824,6 +3953,11 @@ def run_hybrid(torch, device="cuda", knobs=None):
         enc_cpu, keep = ref["dump"].result()
         waited_s = time.perf_counter() - t0
     torch.set_num_threads(threads)
+    cpu_reference_done("hybrid AM step (beside run.sh)", side_s["step"])
+    cpu_reference_done("hybrid dump_posteriors and encoder (beside run.sh)",
+                       side_s["dump"])
+    print(f"hybrid: the CPU references kept the run {waited_s:.1f} s after "
+          f"run.sh")
 
     wer_text = (exp / "wer").read_text()
     if "%WER" not in wer_text:
@@ -3958,6 +4092,475 @@ def run_hybrid(torch, device="cuda", knobs=None):
     return out
 
 
+# the serve phase: the recognition server (recipes/serve.py) as a process,
+# in attention mode on the TIMIT banded checkpoint of the decode path, in
+# hybrid mode on a causal copy of the long-form AM and the hybrid phase's
+# HLG
+# a session's audio: utterances concatenated until they pass encoder_max_len
+# (500), so its partials cross into the stream and reach the memory cap
+SERVE = {"beam_size": 8, "max_batch": 8, "concurrent": 8, "wavs": 2,
+         "sessions": 2, "chunk": 40, "stream_frames": 500}
+# the long-form AM at its widths with a causal band: its band (-100, 50)
+# reads ahead and cannot stream (models/streaming.py)
+SERVE_AM = dict(HYBRID_MODEL, encoder_sub_sequence=(-100, 0))
+SERVE_AM_EPOCHS = 2
+COALESCED_SCORE_ATOL = 1e-4  # a coalesced request against the same alone
+STREAM_ENCODER_RTOL = 1e-5  # chunked encoder against offline, of the max
+SERVING_RE = r"serving on 127\.0\.0\.1:(\d+)"
+WARMED_RE = r"warmed (?:batched |AM )?bucket \d+.* in ([0-9.]+)s"
+
+
+class ServerProcess:
+    """``python3 -m pytorch_kaldi_asr_tpu_torch.recipes.serve ARGS -port 0``
+    with its output in ``work/<name>.log``: started, waited for until its
+    ``serving on`` line names its port, sent JSON requests, stopped by
+    SIGTERM (its exit code and the launches it logs)."""
+
+    def __init__(self, name, args, work, timeout=600.0):
+        import threading
+
+        self.name, self.log = name, work / f"{name}.log"
+        env = dict(os.environ, PYTHONPATH=str(REPO), PYTHONUNBUFFERED="1")
+        self.t0 = time.perf_counter()
+        with open(self.log, "w") as out:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m",
+                 "pytorch_kaldi_asr_tpu_torch.recipes.serve", *args,
+                 "-port", "0"], cwd=str(REPO), env=env, stdout=out,
+                stderr=subprocess.STDOUT)
+        self.base = self.ready_s = None
+        # the port opens while this process does other work: a thread
+        # notes when
+        self._watch = threading.Thread(target=self._watch_log,
+                                       args=(timeout,), daemon=True)
+        self._watch.start()
+
+    def _watch_log(self, timeout):
+        while self.proc.poll() is None \
+                and time.perf_counter() - self.t0 < timeout:
+            found = re.search(SERVING_RE, self.text())
+            if found:
+                self.ready_s = time.perf_counter() - self.t0
+                self.base = f"http://127.0.0.1:{found.group(1)}"
+                return
+            time.sleep(0.05)
+
+    def text(self):
+        return self.log.read_text()
+
+    def wait_ready(self):
+        """Seconds from the start to the open port; the start-up (the
+        interpreter and the imports, as the CLI logs it) and the warm-up
+        seconds it logged."""
+        self._watch.join()
+        if self.base is None:
+            raise AssertionError(f"{self.name} server not serving (exit "
+                                 f"{self.proc.poll()}): "
+                                 + self.text()[-3000:])
+        from pytorch_kaldi_asr_tpu_torch.utils.logging import STARTUP_RE
+
+        text = self.text()
+        return {"ready_s": self.ready_s,
+                "startup_s": sum(float(s) for _, s in
+                                 re.findall(STARTUP_RE, text)),
+                "warmup_s": sum(float(s) for s in re.findall(WARMED_RE,
+                                                               text))}
+
+    def request(self, path, obj=None, data=None, ctype="application/json"):
+        """(reply as JSON, HTTP status, client-side seconds) of a GET, or
+        of a POST of ``obj`` as JSON or of ``data``."""
+        import urllib.error
+        import urllib.request
+
+        if data is None and obj is not None:
+            data = json.dumps(obj).encode()
+        req = urllib.request.Request(self.base + path, data=data,
+                                     headers={"Content-Type": ctype})
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=300) as r:
+                return json.loads(r.read()), r.status, \
+                    time.perf_counter() - t0
+        except urllib.error.HTTPError as e:
+            return json.loads(e.read()), e.code, time.perf_counter() - t0
+
+    def post(self, path, obj=None, data=None, ctype="application/json"):
+        """(reply, client-side seconds) of a POST that must answer 200."""
+        if data is None and obj is None:
+            data = b""
+        reply, status, seconds = self.request(path, obj, data, ctype)
+        if status != 200:
+            raise AssertionError(f"{self.name} {path}: {status} {reply}")
+        return reply, seconds
+
+    def stop(self, timeout=120.0):
+        """SIGTERM, then the exit code must be 0; returns the kernel
+        launches the server logged at its exit."""
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            code = self.proc.wait(timeout=timeout)
+        finally:
+            self.kill()
+        if code != 0:
+            raise AssertionError(f"{self.name} server exited {code} on "
+                                 f"SIGTERM: " + self.text()[-3000:])
+        launches, devices = recipe_launches([self.text()])
+        if len(devices) != 1:
+            raise AssertionError(f"{self.name} server logged launches on "
+                                 f"{devices}")
+        return launches
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+
+
+def _percentile(values, q):
+    return float(statistics.quantiles(values, n=100, method="inclusive")[
+        q - 1]) if len(values) > 1 else float(values[0])
+
+
+def train_serve_am(torch, data, out, device="cuda"):
+    """The causal long-form AM (SERVE_AM) trained in this process as
+    train_am trains, with recipes.train_am.am_train_step, for
+    SERVE_AM_EPOCHS over the long-form train set (batch HYBRID_BATCH, lr
+    0.003, seed 0), saved to ``out`` as train_am saves.  Returns (its
+    config, its steps, the kernel launches of the training)."""
+    from pytorch_kaldi_asr_tpu_torch.data.loader import to_device
+    from pytorch_kaldi_asr_tpu_torch.models.transformer import tree_map
+    from pytorch_kaldi_asr_tpu_torch.recipes.train_am import (
+        am_setup,
+        am_train_step,
+        create_am_state,
+    )
+    from pytorch_kaldi_asr_tpu_torch.train.checkpoint import save_checkpoint
+
+    loader, _, cfg, params = am_setup(str(data / "train"), str(data / "dev"),
+                                      HYBRID_BATCH, **SERVE_AM)
+    cfg = cfg.replace(conformer_causal_conv=True)
+    state = create_am_state(tree_map(lambda t: t.to(device), params),
+                            lr=0.003, seed=1)
+    reset_launch_counts()
+    for _ in range(SERVE_AM_EPOCHS):
+        for batch in loader:
+            b = to_device(batch, device)
+            loss, _ = am_train_step(state, cfg, b.src, b.src_mask, b.tgt)
+    loss = float(loss)
+    launches = launch_counts()
+    if not math.isfinite(loss):
+        raise AssertionError(f"the causal AM's loss {loss}")
+    save_checkpoint(str(out), state.params, cfg, epoch=SERVE_AM_EPOCHS,
+                    step=state.step, extra={"n_targets": cfg.vocab_size,
+                                            "model_kind": "am"})
+    return cfg, state.step, launches, loss
+
+
+def run_serve(torch, timit, hybrid_work, fbank_work, device="cuda"):
+    """The serve phase.  ``timit``: the TIMIT decode path's summary (its
+    banded checkpoint and data); ``hybrid_work``: the hybrid phase's
+    directory (its corpus and HLG); ``fbank_work``: the fbank phase's WAVs.
+
+    First the causal long-form AM is trained in this process
+    (``train_serve_am``); then both servers start at once.  The attention
+    server (``-beam_size 8 -max_batch 8``, the default buckets): /healthz;
+    the 16 TIMIT utterances through /recognize one by one, each top
+    hypothesis held against the decode CLI's at the same beam (the same
+    words where the score is more than WORD_GAP from its neighbours',
+    scores within CPU_SCORE_ATOL); 8 of them again at once from threads,
+    coalesced by the micro-batcher, equal to the solo results (words, scores
+    within COALESCED_SCORE_ATOL); 2 WAVs of the fbank phase; 2 streaming
+    sessions of concatenated utterances past encoder_max_len in 40-frame
+    partial pushes, whose partials carry "truncated" past the memory cap and
+    whose finish equals /recognize of the same audio; a /reload to the
+    TIMIT training path's combined checkpoint and one to a checkpoint of
+    another configuration, which must fail.  In this process, the streaming
+    banded encoder fed 40-frame chunks against the offline encoder on 2
+    utterances (STREAM_ENCODER_RTOL).  The hybrid server (buckets up to the
+    AM's encoder_max_len): /recognize at n-best 1 and 4 on the 8 test
+    utterances, the 1-best words and cost (HYBRID_COST_ATOL) those of
+    decode.latgen.latgen over the same AM's posteriors computed here, the
+    4-best's first the 1-best; 2 streaming sessions in 40-frame pushes, a
+    partial in every reply, the finish the offline 1-best.  Both servers
+    exit 0 on SIGTERM with their launches logged (K1, no other kernel).
+    Returns the numbers, with ``launches`` summed over the servers and the
+    AM's training."""
+    import threading
+
+    import numpy as np
+
+    from pytorch_kaldi_asr_tpu_torch.data.loader import BatchLoader, to_device
+    from pytorch_kaldi_asr_tpu_torch.decode.latgen import latgen
+    from pytorch_kaldi_asr_tpu_torch.fst.openfst_io import read_fst
+    from pytorch_kaldi_asr_tpu_torch.io import kaldi_io
+    from pytorch_kaldi_asr_tpu_torch.models.am import am_log_posteriors
+    from pytorch_kaldi_asr_tpu_torch.models.streaming import (
+        StreamingBandedEncoder,
+    )
+    from pytorch_kaldi_asr_tpu_torch.models.transformer import encode
+    from pytorch_kaldi_asr_tpu_torch.recipes import decode
+    from pytorch_kaldi_asr_tpu_torch.train import load_checkpoint
+
+    t_phase = time.perf_counter()
+    work = _fresh(WORK / "serve")
+    data = Path(timit["model"]).parent / "data"
+    vocab = data / "vocab.txt"
+    hdata, hexp = hybrid_work / "data", hybrid_work / "exp"
+    out = {"device": device}
+
+    t0 = time.perf_counter()
+    am_cfg, am_steps, am_launches, am_loss = train_serve_am(
+        torch, hdata, work / "am_causal", device)
+    out["am"] = {"steps": am_steps, "final_loss": am_loss,
+                 "train_s": time.perf_counter() - t0,
+                 "encoder_max_len": am_cfg.encoder_max_len}
+    buckets = [b for b in (1000, 2000) if b < am_cfg.encoder_max_len] + [
+        am_cfg.encoder_max_len]
+    servers = {}
+    try:
+        servers["attention"] = ServerProcess("attention", [
+            "-read_model_file", timit["model"], "-read_vocab_file",
+            str(vocab), "-beam_size", str(SERVE["beam_size"]),
+            "-max_token_seq_len", str(TIMIT["decode"]["max_tokens"]),
+            "-max_batch", str(SERVE["max_batch"]), "-device", device], work)
+        servers["hybrid"] = ServerProcess("hybrid", [
+            "-read_model_file", str(work / "am_causal"), "-graph_dir",
+            str(hexp / "graph"), "-beam", "14", "-buckets",
+            ",".join(map(str, buckets)), "-device", device], work)
+
+        # the decode CLI at the server's beam: the reference of /recognize
+        spec = dict(TIMIT["decode"], beam=SERVE["beam_size"],
+                    nbest=SERVE["beam_size"])
+        decode.main(stage5_args(spec, data, vocab, timit["model"],
+                                work / "decode_beam8.txt", device))
+        reference = read_nbest(work / "decode_beam8.txt")
+        feats = dict(kaldi_io.read_mat_scp(str(data / "feats.scp")))
+
+        att = servers["attention"]
+        out["attention"] = att.wait_ready()
+        health = att.request("/healthz")[0]
+        if health["status"] != "ok" or health["mode"] != "attention":
+            raise AssertionError(f"attention /healthz: {health}")
+        solo, lat = {}, []
+        for key, mat in feats.items():
+            reply, s = att.post("/recognize", {"features": mat.tolist()})
+            solo[key] = reply
+            lat.append(s)
+            if reply["frames"] != mat.shape[0] or "truncated" in reply:
+                raise AssertionError(f"/recognize {key}: {reply}")
+        worst = 0.0
+        for key, reply in solo.items():
+            top, ref = reply["nbest"][0], reference[key]
+            err = abs(top["score"] - ref[0][0])
+            worst = max(worst, err)
+            gap = abs(ref[0][0] - ref[1][0]) if len(ref) > 1 else math.inf
+            if err > CPU_SCORE_ATOL or (gap > WORD_GAP
+                                        and top["text"] != ref[0][1]):
+                raise AssertionError(f"/recognize {key}: {top} against the "
+                                     f"decode CLI's {ref[0]}")
+        keys = list(feats)[:SERVE["concurrent"]]
+        coalesced = {}
+
+        def ask(key):
+            coalesced[key] = att.post("/recognize",
+                                      {"features": feats[key].tolist()})
+
+        threads = [threading.Thread(target=ask, args=(k,)) for k in keys]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        concurrent_s = time.perf_counter() - t0
+        coalesced_err = 0.0
+        for key in keys:
+            got, want = coalesced[key][0]["nbest"][0], solo[key]["nbest"][0]
+            coalesced_err = max(coalesced_err,
+                                abs(got["score"] - want["score"]))
+            if got["text"] != want["text"] \
+                    or abs(got["score"] - want["score"]) \
+                    > COALESCED_SCORE_ATOL:
+                raise AssertionError(f"coalesced {key}: {got} vs {want}")
+        wavs = sorted(fbank_work.glob("u*.wav"))[:SERVE["wavs"]]
+        wav_frames = []
+        for wav in wavs:
+            reply, _ = att.post("/recognize", data=wav.read_bytes(),
+                                ctype="audio/wav")
+            if not reply["nbest"] or reply["frames"] <= 0:
+                raise AssertionError(f"/recognize {wav.name}: {reply}")
+            wav_frames.append(reply["frames"])
+        sessions, partial_s = [], []
+        order = list(feats)
+        for n in range(SERVE["sessions"]):
+            parts, total = [], 0
+            for key in order[n::2]:
+                parts.append(feats[key])
+                total += feats[key].shape[0]
+                if total > SERVE["stream_frames"]:
+                    break
+            audio = np.concatenate(parts)
+            sid = att.post("/stream/start")[0]["id"]
+            replies = []
+            for lo in range(0, audio.shape[0], SERVE["chunk"]):
+                reply, s = att.post(f"/stream/{sid}/push", {
+                    "features": audio[lo:lo + SERVE["chunk"]].tolist(),
+                    "partial": True})
+                replies.append(reply)
+                partial_s.append(s)
+                past = reply["frames"] > health["buckets"][-1]
+                if not isinstance(reply.get("partial"), str) \
+                        or bool(reply.get("truncated")) != past:
+                    raise AssertionError(f"session {n} push at "
+                                         f"{reply['frames']}: {reply}")
+            final, _ = att.post(f"/stream/{sid}/finish")
+            whole, _ = att.post("/recognize", {"features": audio.tolist()})
+            if final["nbest"][0]["text"] != whole["nbest"][0]["text"] \
+                    or abs(final["nbest"][0]["score"]
+                           - whole["nbest"][0]["score"]) \
+                    > COALESCED_SCORE_ATOL or not final.get("truncated"):
+                raise AssertionError(f"session {n} finish {final} vs "
+                                     f"/recognize {whole}")
+            sessions.append({"frames": int(audio.shape[0]),
+                             "pushes": len(replies),
+                             "truncated_from": min(
+                                 r["frames"] for r in replies
+                                 if r.get("truncated"))})
+        stats = att.request("/healthz")[0]["stats"]
+        combined = sorted((WORK / "timit" / "train" / "combined").glob(
+            "combined.accu*"))[-1]
+        reloaded, _ = att.post("/reload", {"model_file": str(combined)})
+        after, _ = att.post("/recognize",
+                            {"features": feats[order[0]].tolist()})
+        other = work / "model_noncausal"  # its decoder band reads ahead
+        initialize(TIMIT_NONCAUSAL, data / "feats.scp", vocab, other)
+        refused, status, _ = att.request("/reload",
+                                         {"model_file": str(other)})
+        if status != 400 or "differs" not in refused.get("error", ""):
+            raise AssertionError(f"/reload of another configuration: "
+                                 f"{status} {refused}")
+        audio_s = sum(m.shape[0] for m in feats.values()) * 0.010
+        out["attention"].update({
+            "recognize_p50_ms": stats.get("p50_ms"),
+            "recognize_p95_ms": stats.get("p95_ms"),
+            "requests": stats["requests"],
+            "solo_rtf": sum(lat) / audio_s,
+            "solo_vs_decode_cli_max_score_err": worst,
+            "concurrent_s": concurrent_s,
+            "concurrent_rtf": concurrent_s / sum(
+                feats[k].shape[0] * 0.010 for k in keys),
+            "coalesced_vs_solo_max_score_err": coalesced_err,
+            "wav_frames": wav_frames, "sessions": sessions,
+            "partial_p50_ms": _percentile(partial_s, 50) * 1e3,
+            "reloaded": reloaded["model_file"],
+            "after_reload_frames": after["frames"]})
+        launches_att = att.stop()
+        out["attention"]["launches"] = launches_att
+
+        # the streaming encoder on the card against the offline one
+        ckpt = load_checkpoint(timit["model"], device=device)
+        stream_err = []
+        for key in order[:2]:
+            x = torch.from_numpy(feats[key][None]).to(device)
+            with torch.no_grad():
+                offline, _ = encode(ckpt["params"], ckpt["cfg"], x,
+                                    torch.ones(x.shape[:2], dtype=torch.uint8,
+                                               device=device))
+            enc = StreamingBandedEncoder(ckpt["params"]["encoder"],
+                                         ckpt["cfg"])
+            chunked = torch.cat([enc.push(x[:, lo:lo + SERVE["chunk"]])
+                                 for lo in range(0, x.shape[1],
+                                                 SERVE["chunk"])], dim=1)
+            err = float((chunked - offline).abs().max())
+            stream_err.append(err / float(offline.abs().max()))
+        out["attention"]["stream_encoder_rel_err"] = max(stream_err)
+        if max(stream_err) > STREAM_ENCODER_RTOL:
+            raise AssertionError(f"streaming encoder vs offline: "
+                                 f"{stream_err}")
+
+        hyb = servers["hybrid"]
+        out["hybrid"] = hyb.wait_ready()
+        if hyb.request("/healthz")[0]["mode"] != "hybrid":
+            raise AssertionError("hybrid /healthz")
+        graph = read_fst(str(hexp / "graph" / "HLG.fst"))
+        words = {int(v): w for w, v in (line.split() for line in
+                                        open(hexp / "graph" / "words.txt"))}
+        ckpt = load_checkpoint(str(work / "am_causal"), device=device)
+        test = dict(kaldi_io.read_mat_scp(str(hdata / "test" / "feats.scp")))
+        one_ms, four_ms, cost_err = [], [], 0.0
+        for key, mat in test.items():
+            one, s1 = hyb.post("/recognize", {"features": mat.tolist()})
+            four, s4 = hyb.post("/recognize", {"features": mat.tolist(),
+                                               "nbest": 4})
+            one_ms.append(s1 * 1e3)
+            four_ms.append(s4 * 1e3)
+            t = one["frames"]
+            x = torch.from_numpy(mat[None, :t]).to(device)
+            with torch.no_grad():
+                logp, _ = am_log_posteriors(
+                    ckpt["params"], ckpt["cfg"], x,
+                    torch.ones(x.shape[:2], dtype=torch.uint8,
+                               device=device))
+            ids, _, cost = latgen(graph, logp[0].cpu().numpy(), beam=14.0,
+                                  max_active=2000)
+            text = " ".join(words[i] for i in ids)
+            top = one["nbest"][0]
+            cost_err = max(cost_err, abs(-top["score"] - cost))
+            if top["text"] != text or abs(-top["score"] - cost) \
+                    > HYBRID_COST_ATOL or not four["nbest"] \
+                    or four["nbest"][0]["text"] != text \
+                    or abs(four["nbest"][0]["score"] - top["score"]) \
+                    > HYBRID_COST_ATOL:
+                raise AssertionError(f"hybrid /recognize {key}: {one} / "
+                                     f"{four} against latgen {text} {cost}")
+            test[key] = (mat, top)
+        push_s, stream_audio_s = [], 0.0
+        for key in list(test)[:SERVE["sessions"]]:
+            mat, top = test[key]
+            sid = hyb.post("/stream/start")[0]["id"]
+            for lo in range(0, mat.shape[0], SERVE["chunk"]):
+                reply, s = hyb.post(f"/stream/{sid}/push", {
+                    "features": mat[lo:lo + SERVE["chunk"]].tolist()})
+                push_s.append(s)
+                if not isinstance(reply.get("partial"), str):
+                    raise AssertionError(f"hybrid push: {reply}")
+            final, _ = hyb.post(f"/stream/{sid}/finish")
+            stream_audio_s += mat.shape[0] * 0.010
+            if final["nbest"][0]["text"] != top["text"] or abs(
+                    final["nbest"][0]["score"] - top["score"]) \
+                    > HYBRID_COST_ATOL:
+                raise AssertionError(f"hybrid session {key}: {final} "
+                                     f"against /recognize {top}")
+        stats = hyb.request("/healthz")[0]
+        audio_s = sum(m.shape[0] for m, _ in test.values()) * 0.010
+        out["hybrid"].update({
+            "recognize_p50_ms": stats["stats"].get("p50_ms"),
+            "recognize_p95_ms": stats["stats"].get("p95_ms"),
+            "nbest1_rtf": sum(one_ms) / 1e3 / audio_s,
+            "nbest4_rtf": sum(four_ms) / 1e3 / audio_s,
+            "graph_search_mean_ms": stats["graph_search"]["mean_ms"],
+            "max_cost_err": cost_err,
+            "push_p50_ms": _percentile(push_s, 50) * 1e3,
+            "streaming_rtf": sum(push_s) / stream_audio_s,
+            "test_audio_s": audio_s})
+        out["hybrid"]["launches"] = hyb.stop()
+    finally:
+        for server in servers.values():
+            server.kill()
+    for name in ("attention", "hybrid"):
+        launched = out[name]["launches"]
+        if not device.startswith("cuda"):
+            continue  # the CPU runs the plain versions
+        if not launched.get("banded_attention") or any(
+                n for k, n in launched.items() if k != "banded_attention"):
+            raise AssertionError(f"the {name} server's launches: {launched}")
+    out["launches"] = {
+        k: am_launches[k] + out["attention"]["launches"].get(k, 0)
+        + out["hybrid"]["launches"].get(k, 0) for k in am_launches}
+    out["am"]["launches"] = am_launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def longform_kernels(torch, ba):
     """K1 and K2a-c at the long-form tile case against their plain
     versions (the same checks as the kernel phase's), and their times at
@@ -4052,6 +4655,7 @@ def main():
     bf16_compute_gates = sys.argv[1:2] == ["--bf16-compute-gates"]
     recipe_only = sys.argv[1:2] == ["--recipe"]
     hybrid_only = sys.argv[1:2] == ["--hybrid"]
+    serve_only = sys.argv[1:2] == ["--serve"]
     sources = ([Path(p).resolve() for p in sys.argv[2:]]
                if sys.argv[1:2] == ["--k2-sources"] else None)
     if sources == []:
@@ -4085,11 +4689,23 @@ def main():
                  "routes": spliced_precision(torch, encoder)}))
         return 0
 
+    full_run = not (sources or noisy_leaf or bf16_gates or bf16_compute_gates
+                    or step_only or recipe_only or hybrid_only or serve_only)
+    # the training paths' CPU reference steps use the CPU while nvcc builds
+    prefetch = (threading.Thread(target=prefetch_cpu_steps, args=(torch,),
+                                 daemon=True) if full_run else None)
+    if prefetch is not None:
+        prefetch.start()
     t0 = time.perf_counter()
     procs = start_k2_builds(sources) if sources else None
     logs = _build.build(["banded_attention_train"] if sources else None)
     print(f"built {sorted(logs) or 'nothing (cached)'} in "
           f"{time.perf_counter() - t0:.1f} s")
+    if prefetch is not None:
+        t1 = time.perf_counter()
+        prefetch.join()
+        print(f"the prefetched CPU steps took {time.perf_counter() - t1:.1f} s "
+              f"more after the build")
     for name, log in logs.items():
         summary = ptxas_summary(log)
         for line in summary or [x.strip() for x in log.splitlines()
@@ -4122,7 +4738,7 @@ def main():
              **train_step_only(torch, corpus)}))
         return 0
 
-    if not (recipe_only or hybrid_only):
+    if not (recipe_only or hybrid_only or serve_only):
         kp = kernel_phase(torch)
         print(f"kernel phase done at {time.perf_counter() - t_start:.1f} s")
 
@@ -4199,11 +4815,39 @@ def main():
               f"{time.perf_counter() - t_start:.1f} s")
         return phase
 
+    def serve_phase():
+        """Both servers on the TIMIT decode path's checkpoint and the
+        hybrid phase's corpus and graph (``run_serve``)."""
+        t0 = time.perf_counter()
+        phase = run_serve(torch, decodes["timit"], WORK / "hybrid",
+                          WORK / "fbank")
+        phase["card"] = card
+        for name in ("attention", "hybrid"):
+            row = phase[name]
+            print(f"{name} server: ready in {row['ready_s']:.1f} s (start-up "
+                  f"{row['startup_s']:.1f} s, warm-up {row['warmup_s']:.1f} "
+                  f"s), /recognize p50 {row['recognize_p50_ms']} ms, p95 "
+                  f"{row['recognize_p95_ms']} ms; {card}")
+        print("serve: " + json.dumps(phase))
+        print(f"serve phase: {time.perf_counter() - t0:.1f} s, done at "
+              f"{time.perf_counter() - t_start:.1f} s")
+        return phase
+
     if recipe_only:
         recipe_phase()
         return 0
     if hybrid_only:
         hybrid_phase(kernels=True)
+        return 0
+    if serve_only:  # the serve phase and the paths that make its inputs
+        decode_path(TIMIT)
+        train_path(TIMIT)
+        print("fbank: " + json.dumps(run_fbank(torch)))
+        hybrid_phase(kernels=False)
+        print(f"before the serve phase: {time.perf_counter() - t_start:.1f}"
+              f" s")
+        serve_phase()
+        print(f"whole run {time.perf_counter() - t_start:.1f} s")
         return 0
 
     timit = decode_path(TIMIT)
@@ -4251,12 +4895,14 @@ def main():
 
     recipe = recipe_phase()
     hybrid = hybrid_phase(kernels=False)
+    print(f"before the serve phase: {time.perf_counter() - t_start:.1f} s")
+    serve = serve_phase()
 
     def total(name, paths):
         return sum(p["launches"][name] for p in paths)
 
     paths = [*decodes.values(), *trainings.values(), *extra.values(),
-             recipe["recipe"], hybrid["recipe"]]
+             recipe["recipe"], hybrid["recipe"], serve]
     jax_file = "pytorch_kaldi_asr_tpu/ops/banded_attention.py"
     source = "pytorch_kaldi_asr_tpu_torch/ops/csrc/banded_attention_train.cu"
     kernels = []
@@ -4289,6 +4935,9 @@ def main():
             + total(f"fused_dropout_backward{suffix}", paths),
             max_abs_err=err_k3, **{k: timed[k] for k in row_keys}))
     print("fixed-buffer search on the card: " + json.dumps(searches))
+    print("cpu references: " + json.dumps(
+        {"total_s": sum(s for _, s in CPU_REFERENCES),
+         "each_s": CPU_REFERENCES}))
     print(f"whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

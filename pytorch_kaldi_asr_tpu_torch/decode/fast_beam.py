@@ -155,13 +155,22 @@ def fast_beam_search(params, cfg, src, src_mask, *, beam_size, max_len):
 
 
 @torch.no_grad()
-def fast_beam_search_memory(params, cfg, enc_output, src_mask_f, *,
-                            beam_size, max_len):
+def fast_beam_search_memory(params, cfg, enc_output, src_mask_f, prefix=None,
+                            *, beam_size, max_len):
     """:func:`fast_beam_search` over encoder memory (``encode``'s output
-    and folded mask)."""
+    and folded mask), optionally continuing from a forced token prefix.
+
+    ``prefix`` [B, P] holds token ids without BOS/EOS (a tensor, or
+    anything ``torch.as_tensor`` takes); None or P == 0 is the plain search
+    over that memory.  The streaming server's incremental partials force
+    the previous partial's stable prefix through the KV caches, then
+    beam-continue: the returned scores accumulate over the continuation
+    only (the forced prefix contributes 0), so they rank hypotheses within
+    one call but are not comparable to full-search scores."""
     _check_search_cfg(cfg, max_len)
-    prefix = torch.zeros((enc_output.shape[0], 0), dtype=torch.int64,
-                         device=enc_output.device)
+    if prefix is None:
+        prefix = torch.zeros((enc_output.shape[0], 0), dtype=torch.int64)
+    prefix = torch.as_tensor(prefix, dtype=torch.int64).to(enc_output.device)
     return _search_from_memory(params, cfg, enc_output, src_mask_f, prefix,
                                beam_size=beam_size, max_len=max_len)
 

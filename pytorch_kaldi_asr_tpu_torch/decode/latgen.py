@@ -12,6 +12,8 @@ follow the hybrid convention: cost(frame, phone) = -acoustic_scale *
 The JAX package dispatches to a C++ twin of this decoder when its native
 library is built, with outputs pinned identical; the port runs the Python
 decoder (a native core of its own is on ROADMAP.md's host queue).
+``latgen_lattice`` is the lattice-generating decode, the JAX package's
+Python path (the hybrid server's n-best).
 """
 
 from __future__ import annotations
@@ -209,6 +211,14 @@ class StreamingLatgen:
         return entries[::-1], best_cost
 
 
+def make_streaming_latgen(graph: Fst, **kw):
+    """The carried-state decoder the streaming server drives: the JAX
+    package's constructor of the same name returns its native core when
+    built; the port has the Python decoder only (ROADMAP.md, queue 1 item
+    8d), which gives the same outputs."""
+    return StreamingLatgen(graph, **kw)
+
+
 def latgen(graph: Fst, log_posts, *, acoustic_scale=1.0, beam=16.0,
            max_active=2000, log_priors=None, sym_offset=1):
     """Decode one utterance.
@@ -225,6 +235,150 @@ def latgen(graph: Fst, log_posts, *, acoustic_scale=1.0, beam=16.0,
     if not dec.push(log_posts):
         return None
     return dec.finish()
+
+
+def latgen_lattice(graph: Fst, log_posts, *, acoustic_scale=1.0, beam=16.0,
+                   lattice_beam=8.0, max_active=2000, log_priors=None,
+                   sym_offset=1, id2word=None, utt=""):
+    """Lattice-generating decode: like :func:`latgen`, but records every
+    transition within ``lattice_beam`` of a surviving token and returns the
+    pruned WordLattice (the lattice-faster decode role; the hybrid server's
+    n-best reads it through decode/lattice_ops.nbest).  The JAX package's
+    Python token loop, in its order with its float64 sums.  Returns None if
+    no path survives."""
+    from pytorch_kaldi_asr_tpu_torch.decode.lattice_io import WordLattice
+
+    log_posts = np.asarray(log_posts, dtype=np.float64)
+    if log_priors is not None:
+        log_posts = log_posts - np.asarray(log_priors, dtype=np.float64)
+    T, n_ph = log_posts.shape
+
+    lat = WordLattice(utt=utt)
+    node_of: dict[tuple, int] = {}
+
+    def node(t, s):
+        key = (t, s)
+        if key not in node_of:
+            node_of[key] = lat.add_node(t)
+        return node_of[key]
+
+    def word(ol):
+        if ol == EPS:
+            return "<eps>"
+        return id2word.get(ol, f"#{ol}") if id2word else str(ol)
+
+    def eps_expand(t, tokens):
+        stack = list(tokens.keys())
+        while stack:
+            s = stack.pop()
+            cost = tokens[s]
+            for a in graph.arcs[s]:
+                if a.ilabel != EPS:
+                    continue
+                nc = cost + a.weight
+                cur = tokens.get(a.nextstate, INF)
+                if nc < cur + lattice_beam:
+                    lat.add_link(node(t, s), node(t, a.nextstate),
+                                 word(a.olabel), 0.0, a.weight)
+                if nc < cur:
+                    tokens[a.nextstate] = nc
+                    stack.append(a.nextstate)
+        return tokens
+
+    if graph.start < 0:
+        raise ValueError("decode graph has no start state")
+    node(0, graph.start)
+    tokens = eps_expand(0, {graph.start: 0.0})
+
+    for t in range(T):
+        nxt: dict[int, float] = {}
+        cand = []  # (src_state, arc, new_cost, acoustic)
+        best = INF
+        for s, cost in tokens.items():
+            for a in graph.arcs[s]:
+                if a.ilabel == EPS:
+                    continue
+                col = a.ilabel - sym_offset
+                if col < 0 or col >= n_ph:
+                    continue
+                ac = -acoustic_scale * log_posts[t, col]
+                nc = cost + a.weight + ac
+                if nc >= best + beam:
+                    continue
+                cand.append((s, a, nc, ac))
+                if nc < nxt.get(a.nextstate, INF):
+                    nxt[a.nextstate] = nc
+                    best = min(best, nc)
+        if not nxt:
+            return None
+        cut = best + beam
+        pruned = {s: c for s, c in nxt.items() if c <= cut}
+        if len(pruned) > max_active:
+            costs = sorted(pruned.values())
+            cut = costs[max_active - 1]
+            pruned = {s: c for s, c in pruned.items() if c <= cut}
+        for s, a, nc, ac in cand:
+            dst_best = pruned.get(a.nextstate)
+            if dst_best is not None and nc <= dst_best + lattice_beam:
+                lat.add_link(node(t, s), node(t + 1, a.nextstate),
+                             word(a.olabel), ac, a.weight)
+        tokens = eps_expand(t + 1, pruned)
+
+    ok = False
+    for s in tokens:
+        if graph.is_final(s):
+            lat.finals[node(T, s)] = graph.final_weight(s)
+            ok = True
+    if not ok:
+        return None
+    return _prune_lattice(lat, lattice_beam)
+
+
+def _prune_lattice(lat, lattice_beam):
+    """Drop the links on no path within ``lattice_beam`` of the best;
+    renumber the nodes densely by (time, id)."""
+    from pytorch_kaldi_asr_tpu_torch.decode.lattice_io import WordLattice
+
+    n = lat.num_nodes
+    order = lat.topo_order()
+    out = lat.out_links()
+    fwd = [INF] * n
+    fwd[0] = 0.0
+    for u in order:
+        if fwd[u] == INF:
+            continue
+        for l in out[u]:
+            c = fwd[u] + l.cost
+            if c < fwd[l.end]:
+                fwd[l.end] = c
+    bwd = [INF] * n
+    for u, w in lat.finals.items():
+        bwd[u] = w
+    for u in reversed(order):
+        for l in out[u]:
+            c = l.cost + bwd[l.end]
+            if c < bwd[u]:
+                bwd[u] = c
+    best = min((fwd[u] + w for u, w in lat.finals.items()), default=INF)
+    if best == INF:
+        return None
+    keep_links = [l for l in lat.links
+                  if fwd[l.start] + l.cost + bwd[l.end] <= best + lattice_beam]
+    used = {0}
+    for l in keep_links:
+        used.add(l.start)
+        used.add(l.end)
+    remap = {}
+    out_lat = WordLattice(utt=lat.utt)
+    for u in sorted(used, key=lambda u: (lat.node_times[u], u)):
+        remap[u] = out_lat.add_node(lat.node_times[u])
+    for l in keep_links:
+        out_lat.add_link(remap[l.start], remap[l.end], l.word, l.acoustic,
+                         l.graph)
+    for u, w in lat.finals.items():
+        if u in used:
+            out_lat.finals[remap[u]] = w
+    return out_lat
 
 
 def decode_posterior_ark(graph, post_iter, word_syms, *, acoustic_scale=1.0,

@@ -54,9 +54,12 @@ def head_log_posteriors(params, cfg, enc, *, log_priors=None):
 
 
 def am_log_posteriors(params, cfg, src, src_mask, *, train=False, rngs=None,
-                      log_priors=None):
-    """([B, S', n_targets] log-posteriors, the folded [B, S'] mask)."""
-    enc, mask = encode(params, cfg, src, src_mask, train=train, rngs=rngs)
+                      log_priors=None, pos_offset=0):
+    """([B, S', n_targets] log-posteriors, the folded [B, S'] mask).
+    ``pos_offset`` shifts the tdnn's position rows (the streaming
+    frontend passes its buffer's global frame index)."""
+    enc, mask = encode(params, cfg, src, src_mask, train=train, rngs=rngs,
+                       pos_offset=pos_offset)
     return head_log_posteriors(params, cfg, enc, log_priors=log_priors), mask
 
 

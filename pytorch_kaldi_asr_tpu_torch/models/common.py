@@ -38,13 +38,22 @@ from pytorch_kaldi_asr_tpu_torch.ops.fused_dropout import masked_dropout
 
 def position_encoding_table(n_position, d_model, device=None):
     """Sinusoid position table [n_position, d_model] float32; row 0 zeros."""
-    pos = np.arange(n_position, dtype=np.float64)[:, None]
+    return position_encoding_rows(np.arange(n_position), d_model, device)
+
+
+def position_encoding_rows(positions, d_model, device=None):
+    """The table's rows at integer ``positions`` [T], closed form in
+    float64 then float32 (position 0 zeros): O(T·D) however large the
+    positions, so a streaming encoder fetches its global-offset rows
+    without a table that grows with the stream's age."""
+    pos = np.asarray(positions, dtype=np.float64)[:, None]
     j = np.arange(d_model, dtype=np.float64)[None, :]
     angle = pos / np.power(10000.0, 2 * (j // 2) / d_model)
-    table = np.zeros((n_position, d_model), dtype=np.float64)
-    table[1:, 0::2] = np.sin(angle[1:, 0::2])
-    table[1:, 1::2] = np.cos(angle[1:, 1::2])
-    return torch.from_numpy(table.astype(np.float32)).to(device)
+    rows = np.zeros((pos.shape[0], d_model), dtype=np.float64)
+    nz = pos[:, 0] != 0
+    rows[nz, 0::2] = np.sin(angle[nz, 0::2])
+    rows[nz, 1::2] = np.cos(angle[nz, 1::2])
+    return torch.from_numpy(rows.astype(np.float32)).to(device)
 
 
 def padding_attn_mask(mask_q, mask_k):

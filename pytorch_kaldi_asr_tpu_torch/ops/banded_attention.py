@@ -21,8 +21,20 @@ plus attention-probability dropout, differentiable through one
 (K2a) and whose backward runs :func:`banded_attention_dq` (K2b, which
 also computes delta = rowsum(dout * out)) and :func:`banded_attention_dkv`
 (K2c), the kernels of ``csrc/banded_attention_train.cu``.  Each of the
-three sends a CUDA tensor to its kernel and a CPU tensor to its plain
-version, and counts its kernel launches in ``.launches``.  The dropout
+three sends a CUDA tensor to its kernel and a CPU tensor to its banded
+plain version, and counts its kernel launches in ``.launches``.
+
+K2a-c have two plain versions each.  The full ones
+(``banded_attention_*_reference``) build the [BH, S, S] scores; they are
+the yardstick the kernels are held against.  The banded ones
+(``*_blocked``, the JAX package's ``banded_attention_blocked`` blocking)
+score each 64-query block against only the key blocks its band reaches,
+with the same dropout hash and the same bfloat16 roundings; they are what
+a CPU tensor trains through, and they agree with the full ones within
+float32's summation order (tests/test_torch_banded_plain.py).  K1's CPU
+path keeps the full version: the card-against-CPU n-best gate (1e-4 on a
+score near -736, two float32 ulps) read 1.22e-4 with the conformer's CPU
+decode summed in the banded order (PERF.md §6).  The dropout
 mask is :func:`dropout_keep`, the JAX package's hash, bit for bit, so a
 run is reproducible across the two packages and the kernels regenerate the
 forward's mask in the backward.
@@ -175,10 +187,13 @@ def _launch(q, k, v, key_valid, start, end, scale):
 @functools.lru_cache(maxsize=None)
 def _kernel_fn(which, dtype=torch.float32):
     """:func:`kernel_entry` ``which`` on ``dtype`` of
-    csrc/banded_attention_train.cu, built at first use."""
+    csrc/banded_attention_train.cu, built at first use (the unit of
+    ``dtype``: ops/_build.py compiles one per element type)."""
     from pytorch_kaldi_asr_tpu_torch.ops import _build
 
-    return kernel_entry(_build.load("banded_attention_train"), which, dtype)
+    unit = "bf16" if dtype == torch.bfloat16 else "f32"
+    return kernel_entry(_build.load("banded_attention_train", unit), which,
+                        dtype)
 
 
 def kernel_entry(library, which, dtype=torch.float32):
@@ -352,6 +367,157 @@ def banded_attention_dkv_reference(q, k, v, key_valid, dout, lse, delta,
             dv.to(dtype))
 
 
+# ---------------------------------------------------------------------------
+# banded plain versions: scores only for the key blocks of each query block's
+# band (the JAX package's ``banded_attention_blocked``), the CPU's path
+# ---------------------------------------------------------------------------
+
+PLAIN_BLOCK = 64  # query block of the banded plain versions
+
+
+class _Windows:
+    """The blocking of the banded plain versions: S padded to a multiple of
+    ``PLAIN_BLOCK``, cut into ``nb`` query blocks, each against the window
+    of ``w`` keys that covers its band (the blocks from ``n_back`` before
+    it to ``n_fwd`` after).  Positions stay global, so the dropout hash and
+    the band test read what the full versions read; keys outside [0, S)
+    are invalid."""
+
+    def __init__(self, key_valid, start, end):
+        bh, s = key_valid.shape
+        self.s, self.bq = s, PLAIN_BLOCK
+        self.s_pad = -(-s // self.bq) * self.bq
+        self.nb = self.s_pad // self.bq
+        self.n_back = min(-(start // self.bq), self.nb - 1)
+        self.n_fwd = min(-(-end // self.bq), self.nb - 1)
+        self.w = (self.n_back + 1 + self.n_fwd) * self.bq
+        device = key_valid.device
+        q_pos = (torch.arange(self.nb, device=device)[:, None] * self.bq
+                 + torch.arange(self.bq, device=device))
+        k_pos = (torch.arange(self.nb, device=device)[:, None] * self.bq
+                 - self.n_back * self.bq + torch.arange(self.w, device=device))
+        self.q_pos, self.k_pos = q_pos[:, :, None], k_pos[:, None, :]
+        rel = self.k_pos - self.q_pos
+        valid = self.window(self.pad(key_valid.to(torch.int32)))
+        # [BH, nb, bq, w]: key in the query's band and valid
+        self.allowed = (((rel >= start) & (rel <= end))[None]
+                        & (valid[:, :, None, :] > 0))
+
+    def pad(self, x, value=0.0):
+        """x [BH, S, ...] padded to S_pad rows of ``value``."""
+        extra = self.s_pad - x.shape[1]
+        if not extra:
+            return x
+        return F.pad(x, (0, 0) * (x.dim() - 2) + (0, extra), value=value)
+
+    def blocks(self, x):
+        """Query rows [BH, S_pad, ...] → [BH, nb, bq, ...]."""
+        return x.reshape(x.shape[0], self.nb, self.bq, *x.shape[2:])
+
+    def window(self, x):
+        """Key rows [BH, S_pad, ...] → [BH, nb, w, ...], zeros outside."""
+        lo, hi = self.n_back * self.bq, self.n_fwd * self.bq
+        x = F.pad(x, (0, 0) * (x.dim() - 2) + (lo, hi))
+        win = x.unfold(1, self.w, self.bq)  # window axis last
+        return win if win.dim() == 3 else win.movedim(-1, 2)
+
+    def fold(self, xw):
+        """[BH, nb, w, D] summed back onto the key rows: [BH, S, D]."""
+        bh, _, _, d = xw.shape
+        n_off = self.n_back + 1 + self.n_fwd
+        out = xw.new_zeros((bh, self.nb + n_off - 1, self.bq, d))
+        parts = xw.reshape(bh, self.nb, n_off, self.bq, d)
+        for o in range(n_off):
+            out[:, o:o + self.nb] += parts[:, :, o]
+        lo = self.n_back * self.bq
+        return out.reshape(bh, -1, d)[:, lo:lo + self.s]
+
+    def keep(self, seed, rate):
+        """The [BH, nb, bq, w] keep mask of :func:`dropout_keep`, or None
+        when ``rate`` is 0."""
+        if rate <= 0.0:
+            return None
+        bh = self.allowed.shape[0]
+        rows = torch.arange(bh, device=self.q_pos.device)[:, None, None, None]
+        return dropout_keep(seed, rows, self.q_pos[None],
+                            self.k_pos.clamp_min(0)[None], rate)
+
+    def rows(self, x):
+        """Blocked rows [BH, nb, bq, ...] → [BH, S, ...]."""
+        return x.reshape(x.shape[0], self.s_pad, *x.shape[3:])[:, :self.s]
+
+
+def banded_attention_trainable_blocked(q, k, v, key_valid, seed, start, end,
+                                       scale, dropout_rate=0.0):
+    """:func:`banded_attention_trainable_reference`'s (out, lse) over the
+    band windows (not differentiable: the CPU's K2a).  The same dropout
+    hash per (bh, q_pos, k_pos) and, on bfloat16, the same roundings."""
+    dtype = q.dtype
+    q, k, v = _up(q), _up(k), _up(v)
+    win = _Windows(key_valid, start, end)
+    logits = torch.einsum("bnqd,bnkd->bnqk", win.blocks(win.pad(q)),
+                          win.window(win.pad(k))) * scale
+    logits = logits.masked_fill(~win.allowed, float("-inf"))
+    m = logits.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(logits - m)
+    l = p.sum(dim=-1, keepdim=True)
+    p = _rounded(_drop(p, win.keep(seed, dropout_rate), dropout_rate), dtype)
+    out = torch.einsum("bnqk,bnkd->bnqd", p, win.window(win.pad(v))) \
+        / torch.where(l == 0.0, torch.ones_like(l), l)
+    lse = torch.where(l > 0.0, m + torch.log(torch.where(l > 0.0, l, 1.0)),
+                      float("-inf"))
+    return win.rows(out).to(dtype), win.rows(lse[..., 0])
+
+
+def _blocked_probs(win, q_blk, k_win, lse, scale):
+    """:func:`_probs` over the band windows."""
+    lse = win.blocks(win.pad(lse[..., None], float("-inf")))
+    live = torch.isfinite(lse)
+    logits = torch.einsum("bnqd,bnkd->bnqk", q_blk, k_win) * scale
+    return torch.where(win.allowed & live,
+                       torch.exp(logits - torch.where(live, lse, 0.0)), 0.0)
+
+
+def banded_attention_dq_blocked(q, k, v, key_valid, dout, out, lse, seed,
+                                start, end, scale, dropout_rate=0.0):
+    """:func:`banded_attention_dq_reference` over the band windows (the
+    CPU's K2b): (dq, delta)."""
+    dtype = q.dtype
+    q, k, v, dout, out = (_up(x) for x in (q, k, v, dout, out))
+    delta = (dout * out).sum(dim=-1)
+    win = _Windows(key_valid, start, end)
+    k_win = win.window(win.pad(k))
+    dout_blk = win.blocks(win.pad(dout))
+    a = _blocked_probs(win, win.blocks(win.pad(q)), k_win, lse, scale)
+    dp = _drop(torch.einsum("bnqd,bnkd->bnqk", dout_blk,
+                            win.window(win.pad(v))),
+               win.keep(seed, dropout_rate), dropout_rate)
+    ds = _rounded(a * (dp - win.blocks(win.pad(delta[..., None]))), dtype)
+    dq = win.rows(torch.einsum("bnqk,bnkd->bnqd", ds, k_win))
+    return (dq * scale).to(dtype), delta
+
+
+def banded_attention_dkv_blocked(q, k, v, key_valid, dout, lse, delta, seed,
+                                 start, end, scale, dropout_rate=0.0):
+    """:func:`banded_attention_dkv_reference` over the band windows (the
+    CPU's K2c): (dk, dv), each key's window terms summed back onto it."""
+    dtype = q.dtype
+    q, k, v, dout = (_up(x) for x in (q, k, v, dout))
+    win = _Windows(key_valid, start, end)
+    q_blk, dout_blk = win.blocks(win.pad(q)), win.blocks(win.pad(dout))
+    a = _blocked_probs(win, q_blk, win.window(win.pad(k)), lse, scale)
+    keep = win.keep(seed, dropout_rate)
+    dv = win.fold(torch.einsum(
+        "bnqk,bnqd->bnkd", _rounded(_drop(a, keep, dropout_rate), dtype),
+        dout_blk))
+    dp = _drop(torch.einsum("bnqd,bnkd->bnqk", dout_blk,
+                            win.window(win.pad(v))), keep, dropout_rate)
+    ds = _rounded(a * (dp - win.blocks(win.pad(delta[..., None]))), dtype)
+    dk = win.fold(torch.einsum("bnqk,bnqd->bnkd", ds, q_blk))
+    return (dk * scale).to(dtype), dv.to(dtype)
+
+
 def bf16_ulps(got, want):
     """|got - want| in bfloat16 ulps of each entry's scale: the larger of
     its row's largest |want| and 1/64 of the tensor's largest.  The
@@ -377,9 +543,8 @@ def banded_attention_fwd(q, k, v, key_valid, seed, *, start, end, scale,
     """K2a: (out, lse [BH, S]) of the trainable forward; S % BLOCK == 0.
     A CUDA tensor launches the kernel, a CPU tensor takes the plain version."""
     if not q.is_cuda:
-        out, lse = banded_attention_trainable_reference(
+        return banded_attention_trainable_blocked(
             q, k, v, key_valid, seed, start, end, scale, dropout_rate)
-        return out.detach(), lse
     (q, k, v), _, (key_valid,) = _kernel_operands(
         "banded_attention_fwd", (q, k, v), ints=(key_valid,))
     bh, s, d = q.shape
@@ -400,9 +565,9 @@ def banded_attention_dq(q, k, v, key_valid, dout, out, lse, seed, *, start,
     out) [BH, S] for K2c; S % BLOCK == 0.  A CUDA tensor launches the kernel
     (which computes delta too), a CPU tensor takes the plain version."""
     if not q.is_cuda:
-        return banded_attention_dq_reference(q, k, v, key_valid, dout, out,
-                                             lse, seed, start, end, scale,
-                                             dropout_rate)
+        return banded_attention_dq_blocked(q, k, v, key_valid, dout, out,
+                                           lse, seed, start, end, scale,
+                                           dropout_rate)
     (q, k, v, dout, out), (lse,), (key_valid,) = _kernel_operands(
         "banded_attention_dq", (q, k, v, dout, out), (lse,), (key_valid,))
     bh, s, d = q.shape
@@ -423,9 +588,9 @@ def banded_attention_dkv(q, k, v, key_valid, dout, lse, delta, seed, *,
     """K2c: (dk, dv) of the trainable attention; S % BLOCK == 0.  A CUDA
     tensor launches the kernel, a CPU tensor takes the plain version."""
     if not q.is_cuda:
-        return banded_attention_dkv_reference(q, k, v, key_valid, dout, lse,
-                                              delta, seed, start, end, scale,
-                                              dropout_rate)
+        return banded_attention_dkv_blocked(q, k, v, key_valid, dout, lse,
+                                            delta, seed, start, end, scale,
+                                            dropout_rate)
     (q, k, v, dout), (lse, delta), (key_valid,) = _kernel_operands(
         "banded_attention_dkv", (q, k, v, dout), (lse, delta), (key_valid,))
     bh, s, d = q.shape

@@ -1402,6 +1402,7 @@ int dkv_entry(const void* q, const void* k, const void* v, const void* dout, con
   }
 }
 
+#ifndef BA_UNIT_F32
 // One m16n8k16 bfloat16 mma per CTA of one warp, problem p = blockIdx.x:
 // d = a.b + c with a [16, 16] and b [16, 8] bfloat16, c and d [16, 8]
 // float32, row-major and packed one problem after another.  mma_bf16 as
@@ -1427,6 +1428,7 @@ __global__ void mma_bf16_probe_kernel(const __nv_bfloat16* __restrict__ a,
   D[(g + 8) * 8 + 2 * t] = acc[2];
   D[(g + 8) * 8 + 2 * t + 1] = acc[3];
 }
+#endif  // BA_UNIT_F32
 
 }  // namespace
 
@@ -1437,17 +1439,17 @@ __global__ void mma_bf16_probe_kernel(const __nv_bfloat16* __restrict__ a,
 // q, k, v, dout and outputs, the _bf16 ones bfloat16; lse and delta are
 // float32 in both.
 
+// The source builds whole, or as one translation unit per element type,
+// which ops/_build.py compiles at once: -DBA_UNIT_F32 keeps the float32
+// entry points, -DBA_UNIT_BF16 the bfloat16 ones and the probe.  Each
+// kernel is compiled from the same template either way.
+#ifndef BA_UNIT_BF16
+
 // K1: out [BH, S, Dv].
 extern "C" int banded_attention_f32(const void* q, const void* k, const void* v,
                                     const void* key_valid, void* out, int bh, int s, int d,
                                     int dv, int start, int end, float scale, void* stream) {
   return k1_entry<float>(q, k, v, key_valid, out, bh, s, d, dv, start, end, scale, stream);
-}
-extern "C" int banded_attention_bf16(const void* q, const void* k, const void* v,
-                                     const void* key_valid, void* out, int bh, int s, int d,
-                                     int dv, int start, int end, float scale, void* stream) {
-  return k1_entry<__nv_bfloat16>(q, k, v, key_valid, out, bh, s, d, dv, start, end, scale,
-                                 stream);
 }
 
 // K2a: out [BH, S, Dv] and lse [BH, S].
@@ -1459,14 +1461,6 @@ extern "C" int banded_attention_fwd_f32(const void* q, const void* k, const void
   return fwd_entry<float>(q, k, v, key_valid, out, lse, bh, s, d, dv, start, end, scale, seed,
                           thresh, keep_prob, dropout_on, stream);
 }
-extern "C" int banded_attention_fwd_bf16(const void* q, const void* k, const void* v,
-                                         const void* key_valid, void* out, void* lse,
-                                         int bh, int s, int d, int dv, int start, int end,
-                                         float scale, unsigned seed, unsigned thresh,
-                                         float keep_prob, int dropout_on, void* stream) {
-  return fwd_entry<__nv_bfloat16>(q, k, v, key_valid, out, lse, bh, s, d, dv, start, end,
-                                  scale, seed, thresh, keep_prob, dropout_on, stream);
-}
 
 // K2b: dq [BH, S, D] and delta = rowsum(dout * out) [BH, S], which K2c reads.
 extern "C" int banded_attention_dq_f32(const void* q, const void* k, const void* v,
@@ -1477,16 +1471,6 @@ extern "C" int banded_attention_dq_f32(const void* q, const void* k, const void*
                                        int dropout_on, void* stream) {
   return dq_entry<float>(q, k, v, dout, out, lse, key_valid, dq, delta, bh, s, d, dv, start,
                          end, scale, seed, thresh, keep_prob, dropout_on, stream);
-}
-extern "C" int banded_attention_dq_bf16(const void* q, const void* k, const void* v,
-                                        const void* dout, const void* out, const void* lse,
-                                        const void* key_valid, void* dq, void* delta, int bh,
-                                        int s, int d, int dv, int start, int end, float scale,
-                                        unsigned seed, unsigned thresh, float keep_prob,
-                                        int dropout_on, void* stream) {
-  return dq_entry<__nv_bfloat16>(q, k, v, dout, out, lse, key_valid, dq, delta, bh, s, d, dv,
-                                 start, end, scale, seed, thresh, keep_prob, dropout_on,
-                                 stream);
 }
 
 // K2c: dk [BH, S, D] and dv [BH, S, Dv].
@@ -1500,6 +1484,38 @@ extern "C" int banded_attention_dkv_f32(const void* q, const void* k, const void
   return dkv_entry<float>(q, k, v, dout, lse, delta, key_valid, dk, dv_out, bh, s, d, dv,
                           start, end, scale, seed, thresh, keep_prob, dropout_on, stream);
 }
+#endif  // BA_UNIT_BF16
+
+#ifndef BA_UNIT_F32
+
+// bfloat16 twins of the entry points above.
+extern "C" int banded_attention_bf16(const void* q, const void* k, const void* v,
+                                     const void* key_valid, void* out, int bh, int s, int d,
+                                     int dv, int start, int end, float scale, void* stream) {
+  return k1_entry<__nv_bfloat16>(q, k, v, key_valid, out, bh, s, d, dv, start, end, scale,
+                                 stream);
+}
+
+extern "C" int banded_attention_fwd_bf16(const void* q, const void* k, const void* v,
+                                         const void* key_valid, void* out, void* lse,
+                                         int bh, int s, int d, int dv, int start, int end,
+                                         float scale, unsigned seed, unsigned thresh,
+                                         float keep_prob, int dropout_on, void* stream) {
+  return fwd_entry<__nv_bfloat16>(q, k, v, key_valid, out, lse, bh, s, d, dv, start, end,
+                                  scale, seed, thresh, keep_prob, dropout_on, stream);
+}
+
+extern "C" int banded_attention_dq_bf16(const void* q, const void* k, const void* v,
+                                        const void* dout, const void* out, const void* lse,
+                                        const void* key_valid, void* dq, void* delta, int bh,
+                                        int s, int d, int dv, int start, int end, float scale,
+                                        unsigned seed, unsigned thresh, float keep_prob,
+                                        int dropout_on, void* stream) {
+  return dq_entry<__nv_bfloat16>(q, k, v, dout, out, lse, key_valid, dq, delta, bh, s, d, dv,
+                                 start, end, scale, seed, thresh, keep_prob, dropout_on,
+                                 stream);
+}
+
 extern "C" int banded_attention_dkv_bf16(const void* q, const void* k, const void* v,
                                          const void* dout, const void* lse,
                                          const void* delta, const void* key_valid, void* dk,
@@ -1523,3 +1539,4 @@ extern "C" int mma_bf16_probe(const void* a, const void* b, const void* c, void*
       static_cast<const float*>(c), static_cast<float*>(d));
   return static_cast<int>(cudaGetLastError());
 }
+#endif  // BA_UNIT_F32

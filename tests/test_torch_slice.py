@@ -121,7 +121,10 @@ _NO_JAX = textwrap.dedent("""
                  "recipes.dump_posteriors", "tools.compute_priors",
                  "fst.core", "fst.ops", "fst.graph", "fst.openfst_io",
                  "recipes.mkgraph", "decode.latgen", "recipes.latgen",
-                 "decode.align", "tools.align_ctm"):
+                 "decode.align", "tools.align_ctm", "models.streaming",
+                 "decode.lattice_io", "decode.lattice_ops", "serve.recognizer",
+                 "serve.batcher", "serve.attention_stream", "serve.hybrid",
+                 "serve.sessions", "serve.http", "recipes.serve"):
         assert pkg.__name__ + "." + name in names, name
     importlib.import_module("chip_smoke")
 
@@ -281,6 +284,40 @@ _NO_JAX = textwrap.dedent("""
                     str(hd / "phones.txt"), "-text", str(hd / "test" / "text"),
                     f"scp:{work}/p.scp", str(work / "h.ctm")])
     assert (work / "h.ctm").read_text().strip()
+
+    # the recognition server: a request over HTTP, a streamed partial, and
+    # a hybrid n-best through the lattice decode
+    import threading, urllib.request
+    from http.server import ThreadingHTTPServer
+    from pytorch_kaldi_asr_tpu_torch.recipes import serve  # noqa: F401
+    from pytorch_kaldi_asr_tpu_torch.serve.http import make_handler
+    from pytorch_kaldi_asr_tpu_torch.serve.hybrid import HybridRecognizer
+    from pytorch_kaldi_asr_tpu_torch.serve.recognizer import Recognizer
+    rec = Recognizer(str(work / "m"), str(work / "vocab.txt"), beam_size=2,
+                     buckets=(16, 40), device="cpu")
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(rec))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{httpd.server_address[1]}/recognize",
+            data=json.dumps({"features": rng.normal(size=(12, 6)).tolist(),
+                             "nbest": 2}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            served = json.loads(r.read())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    assert served["frames"] == 12 and served["nbest"]
+    partial = rec.new_attention_stream(stream_chunk=4).sync(
+        [rng.normal(size=(9, 6)).astype(np.float32)])
+    assert isinstance(partial, str)
+    test_feats = next(iter(
+        __import__("pytorch_kaldi_asr_tpu_torch.io.kaldi_io", fromlist=["x"])
+        .read_mat_scp(str(hd / "test" / "feats.scp"))))[1]
+    hyb = HybridRecognizer(str(work / "am"), str(work / "graph"), beam=1e9,
+                           device="cpu").recognize(test_feats, nbest=2)
+    assert hyb[0] and 0 < hyb[1] <= test_feats.shape[0]
     assert not BLOCKED & set(m.split(".")[0] for m in sys.modules)
     print("modules", len(names), "lines",
           len((work / "decode.txt").read_text().splitlines()),
@@ -288,7 +325,8 @@ _NO_JAX = textwrap.dedent("""
           "bf16", len((work / "b.txt").read_text().splitlines()),
           "scores", len((work / "nlm.score").read_text().splitlines()),
           "fused", len((work / "f.txt").read_text().splitlines()),
-          "hybrid", len((work / "hyb.txt").read_text().splitlines()))
+          "hybrid", len((work / "hyb.txt").read_text().splitlines()),
+          "served", len(served["nbest"]))
 """)
 
 
@@ -301,7 +339,8 @@ def test_port_runs_with_jax_blocked(tmp_path):
     assert last[0] == "modules" and int(last[1]) >= 80
     assert "%WER" in proc.stdout
     assert last[2:] == ["lines", "6", "conformer", "6", "bf16", "6",
-                        "scores", "6", "fused", "6", "hybrid", "2"]
+                        "scores", "6", "fused", "6", "hybrid", "2",
+                        "served", "2"]
 
 
 @pytest.mark.parametrize("recipe", ["attention-transformer-timit-cuda",
