@@ -46,7 +46,10 @@ CUDA card: ``python3 chip_smoke.py`` from the root of a checkout.
    ``beam_search`` against the KV-cached ``fast_beam_search`` (same n-best),
    and the same decode on a model whose decoder band reaches one token
    ahead, (-10, 1), which the CLI decodes with the fixed-buffer search
-   (its CPU cross-check on 2 utterances of the first batch).
+   (its CPU cross-check on 2 utterances of the first batch, deferred to a
+   side thread that runs it beside the recipe phase's run.sh:
+   ``defer_side_check``, ``start_side_checks``; joined, and any failure
+   raised, before the lattice phase by ``join_side_checks``).
 5. TIMIT training (stages 3-4): train/dev/test dirs of 300/40/40
    utterances, the ``train`` CLI with the recipe's stage-4 flags for 2
    epochs, then the ``combine`` CLI.  Checks finite losses, the
@@ -61,7 +64,8 @@ CUDA card: ``python3 chip_smoke.py`` from the root of a checkout.
    layers, d_model 256, 4 heads, band (-256, 256), 5000 words, dropout
    0.1) on LibriSpeech-shaped data (lognormal(7.0, 0.55) frames clipped to
    [150, 1600]): the decode of 16 utterances with the recipe's stage-5
-   flags; then ``generate_archive`` (512 per archive) and ``train
+   flags (its CPU cross-check deferred to the side thread, as in 4);
+   then ``generate_archive`` (512 per archive) and ``train
    -train_archive_dir`` on 128/16/16 utterances at batch 32 for 2 epochs,
    ``combine``, the exact launch counts, and card against CPU on a batch of
    4 utterances with dropout on.  Then the same for the recipe as it
@@ -132,7 +136,24 @@ CUDA card: ``python3 chip_smoke.py`` from the root of a checkout.
    time and profile.  K1 and K2a-c at the long-form shape (BH 8, S 3504,
    band (-100, 50), ragged) are checked among the tile cases and timed in
    the kernel phase.
-12. The serve phase (``serve_phase``, ``run_serve``): the recognition
+12. The lattice phase (``lattice_phase``, ``run_lattice``): the hybrid
+   phase's posteriors, graph and CTM through the lattice tools, each CLI
+   a process: ``train_nlm`` on the card over the long-form training
+   transcripts (K3 exactly at its dropout sites x steps each way),
+   ``latgen -lattice_beam`` with its Kaldi-text, binary-ark and SLF
+   lattices (its result run.sh's decode.txt; ``latgen_lattice`` over the
+   card's and the CPU's posteriors: the same best words, costs within
+   HYBRID_COST_ATOL), ``lattice_copy`` (prune, n-best, the oracle no
+   worse than the 1-best), ``lattice_rescore`` with the 3-gram and with
+   the NLM on the card and on the CPU (the same transcripts; the
+   hypotheses' NLM scores within NLM_SCORE_ATOL), ``lattice_to_ctm``,
+   ``align_ctm -refine_ctm``, ``rover``, ``kws`` (each keyword found)
+   and ``show_lattice``.  Prints each CLI's wall and start-up seconds,
+   the lattice sizes, the oracle, 1-best and rescored WERs and the
+   phase's seconds, and the run's seconds before it and before the serve
+   phase.  Its launches, read from the CLIs' logs, join the kernels
+   line's counts.
+13. The serve phase (``serve_phase``, ``run_serve``): the recognition
    server, ``python3 -m pytorch_kaldi_asr_tpu_torch.recipes.serve``, as two
    processes on free ports.  First a causal copy of the long-form AM (band
    (-100, 0), ``conformer_causal_conv``; the recipe's band reads ahead and
@@ -154,7 +175,7 @@ CUDA card: ``python3 chip_smoke.py`` from the root of a checkout.
    kernel's) read from their exit logs into the kernels line.  Prints each
    server's start-up and warm-up seconds, /recognize p50/p95 and RTF, the
    partial and push p50s, the streaming RTF and the phase's seconds.
-13. Prints the ``kernels`` JSON line (K1, K2a-c on both dtypes, K3 on both),
+14. Prints the ``kernels`` JSON line (K1, K2a-c on both dtypes, K3 on both),
    the seconds of every CPU reference the run took (each also on its own
    ``cpu reference`` line as it ends), the card line, and as the last line
    ``{"ok": true, "device": {...}}``.  Any failure raises: the script then
@@ -167,9 +188,12 @@ phase (10) alone.
 kernel case (K1 and K2a-c against their plain versions and timed at the
 long-form shapes, ``longform_kernels``) and the hybrid phase (11) alone.
 
+``python3 chip_smoke.py --lattice`` runs the kernel builds, the long-form
+kernel case and the hybrid phase (its inputs), then the lattice phase (12).
+
 ``python3 chip_smoke.py --serve`` runs the kernel builds, the TIMIT decode
 and training paths, the fbank phase and the hybrid phase (the serve phase's
-inputs), then the serve phase (12).
+inputs), then the serve phase (13).
 
 ``python3 chip_smoke.py --train-step TREE [CORPUS]`` runs only the train
 step of CORPUS's model (timit, the default; librispeech, the conformer at
@@ -182,6 +206,13 @@ step; for TIMIT, where the port has K3, also the same step with the
 model's dropout drawn by the port's former draw (``former_draw``),
 alternated with K3 in one process.  Run parent, change, change, parent
 one after another on one card to compare two commits.
+
+``python3 chip_smoke.py --k3-plain`` prints one ``K3_PLAIN`` JSON line from
+the host's CPU alone (no kernel built): the plain K3's forward and backward
+at the TIMIT encoder's site shape and the TIMIT train step's CPU reference,
+each with the current plain K3 and with its first version
+(``first_plain_k3``), alternated, and the step's busiest operations
+(``k3_plain_readings``).
 
 ``python3 chip_smoke.py --noisy-leaf`` prints one ``NOISY_LEAF`` JSON line:
 what the float32 step gate reads on the TIMIT model (``f32_gate_readings``)
@@ -286,8 +317,11 @@ LIBRISPEECH = {
     "name": "librispeech", "model": CONFORMER_MODEL, "frames": (150, 1600),
     "lognormal": (7.0, 0.55),  # tools/make_librispeech_shaped.py:179-180
     "words": [f"w{i:04d}" for i in range(5000)],
+    # its CPU cross-check (12.9-27.2 s, the bfloat16 stream's with its
+    # float32 decode, bfloat16 compute's CPU encoders and search from the
+    # card's encoder output) deferred to the side thread
     "decode": {"utts": 16, "batch": 8, "beam": 8, "nbest": 8, "buckets": 4,
-               "max_tokens": 100},
+               "max_tokens": 100, "cpu_side": True},
     # run.sh:113-139 at batch 32; 4 steps per epoch.  The CPU side of the
     # card-vs-CPU step takes 4 utterances: the plain attention at 32 x 1600
     # would need about 40 GB
@@ -298,9 +332,12 @@ LIBRISPEECH_BF16 = dict(LIBRISPEECH, name="librispeech_bf16",
                         model=CONFORMER_BF16_MODEL)
 # the CPU cross-check takes 2 utterances of the first batch: the
 # fixed-buffer search decodes the whole buffer at every step, and the CPU
-# took about 87 s for all 8 on the chip machine
+# took about 87 s for all 8 on the chip machine (40.9-61.3 s for the 2), so
+# it runs later on the side thread (``cpu_side``), beside the recipe phase's
+# run.sh
 TIMIT_NONCAUSAL = dict(TIMIT, name="timit_noncausal", model=NONCAUSAL_MODEL,
-                       decode=dict(TIMIT["decode"], cpu_utts=2))
+                       decode=dict(TIMIT["decode"], cpu_utts=2,
+                                   cpu_side=True))
 # the TIMIT recipe's other encoders (run.sh:52) at its widths: the tdnnf
 # (TransformerConfig's six tdnn_contexts, bottleneck 64) trained with
 # SpecAugment (train -specaugment), the blstm (128 units each way) without;
@@ -425,6 +462,24 @@ PROFILE_NAMES = {
     "K2c_bf16": "::dkv_kernel<__nv_bfloat16",
     "K3": "::fused_dropout_kernel", "K3_bf16": "::fused_dropout_bf16_kernel",
 }
+# the launch_counts() entries that count each PROFILE_NAMES kernel
+PROFILE_COUNTS = {
+    "K1": ("banded_attention",), "K2a": ("banded_attention_fwd",),
+    "K2b": ("banded_attention_dq",), "K2c": ("banded_attention_dkv",),
+    "K1_bf16": ("banded_attention_bf16",),
+    "K2a_bf16": ("banded_attention_fwd_bf16",),
+    "K2b_bf16": ("banded_attention_dq_bf16",),
+    "K2c_bf16": ("banded_attention_dkv_bf16",),
+    "K3": ("fused_dropout_forward", "fused_dropout_backward"),
+    "K3_bf16": ("fused_dropout_forward_bf16", "fused_dropout_backward_bf16"),
+}
+# torch.profiler has returned a bfloat16 train step's profile that held no
+# attention kernel of either dtype on the H100 (PERF.md §6): a profile
+# holding under half the launches that a kernel's wrapper counted while it
+# ran lost its device records, and is taken again, up to PROFILE_ATTEMPTS
+# in all.  (Every profiled train step's K3 reads one launch under its
+# wrappers' count, a record lost at the window's edge; half is far from it.)
+PROFILE_ATTEMPTS = 3
 # the encoder families whose self-attention runs K1 and K2
 ATTENDING = ("banded", "conformer")
 
@@ -649,16 +704,14 @@ def kernel_device_ms(torch, fn, kernel, n=100):
     """Mean device time of the kernel ``kernel`` (a PROFILE_NAMES key) over
     ``n`` calls of ``fn``, from torch.profiler: its own duration, without
     the gaps that the host's launch cost leaves between short kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def calls():
         for _ in range(n):
             fn()
-        torch.cuda.synchronize()
-    rows = [e for e in _kernel_rows(prof.key_averages())[1]
+
+    events, _, _ = _profile(torch, calls, expect=(kernel,))
+    rows = [e for e in _kernel_rows(events)[1]
             if PROFILE_NAMES[kernel] in e.key]
     return (sum(e.device_time_total for e in rows)
             / sum(e.count for e in rows) / 1e3)
@@ -990,17 +1043,60 @@ def mma_bf16_probe(torch, n=4096):
     return out
 
 
-def device_kernels(torch, fn):
-    """{kernel name: launches} on the card while ``fn`` runs (its work
-    synchronised), from torch.profiler: every kernel, copy and fill."""
+def lost_records(kernels, before, after, expect=()):
+    """{PROFILE_NAMES key: {"profiled", "counted"}} of the kernels whose
+    device records a profile lost: ``kernels`` ({kernel name: launches})
+    holds under half the launches that the wrappers counted from
+    ``before`` to ``after`` (launch_counts()), or none of a kernel in
+    ``expect``."""
+    lost = {}
+    for k, pat in PROFILE_NAMES.items():
+        seen = sum(n for name, n in kernels.items() if pat in name)
+        counted = sum(after[c] - before[c] for c in PROFILE_COUNTS[k])
+        if seen < counted / 2 or (k in expect and not seen):
+            lost[k] = {"profiled": seen, "counted": counted}
+    return lost
+
+
+def _profile(torch, fn, expect=()):
+    """torch.profiler over ``fn()``, its work synchronised: (key_averages(),
+    the wall ms of ``fn``, attempts).  A profile that lost its device
+    records (PROFILE_ATTEMPTS: under half the launches of a kernel that
+    its wrappers counted meanwhile, or none of a kernel in ``expect``,
+    PROFILE_NAMES keys of kernels ``fn`` launches past the wrappers) is
+    printed and taken again; the last attempt is returned as it is, for
+    the caller's gates."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        before = launch_counts()
         torch.cuda.synchronize()
-    return {e.key: e.count for e in _kernel_rows(prof.key_averages())[1]}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        after = launch_counts()
+        events = prof.key_averages()
+        kernels = _kernel_rows(events)[1]
+        lost = lost_records({e.key: e.count for e in kernels}, before, after,
+                            expect)
+        if not lost:
+            break
+        print(f"torch.profiler lost device records (attempt {attempt} of "
+              f"{PROFILE_ATTEMPTS}, {len(kernels)} kernel rows, "
+              f"{sum(e.count for e in kernels)} launches): "
+              + json.dumps(lost), flush=True)
+    return events, wall_ms, attempt
+
+
+def device_kernels(torch, fn):
+    """({kernel name: launches} on the card while ``fn`` runs (its work
+    synchronised), from torch.profiler: every kernel, copy and fill; the
+    times ``fn`` ran, ``_profile``'s attempts)."""
+    events, _, attempts = _profile(torch, fn)
+    return ({e.key: e.count for e in _kernel_rows(events)[1]}, attempts)
 
 
 def _kernel_rows(events):
@@ -1024,12 +1120,13 @@ def _one_launch_each(torch, what, fn, wrappers, names, attr="launches"):
     launch in its count ``attr``, and the card must run exactly the kernels
     ``names`` (PROFILE_NAMES keys), once each, and no other device work."""
     before = [getattr(w, attr) for w in wrappers]
-    kernels = device_kernels(torch, fn)
+    kernels, runs = device_kernels(torch, fn)
     launched = tuple(getattr(w, attr) - n for w, n in zip(wrappers, before))
     ours = [sum(n for name, n in kernels.items() if PROFILE_NAMES[k] in name)
             for k in names]
-    print(f"{what}: wrapper launches {launched}; device kernels {kernels}")
-    if launched != (1,) * len(wrappers) or ours != [1] * len(names) \
+    print(f"{what}: wrapper launches {launched} over {runs} run(s); device "
+          f"kernels {kernels}")
+    if launched != (runs,) * len(wrappers) or ours != [1] * len(names) \
             or sum(kernels.values()) != len(names):
         raise AssertionError(f"{what} launched {kernels}, expected one "
                              f"each of {names}")
@@ -1081,7 +1178,8 @@ def check_backward_launches(torch, ba, dtype=None):
                                         **BAND)
     _one_launch_each(
         torch, f"one backward of the trainable attention{sfx}",
-        lambda: torch.autograd.grad(out, (q, k, v), dout),
+        lambda: torch.autograd.grad(out, (q, k, v), dout,
+                                    retain_graph=True),
         (ba.banded_attention_dq, ba.banded_attention_dkv),
         (f"K2b{sfx}", f"K2c{sfx}"), attr)
 
@@ -1739,19 +1837,11 @@ def run_slice(torch, corpus=TIMIT, device="cuda", model_args=None):
     keys = [key for key, ok in zip(first.keys, first.valid) if ok]
     keys = keys[:spec.get("cpu_utts", len(keys))]
     bf16_error = check = None
-    t0 = time.perf_counter()
-    if corpus.get("compute_dtype") == "bfloat16":
-        check = bf16_compute_decode_check(torch, model, data, spec, device)
-        print(f"{corpus['name']}: first decode batch, card vs cpu: "
-              + json.dumps(check))
-        if check["encoder_ratio"] > corpus["decode_encoder_ratio"] \
-                or check["encoder_from_float32"] < BF16_DECODE_FLOAT32_FLOOR \
-                or not check["search_same_tokens"] \
-                or check["search_max_score_diff"] > CPU_SCORE_ATOL:
-            raise AssertionError(f"{corpus['name']}: the card's decode "
-                                 f"against the CPU's: {check}")
-        score_err = check["search_max_score_diff"]
-    else:  # the first decode batch again, on the CPU
+
+    def cpu_cross_check():
+        """The first decode batch again, on the CPU: its largest score
+        difference from the card's (and the bfloat16 stream's distance
+        from float32), or AssertionError."""
         sub = work / "data_first_batch"
         sub.mkdir()
         scp = dict(kaldi_io.scp_entries(str(data / "feats.scp")))
@@ -1773,10 +1863,36 @@ def run_slice(torch, corpus=TIMIT, device="cuda", model_args=None):
             (model32 / "config.json").write_text(json.dumps(config))
             decode.main(decode_args(sub, work / "decode_cpu_f32.txt", "cpu",
                                     model32))
-            score_err, bf16_error = compare_nbest_bf16(
+            return compare_nbest_bf16(
                 gpu, cpu, read_nbest(work / "decode_cpu_f32.txt"))
-        else:
-            score_err = compare_nbest(gpu, cpu)
+        return compare_nbest(gpu, cpu), None
+
+    t0 = time.perf_counter()
+    side = None
+    if corpus.get("compute_dtype") == "bfloat16":  # the card's part now
+        cpu_part = bf16_compute_decode_check(torch, model, data, spec,
+                                             device, defer=True)
+
+        def cpu_cross_check():
+            check = cpu_part()
+            print(f"{corpus['name']}: first decode batch, card vs cpu: "
+                  + json.dumps(check))
+            if check["encoder_ratio"] > corpus["decode_encoder_ratio"] \
+                    or check["encoder_from_float32"] \
+                    < BF16_DECODE_FLOAT32_FLOOR \
+                    or not check["search_same_tokens"] \
+                    or check["search_max_score_diff"] > CPU_SCORE_ATOL:
+                raise AssertionError(f"{corpus['name']}: the card's decode "
+                                     f"against the CPU's: {check}")
+            return check["search_max_score_diff"], check
+    if spec.get("cpu_side"):  # later, on the side thread
+        side = f"{corpus['name']} decode, first batch"
+        defer_side_check(side, cpu_cross_check)
+        score_err = "on the side thread"
+    elif corpus.get("compute_dtype") == "bfloat16":
+        score_err, check = cpu_cross_check()
+    else:
+        score_err, bf16_error = cpu_cross_check()
     encoder = None
     if corpus.get("check_encoder"):
         err, largest = encoder_card_vs_cpu(torch, model, data, spec, device)
@@ -1785,7 +1901,8 @@ def run_slice(torch, corpus=TIMIT, device="cuda", model_args=None):
             raise AssertionError(f"{corpus['name']}: encoder output, card "
                                  f"vs CPU: {encoder}")
     cpu_s = time.perf_counter() - t0
-    cpu_reference_done(f"{corpus['name']} decode, first batch", cpu_s)
+    if side is None:
+        cpu_reference_done(f"{corpus['name']} decode, first batch", cpu_s)
 
     audio_s = frames * 0.010
     return {
@@ -1799,12 +1916,12 @@ def run_slice(torch, corpus=TIMIT, device="cuda", model_args=None):
         "cpu_first_batch_s": cpu_s, "cpu_vs_card_max_score_err": score_err,
         "cpu_bf16_vs_f32_max_score_diff": bf16_error,
         "bf16_compute_decode_check": check,
-        "encoder_card_vs_cpu": encoder,
+        "encoder_card_vs_cpu": encoder, "cpu_side_check": side,
     }
 
 
 def bf16_compute_decode_check(torch, model, data, spec, device="cuda",
-                              fault=None):
+                              fault=None, defer=False):
     """The first decode batch of a bfloat16-compute ``model``, card
     against CPU, in two parts that the search's near-ties cannot confuse
     (a bfloat16 encoder moves the card's scores enough to reorder a beam,
@@ -1817,7 +1934,8 @@ def bf16_compute_decode_check(torch, model, data, spec, device="cuda",
     search on the CPU from the card's encoder output finds the card's
     n-best tokens, scores within CPU_SCORE_ATOL.  ``fault`` is planted on
     the card (``planted_fault``; ``float32_compute`` runs it so).  Returns
-    the numbers."""
+    the numbers; with ``defer``, the card's part done, a function that
+    does the CPU's part and returns them."""
     from pytorch_kaldi_asr_tpu_torch.data import read_vocab
     from pytorch_kaldi_asr_tpu_torch.data.loader import make_batch_loader, to_device
     from pytorch_kaldi_asr_tpu_torch.decode.fast_beam import (
@@ -1839,25 +1957,30 @@ def bf16_compute_decode_check(torch, model, data, spec, device="cuda",
     with torch.no_grad(), planted_fault(torch, fault):
         enc_dev, mask_f = encode(params_dev, dev_cfg, b_dev.src,
                                  b_dev.src_mask)
-    with torch.no_grad():
-        enc_cpu, mask_cpu = encode(params, cfg, b_cpu.src, b_cpu.src_mask)
-        enc32, _ = encode(params, own_error_config(cfg), b_cpu.src,
-                          b_cpu.src_mask)
-    keep = (mask_cpu > 0) & (b_cpu.valid[:, None] > 0)
-    card, cpu, cpu32 = (x.cpu().double()[keep] for x in (enc_dev, enc_cpu,
-                                                         enc32))
-    own = (cpu - cpu32).abs().mean()
-    ratio = float((card - cpu).abs().mean() / own)
-    from_float32 = float((card - cpu32).abs().mean() / own)
     kw = dict(beam_size=spec["beam"], max_len=spec["max_tokens"])
     res_dev = fast_beam_search_memory(params_dev, cfg, enc_dev, mask_f, **kw)
-    res_cpu = fast_beam_search_memory(params, cfg, enc_dev.cpu(),
-                                      mask_f.cpu(), **kw)
-    same_tokens = torch.equal(res_dev.tokens.cpu(), res_cpu.tokens)
-    score_err = float((res_dev.scores.cpu() - res_cpu.scores).abs().max())
-    return {"encoder_ratio": ratio, "encoder_from_float32": from_float32,
-            "search_same_tokens": same_tokens,
-            "search_max_score_diff": score_err}
+    enc_dev, mask_f = enc_dev.cpu(), mask_f.cpu()
+    tokens_dev, scores_dev = res_dev.tokens.cpu(), res_dev.scores.cpu()
+
+    def cpu_part():
+        with torch.no_grad():
+            enc_cpu, mask_cpu = encode(params, cfg, b_cpu.src,
+                                       b_cpu.src_mask)
+            enc32, _ = encode(params, own_error_config(cfg), b_cpu.src,
+                              b_cpu.src_mask)
+        keep = (mask_cpu > 0) & (b_cpu.valid[:, None] > 0)
+        card, cpu, cpu32 = (x.double()[keep] for x in (enc_dev, enc_cpu,
+                                                       enc32))
+        own = (cpu - cpu32).abs().mean()
+        ratio = float((card - cpu).abs().mean() / own)
+        from_float32 = float((card - cpu32).abs().mean() / own)
+        res_cpu = fast_beam_search_memory(params, cfg, enc_dev, mask_f, **kw)
+        return {"encoder_ratio": ratio, "encoder_from_float32": from_float32,
+                "search_same_tokens": torch.equal(tokens_dev, res_cpu.tokens),
+                "search_max_score_diff": float(
+                    (scores_dev - res_cpu.scores).abs().max())}
+
+    return cpu_part if defer else cpu_part()
 
 
 def check_fixed_buffer_search(torch, corpus, summary, device="cuda"):
@@ -1924,6 +2047,68 @@ def cpu_reference_done(label, seconds):
     their own."""
     CPU_REFERENCES.append((label, seconds))
     print(f"cpu reference {label}: {seconds:.1f} s", flush=True)
+
+
+# CPU cross-checks deferred to a side thread (run_slice's, where the
+# corpus's decode sets ``cpu_side``): queued by defer_side_check, started by
+# start_side_checks where the main thread mostly waits on processes (the
+# full run: as the recipe phase's run.sh starts), one at a time, each on
+# SIDE_CHECK_THREADS threads; joined by join_side_checks, which raises what
+# a check raised
+SIDE_CHECK_THREADS = 4
+SIDE_PENDING = []  # (label, fn) not started yet
+SIDE_CHECKS = []  # (label, Future, {"start_s", "end_s"} on the run's clock)
+_SIDE_POOL = []
+RUN_START = time.perf_counter()
+
+
+def defer_side_check(label, fn):
+    """Queue ``fn()``, a CPU cross-check, for the side thread."""
+    SIDE_PENDING.append((label, fn))
+
+
+def start_side_checks(torch):
+    """Start the queued checks on the side thread; each one's wall seconds
+    are recorded as a CPU reference, and its start and end on the run's
+    clock, so the card timings taken meanwhile can be named."""
+    if SIDE_PENDING and not _SIDE_POOL:
+        _SIDE_POOL.append(concurrent.futures.ThreadPoolExecutor(1))
+    threads = torch.get_num_threads()
+    while SIDE_PENDING:
+        label, fn = SIDE_PENDING.pop(0)
+        span = {}
+
+        def job(label=label, fn=fn, span=span):
+            # this thread's team; the BLAS threads the setting shares with
+            # the main thread are given back when the check ends
+            torch.set_num_threads(SIDE_CHECK_THREADS)
+            t0 = time.perf_counter()
+            span["start_s"] = t0 - RUN_START
+            try:
+                return fn()
+            finally:
+                t1 = time.perf_counter()
+                torch.set_num_threads(threads)
+                span["end_s"] = t1 - RUN_START
+                cpu_reference_done(f"{label} (side thread)", t1 - t0)
+
+        SIDE_CHECKS.append((label, _SIDE_POOL[0].submit(job), span))
+
+
+def join_side_checks(torch):
+    """Start what is still queued, wait for every side check; raises the
+    first failure.  Returns {label: {"result", "start_s", "end_s",
+    "waited_s"}}."""
+    start_side_checks(torch)
+    out = {}
+    while SIDE_CHECKS:
+        label, future, span = SIDE_CHECKS.pop(0)
+        t0 = time.perf_counter()
+        result = future.result()
+        out[label] = {"result": result, **span,
+                      "waited_s": time.perf_counter() - t0}
+        print(f"side check {label}: " + json.dumps(out[label]), flush=True)
+    return out
 
 
 def _digest(torch, params, batch):
@@ -2371,6 +2556,105 @@ def prefetch_cpu_steps(torch):
         except Exception as e:  # noqa: BLE001 — the path takes it again
             print(f"prefetch of {corpus['name']}'s CPU steps failed: "
                   f"{e!r}")
+
+
+@contextlib.contextmanager
+def first_plain_k3(torch, fd):
+    """The plain K3 as it was first written (tests/torch_k3_reference.py:
+    Philox products from 16-bit halves, no pass of the CPU's counters, the
+    mask drawn again backward) in place of the current one, for a timing
+    beside it."""
+    import importlib.util
+
+    path = REPO / "tests" / "torch_k3_reference.py"
+    spec = importlib.util.spec_from_file_location("torch_k3_reference", path)
+    first = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(first)
+    saved = fd.dropout_bits, fd.fused_dropout_reference, fd._MaskedDropout
+
+    class Redraw(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, seed, threshold, scale):
+            ctx.args = (seed, threshold, scale)
+            return first.fused_dropout_reference(x, seed, threshold, scale)
+
+        @staticmethod
+        def backward(ctx, g):
+            return (first.fused_dropout_reference(g, *ctx.args), None, None,
+                    None)
+
+    fd.dropout_bits = first.dropout_bits
+    fd.fused_dropout_reference = first.fused_dropout_reference
+    fd._MaskedDropout = Redraw
+    try:
+        yield
+    finally:
+        fd.dropout_bits, fd.fused_dropout_reference, fd._MaskedDropout = saved
+
+
+def time_plain_k3_cpu(torch, fd, shape=(50400, 256), rounds=3):
+    """The plain K3's forward and backward on a CPU tensor of ``shape``
+    (the TIMIT encoder's dropout sites at batch 100), the current version
+    and the first (``first_plain_k3``) alternated: the median ms of each."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(shape, generator=g).requires_grad_()
+    dout = torch.randn(shape, generator=g)
+    threshold = fd.fused_dropout_threshold(0.35)
+
+    def once():
+        t0 = time.perf_counter()
+        fd.masked_dropout(x, 11, threshold, 1 / 0.65).backward(dout)
+        x.grad = None
+        return 1000 * (time.perf_counter() - t0)
+
+    times = {"ms": [], "first_ms": []}
+    once()
+    for _ in range(rounds):
+        times["ms"].append(once())
+        with first_plain_k3(torch, fd):
+            times["first_ms"].append(once())
+    return {"shape": list(shape), "threads": torch.get_num_threads(),
+            **{k: statistics.median(v) for k, v in times.items()}}
+
+
+def k3_plain_readings(torch, rounds=2):
+    """On this host's CPU: the plain K3 alone (``time_plain_k3_cpu``), and
+    the TIMIT train step's CPU reference (``_step_on`` at batch 100, the
+    recipe's dropout) with the current plain K3 and with the first,
+    alternated after one step of each to warm up, and a torch.profiler
+    table of its busiest operations with the current one."""
+    from pytorch_kaldi_asr_tpu_torch.ops import fused_dropout as fd
+    from pytorch_kaldi_asr_tpu_torch.train import load_checkpoint
+
+    out = {"k3": time_plain_k3_cpu(torch, fd)}
+    dirs, vocab, model, _, archive_args = train_setup(
+        torch, TIMIT, WORK / "k3_plain")
+    ckpt = load_checkpoint(str(model))
+    _, rows = step_batches(dirs, vocab, archive_args, TIMIT["train"]["batch"],
+                           None)
+
+    def step():
+        t0 = time.perf_counter()
+        _step_on(torch, "cpu", ckpt["params"], ckpt["cfg"], rows)
+        return time.perf_counter() - t0
+
+    steps = {"s": [], "first_s": []}
+    out["warm_up_s"] = step()
+    with first_plain_k3(torch, fd):
+        out["first_warm_up_s"] = step()
+    for _ in range(rounds):
+        steps["s"].append(step())
+        with first_plain_k3(torch, fd):
+            steps["first_s"].append(step())
+    out["timit_step"] = steps
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        step()
+    out["profile_top"] = [
+        [e.key, e.count, e.self_cpu_time_total / 1000.0]
+        for e in sorted(prof.key_averages(),
+                        key=lambda e: -e.self_cpu_time_total)[:12]]
+    return out
 
 
 def run_train(torch, corpus=TIMIT, device="cuda", model_args=None, utts=None,
@@ -2895,17 +3179,12 @@ def profile_steps(torch, step, n=3, by_name=False):
     step, the time of the port's kernels, and the kernels that take the
     most device time; with ``by_name``, every kernel's launches per step."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    def steps():
         for _ in range(n):
             step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
+
+    events, wall_ms, attempts = _profile(torch, steps)
     device, kernels = _kernel_rows(events)
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.device_time_total)[:12]
@@ -2918,6 +3197,7 @@ def profile_steps(torch, step, n=3, by_name=False):
         "device_ms_per_step": busy_ms / n,
         "idle_share": 1.0 - busy_ms / wall_ms,
         "kernels_per_step": sum(e.count for e in kernels) / n,
+        "profile_attempts": attempts,
         "port_kernels_ms_and_launches_per_step": ours,
         "top_kernels_ms_per_step": [
             [e.key[:80], e.device_time_total / 1e3 / n, e.count / n]
@@ -4092,6 +4372,338 @@ def run_hybrid(torch, device="cuda", knobs=None):
     return out
 
 
+# the lattice phase: the hybrid phase's posteriors and graph through the
+# lattice tools, each CLI as its own process, as a user runs them
+LATTICE = {"lattice_beam": 8.0, "prune_beam": 6.0, "nbest": 10,
+           "rescore_n": 20, "nlm_epochs": 2, "keywords": 4, "jobs": 8}
+
+
+def run_lattice(torch, hybrid_work, device="cuda", knobs=None):
+    """The lattice tools over the hybrid phase's ``hybrid_work`` (its
+    ``exp/post.scp``, the card's posteriors, and ``post_cpu.scp``, the
+    CPU's; its graph, LM, test text and CTM), each CLI a process in that
+    directory, writing under ``WORK/lattice``; each CLI starts as soon as
+    the CLIs whose output it reads are done, beside the others
+    (LATTICE["jobs"] chains at once):
+
+    1. ``prepare_vocab`` and ``train_nlm`` at its defaults for
+       LATTICE["nlm_epochs"] epochs over the training transcripts on
+       ``device``: K3 exactly (dropout sites) x steps each way, from its
+       exit log;
+    2. ``latgen -lattice_beam`` with the three lattice outputs over the
+       card's posteriors at the hybrid knobs: its result equal to run.sh's
+       ``exp/decode.txt``; meanwhile, in this process, ``latgen_lattice``
+       over the card's and the CPU's posteriors: each utterance's best-path
+       words the same and its cost within HYBRID_COST_ATOL (the lattices'
+       node and link counts printed, not gated: they may differ at the
+       beam's edge);
+    3. ``lattice_copy`` from the ``.scp`` with ``-prune_beam``, ``-nbest``
+       and ``-oracle_ref``: the oracle's errors no more than the 1-best's;
+    4. ``lattice_rescore`` with ``-lm`` (the recipe's 3-gram) and with
+       ``-nlm_model_dir`` on ``device`` and on the CPU: a line for every
+       test utterance, the two NLM runs the same transcripts; in this
+       process the hypotheses' NLM scores on ``device`` and on the CPU
+       within NLM_SCORE_ATOL;
+    5. ``lattice_to_ctm`` (consensus CTM), ``align_ctm -refine_ctm`` on
+       it: CTM lines of positive duration for every test utterance;
+    6. ``rover`` over the refined CTM and run.sh's ``exp/test.ctm``;
+    7. ``kws search`` for LATTICE["keywords"] keywords from the test text
+       (its most frequent words and a word pair of the 1-best), each found
+       at least once, then ``kws post-process``;
+    8. ``show_lattice`` on the first utterance.
+
+    Returns each CLI's wall and start-up seconds (with its neighbours
+    running), the lattice sizes, the WERs, the checks and the launches
+    read from the CLIs' logs."""
+    import xml.etree.ElementTree as ET
+
+    import numpy as np
+
+    from pytorch_kaldi_asr_tpu_torch.data import read_vocab
+    from pytorch_kaldi_asr_tpu_torch.decode.latgen import latgen_lattice
+    from pytorch_kaldi_asr_tpu_torch.decode.lattice_ops import nbest
+    from pytorch_kaldi_asr_tpu_torch.fst.openfst_io import (
+        read_fst,
+        read_lattice_ark,
+    )
+    from pytorch_kaldi_asr_tpu_torch.io import kaldi_io
+    from pytorch_kaldi_asr_tpu_torch.models.nlm import (
+        load_nlm,
+        score_sentences,
+    )
+    from pytorch_kaldi_asr_tpu_torch.score.wer import compute_wer
+    from pytorch_kaldi_asr_tpu_torch.utils.logging import STARTUP_RE
+
+    knobs = dict(HYBRID_KNOBS, device=device, **(knobs or {}))
+    t_phase = time.perf_counter()
+    hw = Path(hybrid_work).resolve()
+    exp, data = hw / "exp", hw / "data"
+    work = _fresh(WORK / "lattice")
+    words_txt = exp / "graph" / "words.txt"
+    clis, logs = {}, {}
+
+    def cli(name, module, *args):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", f"pytorch_kaldi_asr_tpu_torch.{module}",
+             *map(str, args)], cwd=str(hw), capture_output=True, text=True,
+            env=dict(os.environ, PYTHONPATH=str(REPO), PYTHONUNBUFFERED="1"),
+            timeout=900)
+        wall = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        (work / f"{name}.log").write_text(log)
+        if proc.returncode != 0:
+            raise AssertionError(f"lattice phase: {name} exited "
+                                 f"{proc.returncode}: {log[-3000:]}")
+        start = [float(s) for _, s in re.findall(STARTUP_RE, proc.stderr)]
+        clis[name] = {"wall_s": wall, "startup_s": start[0] if start
+                      else None, "started_s": t0 - t_phase}
+        logs[name] = log
+
+    refs = kaldi_io.read_key_value_text(str(data / "test" / "text"))
+    out = {"knobs": knobs, "lattice": dict(LATTICE)}
+
+    def wer(path):
+        hyps = kaldi_io.read_key_value_text(str(path))
+        if sorted(hyps) != sorted(refs):
+            raise AssertionError(f"{path.name}: {len(hyps)} lines for "
+                                 f"{len(refs)} test utterances")
+        return compute_wer(refs, hyps)
+
+    beam = float(knobs.get("beam", 14))
+    max_active = int(knobs.get("max_active", 2000))
+    scale = float(knobs.get("acoustic_scale", 1.0))
+    vocab, ark = work / "nlm_vocab.txt", f"ark:{work / 'lat.ark'}"
+    nlm_args = ["-words", words_txt, "-nlm_model_dir", work / "nlm",
+                "-read_vocab_file", vocab, "-n", LATTICE["rescore_n"], ark]
+    picked = {}  # 7.'s keywords and 8.'s utterance, from latgen's result
+
+    def pick_keywords():
+        """The test text's most frequent words and a word pair that the
+        first utterance's reference and 1-best share."""
+        counts = {}
+        for words in refs.values():
+            for w in words.split():
+                counts[w] = counts.get(w, 0) + 1
+        frequent = sorted(counts, key=lambda w: (-counts[w], w))
+        first = (work / "decode.txt").read_text().splitlines()[0].split()
+        ref_first = refs[first[0]].split()
+        pairs = set(zip(ref_first, ref_first[1:]))
+        pair = next((f"{a} {b}" for a, b in zip(first[1:], first[2:])
+                     if (a, b) in pairs), None)
+        picked["keywords"] = (frequent[:LATTICE["keywords"] - 1] + [pair]
+                              if pair else frequent[:LATTICE["keywords"]])
+        picked["utt"] = first[0]
+        (work / "keywords.txt").write_text("".join(
+            f"KW{i} {k}\n" for i, k in enumerate(picked["keywords"])))
+
+    with concurrent.futures.ThreadPoolExecutor(LATTICE["jobs"]) as pool:
+        def start(*steps, after=()):
+            """A chain of CLIs (or callables), one after another, once the
+            jobs ``after`` are done."""
+            def chain():
+                for job in after:
+                    job.result()
+                for step in steps:
+                    step() if callable(step) else cli(*step)
+            return pool.submit(chain)
+
+        # 1. the neural LM on the card; 2. latgen's lattices
+        nlm_job = start(
+            ("prepare_vocab", "recipes.prepare_vocab", "-read_instances_file",
+             data / "train" / "text", "-save_vocab_file", vocab),
+            ("train_nlm", "recipes.train_nlm", "-text",
+             data / "train" / "text", "-read_vocab_file", vocab,
+             "-save_model_dir", work / "nlm", "-epoch",
+             LATTICE["nlm_epochs"], "-device", device))
+        (work / "slf").mkdir()
+        latgen_job = start((
+            "latgen", "recipes.latgen", "-graph_dir", exp / "graph",
+            "-rspecifier", "scp:exp/post.scp", "-acoustic_scale", scale,
+            "-beam", beam, "-max_active", max_active, "-lattice_beam",
+            LATTICE["lattice_beam"], "-save_result_file",
+            work / "decode.txt", "-save_lattice_file", work / "lat.txt",
+            "-save_lattice_ark", work / "lat.ark", "-save_slf",
+            work / "slf"))
+        # 3.-8.: the tools over latgen's lattices, as each one's inputs are
+        # written
+        jobs = [
+            start(("lattice_copy", "tools.lattice_copy", "-words", words_txt,
+                   "-prune_beam", LATTICE["prune_beam"], "-nbest",
+                   LATTICE["nbest"], "-nbest_file", work / "nbest.txt",
+                   "-oracle_ref", data / "test" / "text", "-oracle_file",
+                   work / "oracle.txt", f"scp:{work / 'lat.ark.scp'}",
+                   f"ark,t:{work / 'lat_pruned.txt'}"), after=[latgen_job]),
+            start(("lattice_to_ctm", "tools.lattice_to_ctm", "-words",
+                   words_txt, ark, work / "consensus.ctm", "-text",
+                   work / "consensus.tra"),
+                  ("align_ctm_refine", "tools.align_ctm", "-lexicon",
+                   exp / "lexicon.txt", "-phones", data / "phones.txt",
+                   "-text", data / "test" / "text", "-acoustic_scale", scale,
+                   "-refine_ctm", work / "consensus.ctm", "scp:exp/post.scp",
+                   work / "refined.ctm"),
+                  ("rover", "tools.rover", "-o", work / "rover.tra",
+                   "-conf_output", work / "rover.conf", work / "refined.ctm",
+                   exp / "test.ctm"), after=[latgen_job]),
+            start(("lattice_rescore_lm", "tools.lattice_rescore", "-words",
+                   words_txt, "-lm", data / "lm.gz", "-n",
+                   LATTICE["rescore_n"], ark, work / "rescore_lm.txt"),
+                  after=[latgen_job]),
+            start(pick_keywords,
+                  ("kws_search", "tools.kws", "search", "-keywords",
+                   work / "keywords.txt", "-lattices", work / "lat.txt",
+                   "-output", work / "kws.xml"),
+                  ("kws_post_process", "tools.kws", "post-process",
+                   work / "kws.xml", work / "kws_post.xml", "-normalize",
+                   "kst"),
+                  lambda: cli("show_lattice", "tools.show_lattice",
+                              "-lattices", work / "lat.txt", "-utt",
+                              picked["utt"], "-output",
+                              work / f"{picked['utt']}.dot"),
+                  after=[latgen_job]),
+            start(("lattice_rescore_nlm", "tools.lattice_rescore", *nlm_args,
+                   work / "rescore_nlm.txt", "-device", device),
+                  after=[nlm_job, latgen_job]),
+            start(("lattice_rescore_nlm_cpu", "tools.lattice_rescore",
+                   *nlm_args, work / "rescore_nlm_cpu.txt", "-device",
+                   "cpu"), after=[nlm_job, latgen_job])]
+
+        # in process meanwhile: latgen_lattice over both posteriors
+        graph = read_fst(str(exp / "graph" / "HLG.fst"))
+        id2word = {int(v): w for w, v in (line.split() for line in
+                                          open(words_txt))}
+        kw = dict(acoustic_scale=scale, beam=beam, max_active=max_active,
+                  lattice_beam=LATTICE["lattice_beam"], id2word=id2word)
+        t0 = time.perf_counter()
+        card = list(kaldi_io.read_mat_scp(str(exp / "post.scp")))
+        cpu = dict(kaldi_io.read_mat_scp(str(hw / "post_cpu.scp")))
+        sizes, cost_err = {}, 0.0
+        for key, post in card:
+            lats = [latgen_lattice(graph, p, utt=key, **kw)
+                    for p in (post, cpu[key])]
+            if None in lats:
+                raise AssertionError(f"latgen_lattice {key}: no path "
+                                     "survived")
+            (w_card, c_card), (w_cpu, c_cpu) = (lat.best_path()
+                                                for lat in lats)
+            cost_err = max(cost_err, abs(c_card - c_cpu))
+            if w_card != w_cpu or not abs(c_card - c_cpu) <= \
+                    HYBRID_COST_ATOL:
+                raise AssertionError(f"latgen_lattice {key}: card {c_card} "
+                                     f"vs CPU {c_cpu}, words differ: "
+                                     f"{w_card != w_cpu}")
+            sizes[key] = {where: [lat.num_nodes, len(lat.links)]
+                          for where, lat in zip(("card", "cpu"), lats)}
+        out["latgen_lattice"] = {"max_cost_err": cost_err, "sizes": sizes,
+                                 "s": time.perf_counter() - t0}
+        print("lattice phase: latgen_lattice card vs CPU (nodes, links): "
+              + json.dumps(out["latgen_lattice"]), flush=True)
+        latgen_job.result()
+        if (work / "decode.txt").read_bytes() != (exp / "decode.txt") \
+                .read_bytes():
+            raise AssertionError("latgen -save_lattice_*: its result "
+                                 "differs from run.sh's exp/decode.txt")
+        written = dict(read_lattice_ark(str(work / "lat.ark"), id2word))
+        seqs = [words for lat in written.values() for words, *_ in
+                nbest(lat, LATTICE["rescore_n"], with_components=True)]
+        nlm_job.result()
+        # in process: the hypotheses' NLM scores, card against CPU
+        word2idx = read_vocab(str(vocab))
+        scores = {}
+        for where in (device, "cpu"):
+            p, c, _ = load_nlm(str(work / "nlm"), device=where)
+            scores[where] = np.array(score_sentences(p, c, seqs, word2idx))
+        for job in jobs:
+            job.result()
+    keywords, utt = picked["keywords"], picked["utt"]
+
+    # 1.: K3 in train_nlm
+    params, cfg, meta = load_nlm(str(work / "nlm"))
+    n_sents = len((data / "train" / "text").read_text().splitlines())
+    steps = LATTICE["nlm_epochs"] * max(1, n_sents // 32)
+    sites = 2 + 3 * cfg.de_layers  # embeddings, per layer 3, the output
+    nlm_launches, nlm_devices = recipe_launches([logs["train_nlm"]])
+    if meta["step"] != steps or nlm_devices != {device}:
+        raise AssertionError(f"train_nlm took {meta['step']} steps on "
+                             f"{nlm_devices}, expected {steps} on {device}")
+    if device.startswith("cuda"):
+        check_step_launches("lattice phase train_nlm", nlm_launches, {
+            "fused_dropout_forward": sites * steps,
+            "fused_dropout_backward": sites * steps,
+            "fused_dropout_forward_bf16": 0,
+            "fused_dropout_backward_bf16": 0})
+    out["nlm"] = {"steps": steps, "dropout_sites": sites,
+                  "launches": nlm_launches}
+
+    # 2.: latgen's three outputs cover the test set
+    if sorted(written) != sorted(refs) or not (work / "lat.ark.scp") \
+            .exists() or len(list((work / "slf").glob("*.lat.gz"))) \
+            != len(refs):
+        raise AssertionError("latgen's lattice outputs do not cover the "
+                             "test set")
+
+    # 3.: the oracle no worse than the 1-best
+    overall = (work / "oracle.txt").read_text().splitlines()[-1].split()
+    onebest = wer(work / "decode.txt")
+    out["oracle"] = {"errors": int(overall[1]), "words": int(overall[2]),
+                     "wer": 100.0 * int(overall[1]) / max(int(overall[2]),
+                                                          1)}
+    out["onebest_wer"] = onebest
+    if int(overall[1]) > onebest["errors"]:
+        raise AssertionError(f"oracle {out['oracle']} worse than the "
+                             f"1-best {onebest}")
+
+    # 4.: rescoring
+    out["rescored_wer"] = {name: wer(work / f"rescore_{name}.txt")
+                           for name in ("lm", "nlm")}
+    if (work / "rescore_nlm.txt").read_bytes() != \
+            (work / "rescore_nlm_cpu.txt").read_bytes():
+        raise AssertionError("lattice_rescore -nlm_model_dir: the card's "
+                             "transcripts differ from the CPU's")
+    nlm_err = float(np.abs(scores[device] - scores["cpu"]).max())
+    out["nlm_scores"] = {"hypotheses": len(seqs), "max_abs_err": nlm_err}
+    if not np.isfinite(scores[device]).all() or nlm_err > NLM_SCORE_ATOL:
+        raise AssertionError(f"lattice hypotheses' NLM scores, {device} vs "
+                             f"cpu: {nlm_err} (limit {NLM_SCORE_ATOL})")
+
+    # 5. and 6.: the CTMs and ROVER
+    for name in ("consensus.ctm", "refined.ctm"):
+        rows = [line.split() for line in (work / name).read_text()
+                .splitlines()]
+        if {r[0] for r in rows} != set(refs) or not all(
+                len(r) == 6 and float(r[3]) > 0 for r in rows):
+            raise AssertionError(f"{name}: {len(rows)} lines over "
+                                 f"{len({r[0] for r in rows})} of "
+                                 f"{len(refs)} utterances, or a duration "
+                                 "<= 0")
+        out[name.replace(".", "_") + "_lines"] = len(rows)
+    out["consensus_wer"] = wer(work / "consensus.tra")
+    out["rover_wer"] = wer(work / "rover.tra")
+
+    # 7. and 8.: every keyword found; a dot graph
+    found = dict.fromkeys((f"KW{i}" for i in range(len(keywords))), 0)
+    for dk in ET.parse(work / "kws.xml").getroot().findall(
+            "detected_kwlist"):
+        found[dk.get("kwid")] = len(dk.findall("kw"))
+    out["kws"] = {"keywords": keywords, "hits": found}
+    if not all(found.values()):
+        raise AssertionError(f"kws: a keyword was not found: {out['kws']}")
+    if not (work / f"{utt}.dot").read_text().startswith("digraph lattice"):
+        raise AssertionError("show_lattice wrote no dot graph")
+
+    launches, devices = recipe_launches(logs.values())
+    out.update({"clis": clis,
+                "launches": {**dict.fromkeys(launch_counts(), 0),
+                             **launches},
+                "devices": sorted(devices),
+                "seconds": time.perf_counter() - t_phase})
+    print("lattice phase: " + json.dumps(out))
+    for name, row in sorted(clis.items(), key=lambda kv: kv[1]["started_s"]):
+        print(f"lattice phase CLI {name}: started at {row['started_s']:.2f} "
+              f"s, {row['wall_s']:.2f} s, start-up {row['startup_s']} s")
+    return out
+
+
 # the serve phase: the recognition server (recipes/serve.py) as a process,
 # in attention mode on the TIMIT banded checkpoint of the decode path, in
 # hybrid mode on a causal copy of the long-form AM and the hybrid phase's
@@ -4656,6 +5268,12 @@ def main():
     recipe_only = sys.argv[1:2] == ["--recipe"]
     hybrid_only = sys.argv[1:2] == ["--hybrid"]
     serve_only = sys.argv[1:2] == ["--serve"]
+    lattice_only = sys.argv[1:2] == ["--lattice"]
+    if sys.argv[1:2] == ["--k3-plain"]:  # the CPU alone: nothing to build
+        sys.path.insert(0, str(REPO))
+        print(f"card: {card_line()}")
+        print("K3_PLAIN " + json.dumps(k3_plain_readings(torch)))
+        return 0
     sources = ([Path(p).resolve() for p in sys.argv[2:]]
                if sys.argv[1:2] == ["--k2-sources"] else None)
     if sources == []:
@@ -4678,7 +5296,8 @@ def main():
     from pytorch_kaldi_asr_tpu_torch.ops import _build
     from pytorch_kaldi_asr_tpu_torch.utils.device import disable_tf32
 
-    t_start = time.perf_counter()
+    global RUN_START
+    t_start = RUN_START = time.perf_counter()
     card = card_line()
     print(f"card: {card}")
     disable_tf32()
@@ -4690,7 +5309,8 @@ def main():
         return 0
 
     full_run = not (sources or noisy_leaf or bf16_gates or bf16_compute_gates
-                    or step_only or recipe_only or hybrid_only or serve_only)
+                    or step_only or recipe_only or hybrid_only or serve_only
+                    or lattice_only)
     # the training paths' CPU reference steps use the CPU while nvcc builds
     prefetch = (threading.Thread(target=prefetch_cpu_steps, args=(torch,),
                                  daemon=True) if full_run else None)
@@ -4738,7 +5358,7 @@ def main():
              **train_step_only(torch, corpus)}))
         return 0
 
-    if not (recipe_only or hybrid_only or serve_only):
+    if not (recipe_only or hybrid_only or serve_only or lattice_only):
         kp = kernel_phase(torch)
         print(f"kernel phase done at {time.perf_counter() - t_start:.1f} s")
 
@@ -4793,6 +5413,9 @@ def main():
         print("fbank: " + json.dumps(phase["fbank"]))
         decode_path(TIMIT_TDNN)
         t0 = time.perf_counter()
+        # the deferred CPU cross-checks beside run.sh, whose processes
+        # leave most of the host's cores idle
+        start_side_checks(torch)
         phase["recipe"] = run_recipe(torch)
         phase["recipe"]["card"] = card
         print("recipe: " + json.dumps(phase["recipe"]))
@@ -4813,6 +5436,21 @@ def main():
         phase["recipe"]["card"] = card
         print(f"hybrid phase: {time.perf_counter() - t0:.1f} s, done at "
               f"{time.perf_counter() - t_start:.1f} s")
+        return phase
+
+    def lattice_phase():
+        """The lattice tools over the hybrid phase's posteriors, graph and
+        CTM (``run_lattice``)."""
+        phase = run_lattice(torch, WORK / "hybrid")
+        phase["card"] = card
+        print(f"lattice phase: {phase['seconds']:.1f} s, oracle WER "
+              f"{phase['oracle']['wer']:.2f} %, 1-best "
+              f"{phase['onebest_wer']['wer']:.2f} %, rescored 3-gram "
+              f"{phase['rescored_wer']['lm']['wer']:.2f} %, NLM "
+              f"{phase['rescored_wer']['nlm']['wer']:.2f} %, consensus "
+              f"{phase['consensus_wer']['wer']:.2f} %, rover "
+              f"{phase['rover_wer']['wer']:.2f} %; done at "
+              f"{time.perf_counter() - t_start:.1f} s; {card}")
         return phase
 
     def serve_phase():
@@ -4838,6 +5476,11 @@ def main():
         return 0
     if hybrid_only:
         hybrid_phase(kernels=True)
+        return 0
+    if lattice_only:
+        hybrid_phase(kernels=True)
+        lattice_phase()
+        print(f"whole run {time.perf_counter() - t_start:.1f} s")
         return 0
     if serve_only:  # the serve phase and the paths that make its inputs
         decode_path(TIMIT)
@@ -4895,14 +5538,20 @@ def main():
 
     recipe = recipe_phase()
     hybrid = hybrid_phase(kernels=False)
-    print(f"before the serve phase: {time.perf_counter() - t_start:.1f} s")
+    join_side_checks(torch)
+    before_lattice = time.perf_counter() - t_start
+    print(f"before the lattice phase: {before_lattice:.1f} s")
+    lattice = lattice_phase()
+    before_serve = time.perf_counter() - t_start
+    print(f"before the serve phase: {before_serve:.1f} s (without the "
+          f"lattice phase: {before_serve - lattice['seconds']:.1f} s)")
     serve = serve_phase()
 
     def total(name, paths):
         return sum(p["launches"][name] for p in paths)
 
     paths = [*decodes.values(), *trainings.values(), *extra.values(),
-             recipe["recipe"], hybrid["recipe"], serve]
+             recipe["recipe"], hybrid["recipe"], lattice, serve]
     jax_file = "pytorch_kaldi_asr_tpu/ops/banded_attention.py"
     source = "pytorch_kaldi_asr_tpu_torch/ops/csrc/banded_attention_train.cu"
     kernels = []

@@ -30,9 +30,12 @@ stages 0-4, in ``recipes/longform-conformer-cuda/``:
 - ``lm``      the backoff n-gram LM: training, ARPA files, scoring.
 - ``decode``  the KV-cached and the fixed-buffer beam searches, shallow
               fusion of the neural LM, and the n-best writer; token passing
-              over an HLG graph on the host and forced alignment.
+              over an HLG graph on the host, its word lattices (Kaldi text,
+              SLF, dot; n-best, pruning, oracle), confusion networks,
+              consensus CTMs and ROVER, and forced alignment.
 - ``fst``     the host WFST core: compose, determinize, minimize, the
-              HLG compilation and OpenFst's binary files.
+              HLG compilation, OpenFst's binary files and Kaldi's binary
+              lattice arks.
 - ``train``   loss, Adam with the hyperbolic LR schedule, train state and
               steps, the epoch driver and checkpoint averaging, checkpoints
               in the flax on-disk layout (optimizer state port-native).
@@ -40,7 +43,9 @@ stages 0-4, in ``recipes/longform-conformer-cuda/``:
 - ``parallel`` the job launcher the recipes name as ``$cuda_cmd``.
 - ``tools``   the recipes' host tools (feat-to-len, length filter, CMVN,
               WER, best WER), fbank/MFCC with the spectra on the device,
-              WAV I/O, the synthetic corpora and the fusion weight sweep.
+              WAV I/O, the synthetic corpora and the fusion weight sweep;
+              the lattice tools (lattice_copy, lattice_rescore,
+              lattice_to_ctm, rover, kws, show_lattice, ctm).
 - ``recipes`` the ``prepare_vocab``, ``train_lm``, ``initialize_model``,
               ``generate_archive``, ``train``, ``combine``, ``decode``,
               ``train_nlm``, ``score_lm`` and ``rescore`` entry points; the

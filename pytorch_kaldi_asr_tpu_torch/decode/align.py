@@ -1,7 +1,7 @@
 """Forced alignment: transcript-constrained Viterbi over AM posteriors,
 yielding per-frame phone alignments and word time boundaries (the port's
 copy of ``pytorch_kaldi_asr_tpu.decode.align``, without HMM topology
-files and the CTM refinement, which come with the lattice tools).
+files: ROADMAP.md, queue 1 item 8b).
 
 - :func:`linear_grammar` — an Fst accepting exactly one word sequence;
 - :func:`align_graph` — L ∘ linear-G with disambiguation stripped and the
@@ -10,7 +10,9 @@ files and the CTM refinement, which come with the lattice tools).
 - :func:`forced_align` — Viterbi over the alignment graph via
   decode/latgen.py's StreamingLatgen, converting the frame-stamped best
   path into :class:`WordSegment` boundaries (trailing silence stripped);
-- :func:`ctm_from_alignment` — NIST CTM lines.
+- :func:`ctm_from_alignment` — NIST CTM lines;
+- :func:`refine_ctm_times` — an existing CTM's times (the consensus CTM of
+  tools/lattice_to_ctm.py) patched with forced-alignment boundaries.
 
 CLI: tools/align_ctm.py (posterior ark + text -> CTM).
 """
@@ -139,6 +141,48 @@ def ctm_from_alignment(utt, ali, id2word, *, frame_rate=0.01, channel=1,
         lines.append(f"{utt} {channel} {start:.2f} {dur:.2f} {word} "
                      f"{conf:.2f}")
     return lines
+
+
+def refine_ctm_times(ctm_lines, alignments, *, frame_rate=0.01):
+    """Patch the time fields of an existing CTM (e.g. the consensus CTM
+    from tools/lattice_to_ctm.py) with forced-alignment boundaries.
+
+    ``alignments``: {utt: (Alignment, id2word)}.  An utterance's times are
+    replaced only when its CTM word sequence matches the alignment's word
+    sequence exactly (a consensus hypothesis that disagrees with the
+    transcript keeps its lattice-derived times — patching a mismatched
+    sequence would attach the wrong boundaries).  Confidences and any
+    trailing fields are preserved.  Returns (new_lines, n_refined_utts)."""
+    by_utt = {}
+    order = []
+    for line in ctm_lines:
+        parts = line.split()
+        if not parts:
+            continue
+        utt = parts[0]
+        if utt not in by_utt:
+            by_utt[utt] = []
+            order.append(utt)
+        by_utt[utt].append(parts)
+
+    refined = 0
+    out = []
+    for utt in order:
+        rows = by_utt[utt]
+        ali_entry = alignments.get(utt)
+        patch = False
+        if ali_entry is not None:
+            ali, id2word = ali_entry
+            ali_words = [id2word.get(s.word, f"#{s.word}")
+                         for s in ali.words]
+            patch = ali_words == [r[4] for r in rows]
+        if patch:
+            refined += 1
+            for r, seg in zip(rows, ali.words):
+                r[2] = f"{seg.start * frame_rate:.2f}"
+                r[3] = f"{(seg.end - seg.start + 1) * frame_rate:.2f}"
+        out.extend(" ".join(r) for r in rows)
+    return out, refined
 
 
 def word_syms_from_lexicon(lexicon):

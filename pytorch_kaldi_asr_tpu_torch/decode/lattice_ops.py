@@ -9,6 +9,8 @@ the host):
 - :func:`oracle_wer`        lattice-oracle (the least edit distance over all
                             lattice paths, by dynamic programming over
                             (node, reference position) states)
+- :func:`oracle_errors`     its error count alone, the DP a node's row at
+                            a time in numpy (tools/lattice_copy.py)
 
 The recognition server's hybrid n-best reads :func:`nbest`.
 """
@@ -229,3 +231,38 @@ def oracle_wer(lat, ref_words):
             words.append(link.word)
         s, j = ps, pj
     return (int(best_err), words[::-1])
+
+
+def oracle_errors(lat, ref_words):
+    """The error count of :func:`oracle_wer` alone, without its best path:
+    the same DP over (lattice node, reference position), each node's row
+    at once in numpy — its deletions as a running minimum, then each
+    link's epsilon move, insertion and match or substitution into the
+    row of its end node.  The counts are small integers in float64, so
+    they are exact; lattice_copy's ``-oracle_ref`` writes only these."""
+    import numpy as np
+
+    R = len(ref_words)
+    ar = np.arange(R + 1, dtype=np.float64)
+    ref = np.array(ref_words, dtype=object)
+    dist = np.full((lat.num_nodes, R + 1), math.inf)
+    dist[0, 0] = 0.0
+    out = lat.out_links()
+    mismatch = {}  # word -> [R] 0 where the reference word is it, else 1
+    for s in lat.topo_order():
+        if dist[s].min() == math.inf:
+            continue
+        row = np.minimum.accumulate(dist[s] - ar) + ar  # deletions
+        dist[s] = row
+        for l in out[s]:
+            t = dist[l.end]
+            if l.word in _EPS_WORDS:  # epsilon link: free move
+                np.minimum(t, row, out=t)
+                continue
+            np.minimum(t, row + 1.0, out=t)  # insertion
+            sub = mismatch.get(l.word)
+            if sub is None:
+                sub = mismatch[l.word] = (ref != l.word).astype(np.float64)
+            np.minimum(t[1:], row[:-1] + sub, out=t[1:])
+    best = min((dist[s, R] for s in lat.finals), default=math.inf)
+    return R if best == math.inf else int(best)

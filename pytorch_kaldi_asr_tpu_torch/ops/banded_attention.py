@@ -234,10 +234,10 @@ def dropout_threshold(rate):
 
 
 def _mul32(x, c):
-    """(x * c) mod 2**32 for int64 ``x`` in [0, 2**32) and ``c`` < 2**32,
-    in products that stay below 2**49 (a plain int64 product would
-    overflow for the two larger hash constants)."""
-    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
+    """(x * c) mod 2**32 for int64 ``x`` in [0, 2**32) and ``c`` < 2**32:
+    one int64 multiply, which wraps past 2**63 but keeps the product's low
+    64 bits, so its low 32 are exact."""
+    return (x * c).bitwise_and_(_M32)
 
 
 def dropout_keep(seed, bh, q_pos, k_pos, rate):
@@ -249,12 +249,12 @@ def dropout_keep(seed, bh, q_pos, k_pos, rate):
     x = (_mul32(torch.as_tensor(q_pos, dtype=torch.int64), 2654435761)
          + _mul32(torch.as_tensor(k_pos, dtype=torch.int64), 2246822519)
          + _mul32(torch.as_tensor(bh, dtype=torch.int64), 3266489917)
-         + int(seed)) & _M32
-    x = x ^ (x >> 16)
+         + int(seed)).bitwise_and_(_M32)
+    x.bitwise_xor_(x >> 16)
     x = _mul32(x, 0x7FEB352D)
-    x = x ^ (x >> 15)
+    x.bitwise_xor_(x >> 15)
     x = _mul32(x, 0x846CA68B)
-    x = x ^ (x >> 16)
+    x.bitwise_xor_(x >> 16)
     return x >= dropout_threshold(rate)
 
 

@@ -20,7 +20,8 @@ launches, forward and backward apart, under ``forward``/``backward`` for
 float32 and ``forward_bf16``/``backward_bf16`` for bfloat16.  :func:`masked_dropout` makes it
 differentiable through one ``torch.autograd.Function`` whose backward is
 the same pass on the cotangent with the same seed, so nothing but the seed
-is saved.  Two thresholds use it:
+is saved (on the CPU the plain version keeps its mask instead).  Two
+thresholds use it:
 
 - :func:`fused_dropout`, the JAX package's ``ops.fused_dropout`` (the TPU
   kernel K3): ``threshold = min(int(rate * 2**32), 2**32 - 1)``, scale
@@ -47,27 +48,29 @@ _PHILOX_M = (0xD2511F53, 0xCD9E8D57)  # round multipliers
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)  # key increments (Weyl sequence)
 
 
-def _mulhilo(a, m):
-    """(hi, lo) 32-bit words of ``a * m`` for int64 ``a`` in [0, 2**32) and
-    a constant ``m`` < 2**32, from 16-bit halves of ``m`` so every product
-    stays below 2**49 (a plain int64 product would overflow)."""
-    p_lo = a * (m & 0xFFFF)
-    mid = a * (m >> 16) + (p_lo >> 16)
-    return mid >> 16, ((mid & 0xFFFF) << 16) | (p_lo & 0xFFFF)
+# counters per CPU pass of ``dropout_bits``: few enough that a pass's
+# words stay near the cores through its ten rounds, enough that each of its
+# elementwise ops is worth spreading over the intra-op threads
+_CPU_CHUNK = 1 << 18
 
 
 def philox4x32(counter, key):
     """Philox4x32-10 of four int64 tensors holding 32-bit words
     (``counter``) under the two 32-bit key words ``key``; returns the four
-    output words.  Matches Random123's ``philox4x32_10``."""
+    output words.  Matches Random123's ``philox4x32_10``.  Each 32 x 32-bit
+    product is one int64 multiply, which wraps past 2**63: its low 64 bits
+    are the product's, so a mask reads both 32-bit halves (the high half's
+    sign extension masked off)."""
     c0, c1, c2, c3 = counter
     k0, k1 = key
     for r in range(10):
         if r:
             k0, k1 = (k0 + _PHILOX_W[0]) & _M32, (k1 + _PHILOX_W[1]) & _M32
-        hi0, lo0 = _mulhilo(c0, _PHILOX_M[0])
-        hi1, lo1 = _mulhilo(c2, _PHILOX_M[1])
-        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        p0 = c0 * _PHILOX_M[0]
+        p1 = c2 * _PHILOX_M[1]
+        c0 = (p1 >> 32).bitwise_and_(_M32).bitwise_xor_(c1).bitwise_xor_(k0)
+        c2 = (p0 >> 32).bitwise_and_(_M32).bitwise_xor_(c3).bitwise_xor_(k1)
+        c1, c3 = p1.bitwise_and_(_M32), p0.bitwise_and_(_M32)
     return c0, c1, c2, c3
 
 
@@ -78,23 +81,38 @@ def _key(seed):
 
 def dropout_bits(seed, n, device=None):
     """The kernel's 32-bit words for flat indices ``0 .. n-1``, as int64
-    [n]: lane ``i % 4`` of Philox4x32-10 at counter ``i // 4``."""
-    g = torch.arange(-(-n // 4), dtype=torch.int64, device=device)
-    zero = torch.zeros_like(g)
-    words = philox4x32((g & _M32, g >> 32, zero, zero), _key(seed))
-    return torch.stack(words, dim=1).reshape(-1)[:n]
+    [n]: lane ``i % 4`` of Philox4x32-10 at counter ``i // 4``.  On the CPU
+    the counters go through in passes of ``_CPU_CHUNK``."""
+    m = -(-n // 4)
+    device = torch.device(device or "cpu")
+    chunk = _CPU_CHUNK if device.type == "cpu" else max(m, 1)
+    key = _key(seed)
+    out = torch.empty((m, 4), dtype=torch.int64, device=device)
+    for lo in range(0, m, chunk):
+        g = torch.arange(lo, min(lo + chunk, m), dtype=torch.int64,
+                         device=device)
+        zero = torch.zeros_like(g)
+        out[lo:lo + chunk] = torch.stack(
+            philox4x32((g & _M32, g >> 32, zero, zero), key), dim=1)
+    return out.reshape(-1)[:n]
+
+
+def _apply_keep(x, keep, scale):
+    """``x * scale`` in float32 where ``keep`` (flat, bool) is set, else 0,
+    rounded once to x's dtype, in x's shape."""
+    flat = x.reshape(-1)
+    if flat.dtype == torch.bfloat16:
+        flat = flat.float()
+    return torch.where(keep, flat * float(scale), 0.0).to(x.dtype) \
+        .reshape(x.shape)
 
 
 def fused_dropout_reference(x, seed, threshold, scale):
     """Plain version of the kernels: ``x * scale`` in float32 where the
     element's word is at least ``threshold``, else 0, rounded once to x's
     dtype, in x's shape."""
-    keep = dropout_bits(seed, x.numel(), x.device) >= int(threshold)
-    flat = x.reshape(-1)
-    if flat.dtype == torch.bfloat16:
-        flat = flat.float()
-    return torch.where(keep, flat * float(scale), 0.0).to(x.dtype) \
-        .reshape(x.shape)
+    return _apply_keep(
+        x, dropout_bits(seed, x.numel(), x.device) >= int(threshold), scale)
 
 
 def dropout_mask_pass(x, seed, threshold, scale, *, direction="forward"):
@@ -162,15 +180,23 @@ def _kernel_fn(entry="fused_dropout_f32"):
 
 class _MaskedDropout(torch.autograd.Function):
     """The pass forward; the same pass on the cotangent backward (the same
-    seed regenerates the same mask)."""
+    seed regenerates the same mask).  On the CPU the plain version draws
+    the mask once and keeps it for the backward, which then only applies
+    it: the same mask, bit for bit, at half the draws."""
 
     @staticmethod
     def forward(ctx, x, seed, threshold, scale):
         ctx.args = (seed, threshold, scale)
-        return dropout_mask_pass(x, seed, threshold, scale)
+        ctx.keep = None
+        if x.device.type != "cpu":
+            return dropout_mask_pass(x, seed, threshold, scale)
+        ctx.keep = dropout_bits(seed, x.numel()) >= int(threshold)
+        return _apply_keep(x, ctx.keep, scale)
 
     @staticmethod
     def backward(ctx, g):
+        if ctx.keep is not None and g.device.type == "cpu":
+            return _apply_keep(g, ctx.keep, ctx.args[2]), None, None, None
         return (dropout_mask_pass(g, *ctx.args, direction="backward"),
                 None, None, None)
 

@@ -7,7 +7,7 @@ phone symbol table; outputs a binary graph plus the word/phone tables the
 latgen CLI needs.  For phone-recognition recipes (where targets ARE
 phones) use -self_lexicon to generate the identity lexicon from the phone
 table.  ``-topo`` (HMM topology files) is not ported yet (ROADMAP.md,
-queue 1 item 8).
+queue 1 item 8b).
 """
 
 from __future__ import annotations
@@ -76,7 +76,7 @@ def main(argv=None):
     if opt.topo:
         raise NotImplementedError(
             "mkgraph -topo is not ported to pytorch_kaldi_asr_tpu_torch yet "
-            "(ROADMAP.md, queue 1 item 8: tools/lang)")
+            "(ROADMAP.md, queue 1 item 8b: tools/lang)")
 
     phone_syms = read_symbol_table(opt.phones)
     if opt.self_lexicon:

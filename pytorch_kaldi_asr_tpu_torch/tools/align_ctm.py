@@ -4,10 +4,10 @@ host).
 
 The ali-to-phones --ctm-output / steps/get_train_ctm.sh role: align each
 utterance's AM posteriors against its transcript (decode/align.py) and
-emit NIST CTM lines whose times come from the per-frame alignment.  Not
-ported yet, and refused by name: ``-topo`` (HMM topology files) and
-``-refine_ctm`` (a consensus CTM from the lattice tools), ROADMAP.md
-queue 1 item 8.
+emit NIST CTM lines whose times come from the per-frame alignment —
+refining the lattice-node-frame times tools/lattice_to_ctm.py produces
+(``-refine_ctm``).  Not ported yet, and refused by name: ``-topo`` (HMM
+topology files), ROADMAP.md queue 1 item 8b.
 
 Usage::
 
@@ -15,6 +15,9 @@ Usage::
         -lexicon lang/lexicon.txt -phones graph/phones.txt \
         -sil_phone sil -text data/test/text -acoustic_scale 0.1 \
         ark:post.ark out.ctm
+
+    # patch an existing consensus CTM's times in place of emitting fresh:
+    ... -refine_ctm consensus.ctm ark:post.ark refined.ctm
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from pytorch_kaldi_asr_tpu_torch.decode.align import (
     align_graph,
     ctm_from_alignment,
     forced_align,
+    refine_ctm_times,
     word_syms_from_lexicon,
 )
 from pytorch_kaldi_asr_tpu_torch.io.kaldi_io import read_mat_ark, read_mat_scp
@@ -67,16 +71,16 @@ def main(argv=None):
     parser.add_argument("-frame_rate", type=float, default=0.01)
     parser.add_argument("-channel", type=int, default=1)
     parser.add_argument("-refine_ctm", default=None,
-                        help="not ported yet")
+                        help="existing CTM whose times to patch (word "
+                             "sequences that match the alignment) instead "
+                             "of emitting alignment-only lines")
     parser.add_argument("rspecifier", help="ark:file or scp:file posteriors")
     parser.add_argument("ctm_out")
     opt = parser.parse_args(argv)
-    for name in ("topo", "refine_ctm"):
-        if getattr(opt, name):
-            raise NotImplementedError(
-                f"align_ctm -{name} is not ported to "
-                "pytorch_kaldi_asr_tpu_torch yet (ROADMAP.md, queue 1 item "
-                "8)")
+    if opt.topo:
+        raise NotImplementedError(
+            "align_ctm -topo is not ported to pytorch_kaldi_asr_tpu_torch "
+            "yet (ROADMAP.md, queue 1 item 8b)")
 
     lexicon = read_lexicon(opt.lexicon, opt.pron_probs)
     phone_syms = read_symbol_table(opt.phones)
@@ -101,6 +105,7 @@ def main(argv=None):
     max_cache = 256
     aligned, failed = 0, 0
     lines = []
+    alignments = {}
     for utt, mat in reader:
         words = text.get(utt)
         if words is None:
@@ -131,9 +136,22 @@ def main(argv=None):
             failed += 1
             continue
         aligned += 1
-        lines.extend(ctm_from_alignment(
-            utt, ali, id2word, frame_rate=opt.frame_rate,
-            channel=opt.channel))
+        if opt.refine_ctm:
+            # per-frame alignments are only consumed by the refine pass;
+            # in plain mode keeping them would grow O(corpus frames)
+            alignments[utt] = (ali, id2word)
+        else:
+            lines.extend(ctm_from_alignment(
+                utt, ali, id2word, frame_rate=opt.frame_rate,
+                channel=opt.channel))
+
+    if opt.refine_ctm:
+        with open(opt.refine_ctm, encoding="utf-8") as f:
+            base = [ln.rstrip("\n") for ln in f if ln.strip()]
+        lines, refined = refine_ctm_times(base, alignments,
+                                          frame_rate=opt.frame_rate)
+        info("align_ctm: refined times for %d utterances in %s",
+             refined, opt.refine_ctm)
 
     with open(opt.ctm_out, "w", encoding="utf-8") as f:
         for line in lines:

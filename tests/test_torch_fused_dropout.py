@@ -9,7 +9,11 @@ two are compared in distribution (keep rate within 3 sigma, kept values
 mask equal to the forward's), and the port's bits are pinned by
 Random123's known-answer vectors and by statistical tests: keep rates for
 both thresholds, exact scaling, seeds, no correlation between neighbours
-or seeds.
+or seeds.  The plain version's faster Philox (one wrapped int64 multiply a
+product, the CPU's counters in passes, the forward's mask kept for the
+backward) is pinned bit for bit against the first one
+(tests/torch_k3_reference.py) on both dtypes, around the passes' edges,
+at odd sizes and tails, both thresholds and seeds past 2**32.
 """
 
 import jax
@@ -206,3 +210,67 @@ def test_model_dropout_uses_the_kernel_with_the_8bit_threshold():
     y.sum().backward()
     assert torch.equal(x.grad, fd.fused_dropout_reference(
         torch.ones_like(x), 12, (256 - q) << 24, np.float32(256 / q)))
+
+
+# ---------------------------------------------------------------------------
+# the faster plain version against the first one (tests/torch_k3_reference)
+# ---------------------------------------------------------------------------
+
+# sizes around the CPU's pass of _CPU_CHUNK counters (4 words each), odd
+# sizes and tails that are no multiple of 4
+PIN_SIZES = [1, 3, 231, 4097 * 3, 4 * fd._CPU_CHUNK - 1, 4 * fd._CPU_CHUNK,
+             4 * fd._CPU_CHUNK + 5, 400 * 512 * 2 + 2]
+PIN_SEEDS = [0, 17, (1 << 32) + 7, (5 << 32) | 123, (1 << 64) - 1,
+             (1 << 64) + 3]
+
+
+@pytest.mark.parametrize("seed", PIN_SEEDS)
+def test_bits_equal_the_first_plain_version(seed):
+    from tests import torch_k3_reference as ref
+
+    for n in PIN_SIZES:
+        assert torch.equal(fd.dropout_bits(seed, n),
+                           ref.dropout_bits(seed, n)), n
+    # at a counter whose high word is set (flat indices past 2**34)
+    g = torch.tensor([(1 << 32) + 5, (3 << 32) | 0xFFFFFFFF])
+    zero = torch.zeros_like(g)
+    args = ((g & 0xFFFFFFFF, g >> 32, zero, zero), fd._key(seed))
+    for got, want in zip(fd.philox4x32(*args), ref.philox4x32(*args)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("which", ["8-bit", "exact"])
+@pytest.mark.parametrize("rate", [0.1, 0.35])
+def test_masked_dropout_equals_the_first_plain_version(dtype, which, rate):
+    """Forward and backward of masked_dropout on the CPU (the mask drawn
+    once, kept for the backward) bit-equal to the first plain version on
+    both dtypes: a tail, an odd size, a non-contiguous input, one row."""
+    from tests import torch_k3_reference as ref
+
+    threshold, scale, _ = _thresholds(rate)[which == "exact"]
+    scale32 = float(np.float32(scale))
+    for i, shape in enumerate([(400, 512), (4097, 3), (33, 7), (1, 1024),
+                               (1024, 65)]):
+        x = torch.from_numpy(_x(20 + i, shape)).to(dtype)
+        if i == 4:
+            x = x.t()
+        x.requires_grad_()
+        dout = torch.from_numpy(_x(40 + i, x.shape)).to(dtype)
+        seed = (1 << 33) + 1000 * i + int(rate * 100)
+        y = fd.masked_dropout(x, seed, threshold, scale)
+        y.backward(dout)
+        want = ref.fused_dropout_reference(x.detach(), seed, threshold,
+                                           scale32)
+        want_grad = ref.fused_dropout_reference(dout, seed, threshold,
+                                                scale32)
+        for got, exp in ((y.detach(), want), (x.grad, want_grad)):
+            assert got.dtype == dtype and got.shape == exp.shape
+            assert torch.equal(got.contiguous().view(torch.int16 if dtype
+                                                     == torch.bfloat16 else
+                                                     torch.int32),
+                               exp.contiguous().view(torch.int16 if dtype
+                                                     == torch.bfloat16 else
+                                                     torch.int32)), shape
+        assert torch.equal(fd.fused_dropout_reference(
+            x.detach(), seed, threshold, scale32), want)

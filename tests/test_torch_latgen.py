@@ -8,7 +8,7 @@ package's, on the CPU, on one posterior ark.
   decode in chunks, its traceback arena compacted, equals the one-shot
   decode, its partial hypotheses JAX's.
 - The latgen CLI's decode.txt is byte for byte JAX's; its not-ported
-  options are refused by name.
+  options (the device search's) are refused by name.
 - ``forced_align`` gives JAX's alignment, and the align_ctm CLI's CTM is
   byte for byte JAX's (with and without an optional silence phone).
 """
@@ -125,8 +125,8 @@ def test_latgen_cli_equals_jax(setup, monkeypatch):
                                            str(out)]) == 0
         assert (work / "port.txt").read_bytes() == out.read_bytes()
     assert len((work / "port.txt").read_text().splitlines()) == 6
-    for flag in (["-device_search"], ["-save_lattice_file", "x"],
-                 ["-save_lattice_ark", "x"], ["-save_slf", "x"]):
+    for flag in (["-device_search"], ["-device_batch", "4"],
+                 ["-device_mode", "dense"]):
         with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1"):
             latgen_cli.main(args + ["-save_result_file", "y", *flag])
 
@@ -171,6 +171,6 @@ def test_align_ctm_equals_jax(setup, sil):
     assert len(lines) == sum(len(line.split()) - 1 for line in
                              (work / "text").read_text().splitlines())
     assert all(float(line.split()[3]) > 0 for line in lines)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        align_ctm.main(args[:-1] + ["-refine_ctm", "c", args[-1], "o"])
+    with pytest.raises(NotImplementedError, match="queue 1 item 8b"):
+        align_ctm.main(args[:-1] + ["-topo", "t", args[-1], "o"])
     assert os.path.exists(work / "graph" / "words.txt")

@@ -14,7 +14,9 @@
   (set in its config.json) trained with dropout; and a neural LM trained
   by ``train_nlm``, scoring the n-best (``score_lm``) and fused into an
   int8 decode; and the hybrid AM's path: ``train_am``, ``compute_priors``,
-  ``dump_posteriors``, ``mkgraph``, ``latgen`` and ``align_ctm``.
+  ``dump_posteriors``, ``mkgraph``, ``latgen`` (with its lattice ark,
+  read by ``lattice_to_ctm`` and ``lattice_rescore``) and ``align_ctm``.
+- The host's lattice CLIs start without importing torch (or JAX).
 - A decoder band that is not causal decodes through the fixed-buffer
   search: the two packages' decode CLIs agree as above.
 - The entry points refuse what they cannot do: no card without
@@ -124,7 +126,11 @@ _NO_JAX = textwrap.dedent("""
                  "decode.align", "tools.align_ctm", "models.streaming",
                  "decode.lattice_io", "decode.lattice_ops", "serve.recognizer",
                  "serve.batcher", "serve.attention_stream", "serve.hybrid",
-                 "serve.sessions", "serve.http", "recipes.serve"):
+                 "serve.sessions", "serve.http", "recipes.serve",
+                 "decode.best_path", "decode.confusion", "tools.lattice_copy",
+                 "tools.lattice_rescore", "tools.lattice_to_ctm",
+                 "tools.rover", "tools.kws", "tools.show_lattice",
+                 "tools.ctm"):
         assert pkg.__name__ + "." + name in names, name
     importlib.import_module("chip_smoke")
 
@@ -277,6 +283,22 @@ _NO_JAX = textwrap.dedent("""
     latgen.main(["-graph_dir", str(work / "graph"), "-rspecifier",
                  f"scp:{work}/p.scp", "-save_result_file",
                  str(work / "hyb.txt")])
+    # its lattices, and the lattice tools over them
+    from pytorch_kaldi_asr_tpu_torch.tools import (
+        lattice_rescore, lattice_to_ctm)
+    latgen.main(["-graph_dir", str(work / "graph"), "-rspecifier",
+                 f"scp:{work}/p.scp", "-save_result_file",
+                 str(work / "hyb_lat.txt"), "-lattice_beam", "4",
+                 "-save_lattice_ark", str(work / "lat.ark")])
+    assert (work / "hyb_lat.txt").read_text() == \
+        (work / "hyb.txt").read_text()
+    words = str(work / "graph" / "words.txt")
+    lattice_to_ctm.main(["-words", words, f"ark:{work}/lat.ark",
+                         str(work / "c.ctm")])
+    lattice_rescore.main(["-words", words, "-lm", str(work / "h.gz"),
+                          f"ark:{work}/lat.ark", str(work / "r.txt")])
+    assert len((work / "r.txt").read_text().splitlines()) == 2
+    assert (work / "c.ctm").read_text().strip()
     (work / "lex.txt").write_text("".join(
         f"{p} {p}\\n" for p, _ in (l.split() for l in
                                    open(hd / "phones.txt"))))
@@ -336,11 +358,37 @@ def test_port_runs_with_jax_blocked(tmp_path):
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     last = proc.stdout.strip().splitlines()[-1].split()
-    assert last[0] == "modules" and int(last[1]) >= 80
+    assert last[0] == "modules" and int(last[1]) >= 104
     assert "%WER" in proc.stdout
     assert last[2:] == ["lines", "6", "conformer", "6", "bf16", "6",
                         "scores", "6", "fused", "6", "hybrid", "2",
                         "served", "2"]
+
+
+# the host's lattice CLIs: a process of each imports neither torch nor JAX
+# (lattice_rescore imports torch in its neural-LM path only); nor does
+# prepare_vocab (the data package loads its torch loader at first use)
+TORCH_FREE_CLIS = ["recipes.prepare_vocab", "recipes.latgen",
+                   "tools.align_ctm", "tools.lattice_copy",
+                   "tools.lattice_rescore", "tools.lattice_to_ctm",
+                   "tools.rover", "tools.kws", "tools.show_lattice",
+                   "tools.ctm"]
+
+
+def test_lattice_tools_start_without_torch():
+    script = textwrap.dedent("""
+        import importlib, sys
+        for name in sys.argv[1:]:
+            importlib.import_module("pytorch_kaldi_asr_tpu_torch." + name)
+        loaded = sorted({m.split(".")[0] for m in sys.modules}
+                        & {"torch", "jax", "pytorch_kaldi_asr_tpu"})
+        print("loaded", *loaded)
+    """)
+    proc = subprocess.run([sys.executable, "-c", script, *TORCH_FREE_CLIS],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.split() == ["loaded"]
 
 
 @pytest.mark.parametrize("recipe", ["attention-transformer-timit-cuda",
