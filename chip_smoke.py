@@ -153,7 +153,30 @@ CUDA card: ``python3 chip_smoke.py`` from the root of a checkout.
    phase's seconds, and the run's seconds before it and before the serve
    phase.  Its launches, read from the CLIs' logs, join the kernels
    line's counts.
-13. The serve phase (``serve_phase``, ``run_serve``): the recognition
+13. The device-search phase (``search_phase``, ``queue_device_search``,
+   ``run_device_search``): graph B is built right after the hybrid phase
+   (``build_graph_b``: ``prepare_lang --num-nonsil-states 3``,
+   ``lm_tools format-lm``, ``mkgraph -topo`` on run.sh's identity
+   lexicon, widened by 100 seeded multi-phone words and 200 sentences of
+   LM text until ``auto`` picks the frontier decoder; at most 30 s), and
+   the CPU references start on the side thread beside the lattice phase
+   (the dense search on graph A over the 8 test utterances, the frontier
+   on both graphs over 2 utterances cut to 600 frames).  After the
+   lattice phase, over the hybrid phase's card posteriors at beam 14,
+   max_active 2000: in this process the host ``latgen`` and both device
+   decoders on both graphs (the host's words, costs within 2e-4 relative
+   of its float64 sums), the frontier on the cut utterances; then
+   ``latgen -device_search -device_batch 8`` as processes side by side
+   (graph A: ``auto`` picks dense, and ``-device_mode frontier``, each
+   run.sh's decode.txt; graph B: ``auto`` picks the frontier, the host
+   ``latgen``'s words), and ``align_ctm -topo`` (CTM lines of positive
+   duration, exp/test.ctm's words); the card's dense and cut frontier
+   decodes against the CPU's (the same words and phones, costs within
+   HYBRID_COST_ATOL); no host fallback anywhere.  Prints each graph's
+   size and build seconds, each decoder's and the host's seconds per
+   second of audio, the peak device memory, each CPU reference's seconds,
+   the phase's seconds and the run's before and after it.
+14. The serve phase (``serve_phase``, ``run_serve``): the recognition
    server, ``python3 -m pytorch_kaldi_asr_tpu_torch.recipes.serve``, as two
    processes on free ports.  First a causal copy of the long-form AM (band
    (-100, 0), ``conformer_causal_conv``; the recipe's band reads ahead and
@@ -175,7 +198,7 @@ CUDA card: ``python3 chip_smoke.py`` from the root of a checkout.
    kernel's) read from their exit logs into the kernels line.  Prints each
    server's start-up and warm-up seconds, /recognize p50/p95 and RTF, the
    partial and push p50s, the streaming RTF and the phase's seconds.
-14. Prints the ``kernels`` JSON line (K1, K2a-c on both dtypes, K3 on both),
+15. Prints the ``kernels`` JSON line (K1, K2a-c on both dtypes, K3 on both),
    the seconds of every CPU reference the run took (each also on its own
    ``cpu reference`` line as it ends), the card line, and as the last line
    ``{"ok": true, "device": {...}}``.  Any failure raises: the script then
@@ -193,7 +216,12 @@ kernel case and the hybrid phase (its inputs), then the lattice phase (12).
 
 ``python3 chip_smoke.py --serve`` runs the kernel builds, the TIMIT decode
 and training paths, the fbank phase and the hybrid phase (the serve phase's
-inputs), then the serve phase (13).
+inputs), then the serve phase (14).
+
+``python3 chip_smoke.py --device-search`` runs the kernel builds, the
+long-form kernel case and the hybrid phase (its inputs), then the
+device-search phase (13) with a torch.profiler breakdown of each search
+(``search_profile``).
 
 ``python3 chip_smoke.py --train-step TREE [CORPUS]`` runs only the train
 step of CORPUS's model (timit, the default; librispeech, the conformer at
@@ -4432,7 +4460,6 @@ def run_lattice(torch, hybrid_work, device="cuda", knobs=None):
         score_sentences,
     )
     from pytorch_kaldi_asr_tpu_torch.score.wer import compute_wer
-    from pytorch_kaldi_asr_tpu_torch.utils.logging import STARTUP_RE
 
     knobs = dict(HYBRID_KNOBS, device=device, **(knobs or {}))
     t_phase = time.perf_counter()
@@ -4444,21 +4471,10 @@ def run_lattice(torch, hybrid_work, device="cuda", knobs=None):
 
     def cli(name, module, *args):
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", f"pytorch_kaldi_asr_tpu_torch.{module}",
-             *map(str, args)], cwd=str(hw), capture_output=True, text=True,
-            env=dict(os.environ, PYTHONPATH=str(REPO), PYTHONUNBUFFERED="1"),
-            timeout=900)
-        wall = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        (work / f"{name}.log").write_text(log)
-        if proc.returncode != 0:
-            raise AssertionError(f"lattice phase: {name} exited "
-                                 f"{proc.returncode}: {log[-3000:]}")
-        start = [float(s) for _, s in re.findall(STARTUP_RE, proc.stderr)]
-        clis[name] = {"wall_s": wall, "startup_s": start[0] if start
-                      else None, "started_s": t0 - t_phase}
-        logs[name] = log
+        wall, start, logs[name] = _run_cli(hw, work / f"{name}.log", module,
+                                           *args)
+        clis[name] = {"wall_s": wall, "startup_s": start,
+                      "started_s": t0 - t_phase}
 
     refs = kaldi_io.read_key_value_text(str(data / "test" / "text"))
     out = {"knobs": knobs, "lattice": dict(LATTICE)}
@@ -4701,6 +4717,506 @@ def run_lattice(torch, hybrid_work, device="cuda", knobs=None):
     for name, row in sorted(clis.items(), key=lambda kv: kv[1]["started_s"]):
         print(f"lattice phase CLI {name}: started at {row['started_s']:.2f} "
               f"s, {row['wall_s']:.2f} s, start-up {row['startup_s']} s")
+    return out
+
+
+# the device-search phase: latgen -device_search (decode/device_latgen.py,
+# decode/frontier_latgen.py) over the hybrid phase's card posteriors, on its
+# HLG (graph A: 1-state HMMs, inside the dense decoder's bounds) and on a
+# lang dir's HLG with 3-state HMMs (graph B: prepare_lang, format_lm,
+# mkgraph -topo) widened by seeded multi-phone words until ``auto`` picks
+# the frontier decoder; at the hybrid recipe's beam 14, max_active 2000
+DEVICE_SEARCH = {"batch": 8, "nonsil_states": 3, "words": 100,
+                 "sentences": 200, "cpu_utts": 2, "cpu_frames": 600,
+                 "profile_frames": 200, "build_s": 30.0}
+# card vs the host's float64 latgen: a float32 sum of 3,584 terms may round
+# 3,584 x 2**-24 = 2.1e-4 of its size
+DEVICE_SEARCH_COST_RTOL = 2e-4
+# latgen's knobs in the hybrid recipe (recipes/longform-conformer/run.sh)
+HYBRID_SEARCH = {"beam": 14.0, "max_active": 2000, "acoustic_scale": 1.0}
+SEARCH_LOG_RE = r"device search: (\w+) decoder \(-device_mode (\w+)\)"
+FALLBACK_RE = (r"device search: (\d+) host fallbacks; ([0-9.]+) s reading "
+               r"and decoding")
+
+
+def _run_cli(cwd, log, module, *args):
+    """One CLI of the port as a process in ``cwd``; its output to ``log``.
+    Returns (wall seconds, start-up seconds, log text); raises unless it
+    exits 0."""
+    from pytorch_kaldi_asr_tpu_torch.utils.logging import STARTUP_RE
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"pytorch_kaldi_asr_tpu_torch.{module}",
+         *map(str, args)], cwd=str(cwd), capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=str(REPO), PYTHONUNBUFFERED="1"),
+        timeout=900)
+    wall = time.perf_counter() - t0
+    text = proc.stdout + proc.stderr
+    log.write_text(text)
+    if proc.returncode != 0:
+        raise AssertionError(f"{module} exited {proc.returncode}: "
+                             f"{text[-3000:]}")
+    start = [float(s) for _, s in re.findall(STARTUP_RE, proc.stderr)]
+    return wall, (start[0] if start else None), text
+
+
+def build_graph_b(hybrid_work, work):
+    """Graph B in ``work``: a dict dir of the recipe's identity lexicon
+    (run.sh's exp/lexicon.txt), ``prepare_lang --num-nonsil-states 3``
+    (every phone a 3-state Bakis HMM), ``lm_tools format-lm`` with the LM
+    and ``mkgraph -topo`` with the lang dir's topology, each a process.  While
+    the HLG stays inside the dense decoder's bounds it is built again with
+    DEVICE_SEARCH["words"] (then twice as many) seeded words of 2-4 of the
+    recipe's phones added to the lexicon, and an LM trained by ``train_lm``
+    on the training text plus DEVICE_SEARCH["sentences"] seeded sentences
+    that use them.  Fails unless validate_lang finds nothing and the
+    build takes at most DEVICE_SEARCH["build_s"] seconds.  Returns the
+    graph's size, the words added, and the seconds."""
+    import numpy as np
+
+    from pytorch_kaldi_asr_tpu_torch.decode.device_latgen import pick_mode
+    from pytorch_kaldi_asr_tpu_torch.fst.openfst_io import read_fst
+    from pytorch_kaldi_asr_tpu_torch.tools.lang import validate_lang
+
+    hw = Path(hybrid_work).resolve()
+    exp, data = hw / "exp", hw / "data"
+    phones = [line.split()[0] for line in open(data / "phones.txt")
+              if not line.startswith(("#", "<eps>"))]
+    t0 = time.perf_counter()
+    tries = []
+    n_words = 0
+    while True:
+        work = _fresh(Path(work))
+        rng = np.random.default_rng(SEED)
+        added = [f"w{i:04d}" for i in range(n_words)]
+        lexicon = (exp / "lexicon.txt").read_text() + "".join(
+            f"{w} {' '.join(rng.choice(phones, int(rng.integers(2, 5))))}\n"
+            for w in added)
+        (work / "dict").mkdir()
+        (work / "dict" / "lexicon.txt").write_text(lexicon)
+        logs = work / "logs"
+        logs.mkdir()
+        lm = data / "lm.gz"
+        if added:
+            text = (data / "train" / "text").read_text() + "".join(
+                f"extra{i} " + " ".join(
+                    str(rng.choice(added)) if rng.random() < 0.5
+                    else str(rng.choice(phones))
+                    for _ in range(int(rng.integers(6, 13)))) + "\n"
+                for i in range(DEVICE_SEARCH["sentences"]))
+            (work / "text").write_text(text)
+            lm = work / "lm.gz"
+            _run_cli(work, logs / "train_lm.log", "recipes.train_lm",
+                     "-text", work / "text", "-order", 3, "-lm", lm)
+        _run_cli(work, logs / "prepare_lang.log", "tools.prepare_lang",
+                 work / "dict", work / "lang", "--num-nonsil-states",
+                 DEVICE_SEARCH["nonsil_states"])
+        _run_cli(work, logs / "format_lm.log", "tools.lm_tools", "format-lm",
+                 work / "lang", lm, work / "lang_test")
+        problems = validate_lang(str(work / "lang_test"))
+        if problems:
+            raise AssertionError(f"graph B's lang dir: {problems}")
+        _run_cli(work, logs / "mkgraph.log", "recipes.mkgraph", "-phones",
+                 data / "phones.txt", "-lexicon", work / "dict" /
+                 "lexicon.txt", "-lm", lm, "-topo", work / "lang" / "topo",
+                 "-graph_dir", work / "graph")
+        g = read_fst(str(work / "graph" / "HLG.fst"))
+        tries.append({"words": n_words, "states": g.num_states,
+                      "arcs": g.num_arcs})
+        if pick_mode(g) == "frontier":
+            break
+        n_words = max(DEVICE_SEARCH["words"], 2 * n_words)
+    out = {"tries": tries, **tries[-1], "lm": str(lm),
+           "build_s": time.perf_counter() - t0}
+    print(f"device search graph B: {out['states']} states, {out['arcs']} arcs,"
+          f" {n_words} words added, built in {out['build_s']:.1f} s "
+          f"(tries {tries})", flush=True)
+    if out["build_s"] > DEVICE_SEARCH["build_s"]:
+        raise AssertionError(f"graph B took {out['build_s']:.1f} s to build")
+    return out
+
+
+def _search_posts(hybrid_work, name="post.scp"):
+    from pytorch_kaldi_asr_tpu_torch.io import kaldi_io
+
+    return dict(kaldi_io.read_mat_scp(str(Path(hybrid_work) / "exp" / name)))
+
+
+def _search_batch(posts, keys, frames=None):
+    """[B, T, P] float32 of ``keys``' posteriors (each cut to ``frames``),
+    T rounded up to 64 as decode_posterior_stream pads it, and lengths."""
+    import numpy as np
+
+    mats = [posts[k][:frames] for k in keys]
+    lens = np.array([m.shape[0] for m in mats], np.int32)
+    T = -(-int(lens.max()) // 64) * 64
+    batch = np.zeros((len(mats), T, mats[0].shape[1]), np.float32)
+    for b, m in enumerate(mats):
+        batch[b, :lens[b]] = m
+    return batch, lens
+
+
+def _search_decode(torch, graph, cls, device, batch, lens, max_active):
+    """One decode_batch of ``cls`` on ``device``: (results, seconds, host
+    fallbacks, peak device bytes or None)."""
+    dec = cls(graph, beam=HYBRID_SEARCH["beam"], max_active=max_active,
+              acoustic_scale=HYBRID_SEARCH["acoustic_scale"], device=device)
+    cuda = str(device).startswith("cuda")
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = dec.decode_batch(batch, lens)
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    return res, seconds, dec.host_fallbacks, peak
+
+
+# the host ops that wait for the card: the syncs and the device-to-host
+# copies behind each nonzero and each value read back
+SYNC_OPS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+            "cudaMemcpyAsync")
+
+
+def search_profile(torch, graph, cls, batch, lens, max_active):
+    """torch.profiler over one decode_batch of ``cls`` on the card: per
+    frame of the batch its wall ms, device kernels, their device ms and the
+    host's waits for the card (SYNC_OPS calls); the busy share; the host
+    ops with the most self CPU time and the kernels with the most device
+    time, each per frame."""
+    events, wall_ms, attempts = _profile(torch, lambda: _search_decode(
+        torch, graph, cls, "cuda", batch, lens, max_active))
+    kernels = _kernel_rows(events)[1]
+    n = int(batch.shape[1])
+    host = [e for e in events if e.key not in {k.key for k in kernels}]
+    device_ms = sum(e.device_time_total for e in kernels) / 1e3
+    return {
+        "frames": n, "utterances": int(batch.shape[0]),
+        "wall_ms_per_frame": wall_ms / n,
+        "kernels_per_frame": sum(e.count for e in kernels) / n,
+        "device_ms_per_frame": device_ms / n,
+        "busy_share": device_ms / wall_ms,
+        "syncs_per_frame": {k: e.count / n for e in host for k in SYNC_OPS
+                            if e.key == k},
+        "top_host_ms_per_frame": [
+            [e.key, e.self_cpu_time_total / 1e3 / n, e.count / n]
+            for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:8]],
+        "top_kernels_ms_per_frame": [
+            [e.key[:60], e.device_time_total / 1e3 / n, e.count / n]
+            for e in sorted(kernels, key=lambda e: -e.device_time_total)[:6]],
+        "profile_attempts": attempts}
+
+
+SEARCH_REFS = {}  # label -> the CPU reference's keys, results, seconds
+
+
+def queue_device_search(torch, hybrid_work):
+    """Build graph B (``build_graph_b``) and queue the device search's CPU
+    references on the side thread (``defer_side_check``), started at once:
+    the dense decoder on graph A over every test utterance, and the
+    frontier decoder on graphs A and B over DEVICE_SEARCH["cpu_utts"]
+    utterances cut to DEVICE_SEARCH["cpu_frames"] frames (the CPU's sorts
+    are slow), each on the card's posteriors.  Returns graph B's build."""
+    from pytorch_kaldi_asr_tpu_torch.decode.device_latgen import DeviceLatgen
+    from pytorch_kaldi_asr_tpu_torch.decode.frontier_latgen import (
+        FrontierLatgen,
+    )
+    from pytorch_kaldi_asr_tpu_torch.fst.openfst_io import read_fst
+
+    hw = Path(hybrid_work).resolve()
+    graph_b = build_graph_b(hw, WORK / "device_search" / "graph_b")
+    posts = _search_posts(hw)
+    keys = sorted(posts)
+    cut = keys[:DEVICE_SEARCH["cpu_utts"]]
+    graphs = {"A": hw / "exp" / "graph" / "HLG.fst",
+              "B": WORK / "device_search" / "graph_b" / "graph" / "HLG.fst"}
+
+    def job(label, name, cls, utts, frames):
+        def run():
+            batch, lens = _search_batch(posts, utts, frames)
+            res, seconds, fallbacks, _ = _search_decode(
+                torch, read_fst(str(graphs[name])), cls, "cpu", batch, lens,
+                HYBRID_SEARCH["max_active"])
+            SEARCH_REFS[label] = {"keys": utts, "results": res,
+                                  "seconds": seconds,
+                                  "host_fallbacks": fallbacks}
+            return {"utterances": len(utts), "frames": int(lens.sum())}
+        defer_side_check(label, run)
+
+    job("device search dense on graph A", "A", DeviceLatgen, keys, None)
+    for name in ("A", "B"):
+        job(f"device search frontier on graph {name}", name, FrontierLatgen,
+            cut, DEVICE_SEARCH["cpu_frames"])
+    start_side_checks(torch)
+    return graph_b
+
+
+def _same_search(what, pairs, cost_atol=None, cost_rtol=None, phones=True):
+    """Two decodes of the same utterances, ``pairs`` of (key, result,
+    reference result): the same words (and phones), costs within
+    ``cost_atol`` or ``cost_rtol`` of the reference's.  Returns the largest
+    cost gap, absolute and relative."""
+    gap = rel = 0.0
+    for key, g, w in pairs:
+        if g is None or w is None:
+            raise AssertionError(f"{what} {key}: no path ({g is None}, "
+                                 f"{w is None})")
+        if g[0] != w[0] or (phones and g[1] != w[1]):
+            raise AssertionError(f"{what} {key}: words or phones differ")
+        gap = max(gap, abs(g[2] - w[2]))
+        rel = max(rel, abs(g[2] - w[2]) / abs(w[2]))
+    if (cost_atol is not None and gap > cost_atol) or \
+            (cost_rtol is not None and rel > cost_rtol):
+        raise AssertionError(f"{what}: costs {gap} apart ({rel} relative)")
+    return {"max_cost_gap": gap, "max_cost_rel": rel}
+
+
+def run_device_search(torch, hybrid_work, graph_b, device="cuda",
+                      profile=False):
+    """The device search over the hybrid phase's card posteriors
+    (``hybrid_work``'s exp/post.scp) at HYBRID_SEARCH's knobs, on graph A
+    (run.sh's exp/graph) and graph B (``build_graph_b``).  Side by side:
+
+    1. the CLIs as processes: ``latgen -device_search -device_batch 8`` on
+       graph A, ``auto`` (it must pick dense) and ``-device_mode frontier``,
+       each decode.txt run.sh's exp/decode.txt line for line; on graph B
+       the host ``latgen``, ``latgen -device_search`` (``auto``: it must
+       pick the frontier) and ``-device_mode dense``, the same words for
+       every utterance; ``align_ctm
+       -topo`` with graph B's topology: CTM lines of positive duration for
+       every test utterance, the words of run.sh's exp/test.ctm.  Where the
+       frontier's post-closure cap makes graph B's words differ from the
+       host's, both run again at twice the max_active (to at most 8 times
+       the recipe's), the value printed;
+    2. in this process: the host ``latgen`` (float64) on each graph, then
+       DeviceLatgen and FrontierLatgen on ``device`` on graph A over the 8
+       utterances in one batch: the host's words, each
+       cost within DEVICE_SEARCH_COST_RTOL of the host's; the frontier on
+       both graphs over the DEVICE_SEARCH["cpu_utts"] utterances cut to
+       DEVICE_SEARCH["cpu_frames"] frames, against the host the same way.
+       With ``profile`` (and a card), ``search_profile`` of both decoders
+       on both graphs over the cut utterances' first DEVICE_SEARCH
+       ["profile_frames"] frames.
+
+    Then 3., the CPU references queued by ``queue_device_search``: the
+    dense search on graph A and the frontier's cut decodes on the device
+    against them, the same words and phones, costs within HYBRID_COST_ATOL.
+    No decode may fall back to the host.  The in-process searches are
+    timed with the CLIs running beside them (graph B's searches over the
+    whole set from their CLIs' logs).  Returns each graph's size, each
+    decoder's seconds per second of audio, the peak device memory, the
+    checks and the CLIs' seconds."""
+    from pytorch_kaldi_asr_tpu_torch.decode.device_latgen import DeviceLatgen
+    from pytorch_kaldi_asr_tpu_torch.decode.frontier_latgen import (
+        FrontierLatgen,
+    )
+    from pytorch_kaldi_asr_tpu_torch.decode.latgen import latgen
+    from pytorch_kaldi_asr_tpu_torch.fst.openfst_io import read_fst
+    from pytorch_kaldi_asr_tpu_torch.io import kaldi_io
+
+    t_phase = time.perf_counter()
+    hw = Path(hybrid_work).resolve()
+    exp, data = hw / "exp", hw / "data"
+    gb_dir = WORK / "device_search" / "graph_b"
+    work = _fresh(WORK / "device_search" / "run")
+    posts = _search_posts(hw)
+    keys = sorted(posts)
+    frames = kaldi_io.read_key_value_text(str(data / "test" /
+                                              "feats.length"), int)
+    audio_s = 0.010 * sum(frames[k] for k in keys)
+    cut = keys[:DEVICE_SEARCH["cpu_utts"]]
+    graphs = {"A": read_fst(str(exp / "graph" / "HLG.fst")),
+              "B": read_fst(str(gb_dir / "graph" / "HLG.fst"))}
+    out = {"knobs": dict(HYBRID_SEARCH, device=device, **DEVICE_SEARCH),
+           "audio_s": audio_s, "graph_b": graph_b,
+           "graphs": {k: {"states": g.num_states, "arcs": g.num_arcs}
+                      for k, g in graphs.items()}, "clis": {}}
+    fallbacks, timings, peaks, checks, host, dev = {}, {}, {}, {}, {}, {}
+    recipe_ma = HYBRID_SEARCH["max_active"]
+
+    # 1. the CLIs, side by side, beside this process's searches
+    def latgen_args(graph_dir, result, max_active, *extra):
+        return ("-graph_dir", graph_dir, "-rspecifier",
+                f"scp:{exp / 'post.scp'}", "-acoustic_scale",
+                HYBRID_SEARCH["acoustic_scale"], "-beam",
+                HYBRID_SEARCH["beam"], "-max_active", max_active,
+                "-save_result_file", result, *extra)
+
+    search = ("-device_search", "-device_batch", DEVICE_SEARCH["batch"],
+              "-device", device)
+
+    def graph_b_clis(max_active):
+        return {
+            "latgen_b_host": ("recipes.latgen", latgen_args(
+                gb_dir / "graph", work / "b_host.txt", max_active)),
+            "latgen_b_auto": ("recipes.latgen", latgen_args(
+                gb_dir / "graph", work / "b_auto.txt", max_active,
+                *search)),
+            "latgen_b_dense": ("recipes.latgen", latgen_args(
+                gb_dir / "graph", work / "b_dense.txt", max_active,
+                *search, "-device_mode", "dense"))}
+
+    clis = {
+        "latgen_a_auto": ("recipes.latgen", latgen_args(
+            exp / "graph", work / "a_auto.txt", recipe_ma, *search)),
+        "latgen_a_frontier": ("recipes.latgen", latgen_args(
+            exp / "graph", work / "a_frontier.txt", recipe_ma, *search,
+            "-device_mode", "frontier")),
+        **graph_b_clis(recipe_ma),
+        "align_ctm_topo": ("tools.align_ctm", (
+            "-lexicon", exp / "lexicon.txt", "-phones", data / "phones.txt",
+            "-text", data / "test" / "text", "-acoustic_scale",
+            HYBRID_SEARCH["acoustic_scale"], "-topo",
+            gb_dir / "lang" / "topo", f"scp:{exp / 'post.scp'}",
+            work / "topo.ctm"))}
+
+    def cli(item):
+        name, (module, args) = item
+        t0 = time.perf_counter() - t_phase
+        wall, start, text = _run_cli(hw, work / f"{name}.log", module,
+                                     *args)
+        row = {"wall_s": wall, "startup_s": start, "started_s": t0}
+        if "-device_search" in args:
+            found = re.findall(FALLBACK_RE, text)
+            fallbacks[f"cli {name}"] = int(found[0][0]) if found else None
+            row["decoding_s"] = float(found[0][1]) if found else None
+            picked = re.findall(SEARCH_LOG_RE, text)
+            row["picked"] = picked[0][0] if picked else None
+        out["clis"][name] = row
+
+    pool = concurrent.futures.ThreadPoolExecutor(len(clis))
+    running = [pool.submit(cli, item) for item in clis.items()]
+
+    # 2. in this process
+    def host_decode(name, utts, frames_cut=None):
+        t0 = time.perf_counter()
+        res = [latgen(graphs[name], posts[k][:frames_cut], **HYBRID_SEARCH)
+               for k in utts]
+        return res, time.perf_counter() - t0
+
+    def device_decode(label, cls, gname, batch, lens, want):
+        res, seconds, fb, peak = _search_decode(
+            torch, graphs[gname], cls, device, batch, lens, recipe_ma)
+        fallbacks[label] = fb
+        timings[label] = seconds
+        peaks[label] = peak
+        checks[f"{label}_vs_host"] = _same_search(
+            f"{label} on {device} against the host",
+            list(zip(keys if len(res) == len(keys) else cut, res, want)),
+            cost_rtol=DEVICE_SEARCH_COST_RTOL, phones=False)
+        return res
+
+    batch, lens = _search_batch(posts, keys)
+    cut_batch, cut_lens = _search_batch(posts, cut,
+                                        DEVICE_SEARCH["cpu_frames"])
+    for name in ("A", "B"):
+        host[name], timings[f"host_{name}"] = host_decode(name, keys)
+        host[f"{name}_cut"], _ = host_decode(name, cut,
+                                             DEVICE_SEARCH["cpu_frames"])
+    dev["dense_A"] = device_decode("dense_A", DeviceLatgen, "A", batch, lens,
+                                   host["A"])
+    dev["frontier_A"] = device_decode("frontier_A", FrontierLatgen, "A",
+                                      batch, lens, host["A"])
+    for name in ("A", "B"):
+        dev[f"frontier_{name}_cut"] = device_decode(
+            f"frontier_{name}_cut", FrontierLatgen, name, cut_batch,
+            cut_lens, host[f"{name}_cut"])
+    if profile and str(device).startswith("cuda"):  # where the time goes
+        prof_batch, prof_lens = _search_batch(posts, cut,
+                                              DEVICE_SEARCH["profile_frames"])
+        out["profile"] = {
+            f"{name}_{gname}": search_profile(
+                torch, graphs[gname], cls, prof_batch, prof_lens, recipe_ma)
+            for name, cls in (("dense", DeviceLatgen),
+                              ("frontier", FrontierLatgen))
+            for gname in ("A", "B")}
+        for name, row in out["profile"].items():
+            print(f"device search profile {name}: " + json.dumps(row),
+                  flush=True)
+    out["in_process_s"] = time.perf_counter() - t_phase
+    for future in running:
+        future.result()
+    pool.shutdown()
+
+    # graph B's words against the host's, max_active doubled while the
+    # frontier's post-closure cap binds
+    max_active_b = recipe_ma
+    if (work / "b_dense.txt").read_text() != (work / "b_host.txt").read_text():
+        raise AssertionError("latgen -device_search -device_mode dense on "
+                             "graph B: not the host decoder's words")
+    while (work / "b_auto.txt").read_text() != \
+            (work / "b_host.txt").read_text():
+        if max_active_b >= 8 * recipe_ma:
+            raise AssertionError("latgen -device_search on graph B: not the "
+                                 "host decoder's words")
+        max_active_b *= 2
+        print(f"device search: the frontier's post-closure cap binds on "
+              f"graph B; max_active {max_active_b}", flush=True)
+        for item in graph_b_clis(max_active_b).items():
+            cli(item)
+    out["max_active_b"] = max_active_b
+    out["clis_s"] = max(r["started_s"] + r["wall_s"]
+                        for r in out["clis"].values())
+    written = (exp / "decode.txt").read_text().splitlines()
+    for mode in ("auto", "frontier"):
+        if (work / f"a_{mode}.txt").read_text().splitlines() != written:
+            raise AssertionError(f"latgen -device_search -device_mode {mode}"
+                                 f" on graph A: not run.sh's decode.txt")
+    picked = {g: out["clis"][f"latgen_{g}_auto"]["picked"] for g in "ab"}
+    if picked != {"a": "dense", "b": "frontier"}:
+        raise AssertionError(f"auto picked {picked} on graphs A and B")
+    for name in ("dense", "auto"):
+        timings[f"{'frontier' if name == 'auto' else name}_B"] = \
+            out["clis"][f"latgen_b_{name}"]["decoding_s"]
+    ctm = [line.split() for line in (work / "topo.ctm").read_text()
+           .splitlines()]
+    plain = [line.split() for line in (exp / "test.ctm").read_text()
+             .splitlines()]
+    if {r[0] for r in ctm} != set(keys) or not all(
+            len(r) == 6 and float(r[3]) > 0 for r in ctm) \
+            or [r[4] for r in ctm] != [r[4] for r in plain]:
+        raise AssertionError("align_ctm -topo: not a line of positive "
+                             "duration for every word of every test "
+                             "utterance, or not exp/test.ctm's words")
+    out["ctm_lines"] = len(ctm)
+
+    # 3. against the CPU references (taken at the recipe's max_active;
+    # graph B's cut again on both devices if the cap bound)
+    join_side_checks(torch)
+    if max_active_b != recipe_ma:
+        ref = SEARCH_REFS["device search frontier on graph B"]
+        t0 = time.perf_counter()
+        ref["results"], ref["seconds"], ref["host_fallbacks"], _ = \
+            _search_decode(torch, graphs["B"], FrontierLatgen, "cpu",
+                           cut_batch, cut_lens, max_active_b)
+        cpu_reference_done(f"device search frontier on graph B at "
+                           f"max_active {max_active_b}",
+                           time.perf_counter() - t0)
+        dev["frontier_B_cut"], _, fallbacks["frontier_B_cut"], _ = \
+            _search_decode(torch, graphs["B"], FrontierLatgen, device,
+                           cut_batch, cut_lens, max_active_b)
+    for name, label in (("dense_A", "device search dense on graph A"),
+                        ("frontier_A_cut",
+                         "device search frontier on graph A"),
+                        ("frontier_B_cut",
+                         "device search frontier on graph B")):
+        ref = SEARCH_REFS[label]
+        fallbacks[f"cpu {name}"] = ref["host_fallbacks"]
+        checks[f"{name}_vs_cpu"] = _same_search(
+            f"{name} on {device} against the CPU",
+            list(zip(ref["keys"], dev[name], ref["results"])),
+            cost_atol=HYBRID_COST_ATOL)
+        checks[f"{name}_vs_cpu"]["cpu_s"] = ref["seconds"]
+    if any(v != 0 for v in fallbacks.values()):
+        raise AssertionError(f"device search: host fallbacks {fallbacks}")
+    out.update({
+        "checks": checks, "host_fallbacks": fallbacks,
+        "seconds": timings, "peak_bytes": peaks,
+        "s_per_audio_s": {k: v / audio_s for k, v in timings.items()
+                          if not k.endswith("_cut")},
+        "phase_s": time.perf_counter() - t_phase})
+    print("device search: " + json.dumps(out))
     return out
 
 
@@ -5269,6 +5785,7 @@ def main():
     hybrid_only = sys.argv[1:2] == ["--hybrid"]
     serve_only = sys.argv[1:2] == ["--serve"]
     lattice_only = sys.argv[1:2] == ["--lattice"]
+    search_only = sys.argv[1:2] == ["--device-search"]
     if sys.argv[1:2] == ["--k3-plain"]:  # the CPU alone: nothing to build
         sys.path.insert(0, str(REPO))
         print(f"card: {card_line()}")
@@ -5310,7 +5827,7 @@ def main():
 
     full_run = not (sources or noisy_leaf or bf16_gates or bf16_compute_gates
                     or step_only or recipe_only or hybrid_only or serve_only
-                    or lattice_only)
+                    or lattice_only or search_only)
     # the training paths' CPU reference steps use the CPU while nvcc builds
     prefetch = (threading.Thread(target=prefetch_cpu_steps, args=(torch,),
                                  daemon=True) if full_run else None)
@@ -5358,7 +5875,8 @@ def main():
              **train_step_only(torch, corpus)}))
         return 0
 
-    if not (recipe_only or hybrid_only or serve_only or lattice_only):
+    if not (recipe_only or hybrid_only or serve_only or lattice_only
+            or search_only):
         kp = kernel_phase(torch)
         print(f"kernel phase done at {time.perf_counter() - t_start:.1f} s")
 
@@ -5453,6 +5971,32 @@ def main():
               f"{time.perf_counter() - t_start:.1f} s; {card}")
         return phase
 
+    def search_phase(graph_b, profile=False):
+        """The device search over the hybrid phase's posteriors and graph
+        and graph B (``run_device_search``), its CPU references joined."""
+        before = time.perf_counter() - t_start
+        phase = run_device_search(torch, WORK / "hybrid", graph_b,
+                                  profile=profile)
+        phase["card"] = card
+        rate, peak = phase["s_per_audio_s"], phase["peak_bytes"]
+        for g in ("A", "B"):
+            size = phase["graphs"][g]
+            print(f"device search graph {g}: {size['states']} states, "
+                  f"{size['arcs']} arcs; seconds per second of audio: dense "
+                  f"{rate[f'dense_{g}']:.5f}, frontier "
+                  f"{rate[f'frontier_{g}']:.5f}"
+                  f"{' (their CLIs)' if g == 'B' else ''}, host latgen "
+                  f"{rate[f'host_{g}']:.5f}; peak device memory"
+                  + (f" dense {peak['dense_A']}, frontier "
+                     f"{peak['frontier_A']}" if g == "A" else
+                     f" frontier {peak['frontier_B_cut']} (2 utterances)")
+                  + f" bytes; {card}")
+        after = time.perf_counter() - t_start
+        print(f"device search phase: {phase['phase_s']:.1f} s (graph B built "
+              f"in {graph_b['build_s']:.1f} s before the lattice phase); the "
+              f"run {before:.1f} s before it, {after:.1f} s after; {card}")
+        return phase
+
     def serve_phase():
         """Both servers on the TIMIT decode path's checkpoint and the
         hybrid phase's corpus and graph (``run_serve``)."""
@@ -5480,6 +6024,12 @@ def main():
     if lattice_only:
         hybrid_phase(kernels=True)
         lattice_phase()
+        print(f"whole run {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if search_only:
+        hybrid_phase(kernels=True)
+        search_phase(queue_device_search(torch, WORK / "hybrid"),
+                     profile=True)
         print(f"whole run {time.perf_counter() - t_start:.1f} s")
         return 0
     if serve_only:  # the serve phase and the paths that make its inputs
@@ -5539,9 +6089,12 @@ def main():
     recipe = recipe_phase()
     hybrid = hybrid_phase(kernels=False)
     join_side_checks(torch)
+    # the device search's CPU references run beside the lattice phase
+    graph_b = queue_device_search(torch, WORK / "hybrid")
     before_lattice = time.perf_counter() - t_start
     print(f"before the lattice phase: {before_lattice:.1f} s")
     lattice = lattice_phase()
+    search_phase(graph_b)
     before_serve = time.perf_counter() - t_start
     print(f"before the serve phase: {before_serve:.1f} s (without the "
           f"lattice phase: {before_serve - lattice['seconds']:.1f} s)")

@@ -1,11 +1,10 @@
 """Forced alignment: transcript-constrained Viterbi over AM posteriors,
 yielding per-frame phone alignments and word time boundaries (the port's
-copy of ``pytorch_kaldi_asr_tpu.decode.align``, without HMM topology
-files: ROADMAP.md, queue 1 item 8b).
+copy of ``pytorch_kaldi_asr_tpu.decode.align``).
 
 - :func:`linear_grammar` — an Fst accepting exactly one word sequence;
 - :func:`align_graph` — L ∘ linear-G with disambiguation stripped and the
-  HMM self-loops expanded (the compile-train-graphs role, built from the
+  HMM topology expanded (the compile-train-graphs role, built from the
   same fst/graph.py pieces as mkgraph);
 - :func:`forced_align` — Viterbi over the alignment graph via
   decode/latgen.py's StreamingLatgen, converting the frame-stamped best
@@ -54,7 +53,7 @@ def linear_grammar(word_ids) -> Fst:
 
 def align_graph(transcript, lexicon, word_syms, phone_syms, *,
                 sil_phone=None, sil_prob=0.5, hmm_loops=True,
-                self_loop_prob=0.5):
+                self_loop_prob=0.5, topo=None):
     """Compile the alignment graph for one transcript (word strings).
 
     Returns (graph, phone_syms_ext).  Same construction as
@@ -72,7 +71,11 @@ def align_graph(transcript, lexicon, word_syms, phone_syms, *,
     ALG = ops.compose(L.arcsort("olabel"), G)
     imap = {v: EPS for k, v in phone_syms_ext.items() if k.startswith("#")}
     ALG = ops.relabel(ALG, imap=imap).connect()
-    if hmm_loops:
+    if topo is not None:
+        from pytorch_kaldi_asr_tpu_torch.tools.lang import expand_hmm
+
+        ALG = expand_hmm(ALG, topo)
+    elif hmm_loops:
         n_real_phones = max(
             (v for k, v in phone_syms.items() if not k.startswith("#")),
             default=0,

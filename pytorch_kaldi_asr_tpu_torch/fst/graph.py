@@ -1,20 +1,23 @@
 """Decoding-graph compilation: L o G -> HLG (the port's copy of
-``pytorch_kaldi_asr_tpu.fst.graph``, without the word-dependent silence
-lexicon and the HMM topology files).
+``pytorch_kaldi_asr_tpu.fst.graph``).
 
 Compose the lexicon transducer with the grammar, determinize, minimize,
-strip the disambiguation symbols and expand each phone into a 1-state HMM
-with a self-loop, producing the graph decode/latgen.py walks over the
-hybrid AM's posteriors (recipes/dump_posteriors.py).
+strip the disambiguation symbols and expand each phone into its HMM (a
+1-state model with a self-loop, or the topology file's models through
+tools/lang.expand_hmm), producing the graph decode/latgen.py and the
+device searches (decode/device_latgen.py, decode/frontier_latgen.py) walk
+over the hybrid AM's posteriors (recipes/dump_posteriors.py).
 
 - add_lex_disambig: auxiliary #1..#N phone symbols for homophones and
   prefix pronunciations
 - lexicon_fst:      L with optional silence and disambig pass-through
+- lexicon_fst_silprob: L with word-dependent silence probabilities
 - grammar_fst:      G from an ARPA NgramLM (#0 backoff inputs, the
                     arpa2fst --disambig-symbol convention)
 - mkgraph:          min(det(L o G)) with disambig symbols removed and
                     1-state-HMM self-loops expanded (monophone topology,
-                    matching the hybrid AM's one-pdf-per-phone outputs)
+                    matching the hybrid AM's one-pdf-per-phone outputs), or
+                    the per-phone HMMs of a parsed topology (``topo=``)
 """
 
 from __future__ import annotations
@@ -139,6 +142,76 @@ def lexicon_fst(lexicon, word_syms, phone_syms, *, sil_phone=None,
     return f, phone_syms_ext
 
 
+def lexicon_fst_silprob(lexicon, silprobs, word_syms, phone_syms, *,
+                        sil_phone="sil", sil_disambig="#s"):
+    """Build L with WORD-DEPENDENT silence probabilities (the reference
+    kaldi/utils/make_lexicon_fst_silprob.pl:1-146 contract).
+
+    lexicon: {word: [(pron_prob, word_sil_prob, sil_word_correction,
+    nonsil_word_correction, [phones]), ...]} — per pronunciation, the
+    probability of silence FOLLOWING the word plus the Bayes correction
+    factors for silence/non-silence PRECEDING it.
+    silprobs: {"<s>": p_sil_after_bos, "</s>_s": end-after-sil correction,
+    "</s>_n": end-after-nonsil correction}.
+
+    Returns (L, phone_syms_ext) where phone_syms_ext adds ``sil_disambig``
+    (the silence-path disambiguator) and a '#0' passthrough like
+    :func:`lexicon_fst`.  Topology: distinct 'after-silence' and
+    'after-non-silence' loop states so each word's entry cost conditions
+    on whether silence preceded it."""
+    def cost(p):
+        return -math.log(max(float(p), 1e-10))
+
+    phone_syms_ext = dict(phone_syms)
+    next_id = max(phone_syms_ext.values()) + 1 if phone_syms_ext else 1
+    for sym in (sil_disambig, "#0"):
+        if sym not in phone_syms_ext:
+            phone_syms_ext[sym] = next_id
+            next_id += 1
+
+    f = Fst()
+    start = f.add_state()
+    nonsil = f.add_state()  # "a non-silence word just ended"
+    sil = f.add_state()     # "silence just ended"
+    f.start = start
+    sil_id = phone_syms_ext[sil_phone]
+    dis_id = phone_syms_ext[sil_disambig]
+    f.add_arc(start, sil_id, EPS, cost(silprobs["<s>"]), sil)
+    f.add_arc(start, dis_id, EPS, cost(1.0 - float(silprobs["<s>"])), nonsil)
+
+    for word, prons in lexicon.items():
+        if word not in word_syms:
+            continue
+        for pron_prob, wsp, silc, nonsilc, phones in prons:
+            if not phones:
+                raise ValueError(
+                    f"empty pronunciation for word {word!r} (the reference "
+                    "make_lexicon_fst_silprob.pl rejects empty prons)")
+            pron_cost = cost(pron_prob)
+            cur = None
+            for i, ph in enumerate(phones):
+                il = phone_syms_ext[ph]
+                if i == 0:
+                    nxt = f.add_state()
+                    f.add_arc(nonsil, il, word_syms[word],
+                              cost(nonsilc) + pron_cost, nxt)
+                    f.add_arc(sil, il, word_syms[word],
+                              cost(silc) + pron_cost, nxt)
+                else:
+                    nxt = f.add_state()
+                    f.add_arc(cur, il, EPS, 0.0, nxt)
+                cur = nxt
+            # word end: silence follows with prob wsp, else the disambig
+            f.add_arc(cur, dis_id, EPS, cost(1.0 - float(wsp)), nonsil)
+            f.add_arc(cur, sil_id, EPS, cost(wsp), sil)
+    if "#0" in word_syms:
+        for loop in (nonsil, sil):
+            f.add_arc(loop, phone_syms_ext["#0"], word_syms["#0"], 0.0, loop)
+    f.set_final(sil, cost(silprobs["</s>_s"]))
+    f.set_final(nonsil, cost(silprobs["</s>_n"]))
+    return f, phone_syms_ext
+
+
 def grammar_fst(lm: NgramLM, word_syms, *, disambig_symbol="#0") -> Fst:
     """Build G as an Fst from a backoff NgramLM: states are histories, word
     arcs carry -ln p, backoff arcs are input-#0/output-eps, </s> mass
@@ -214,13 +287,14 @@ def add_hmm_loops(g: Fst, n_phones, *, self_loop_prob=0.5,
 
 
 def mkgraph(lexicon, lm: NgramLM, word_syms, phone_syms, *, sil_phone=None,
-            sil_prob=0.5, hmm_loops=True, self_loop_prob=0.5):
+            sil_prob=0.5, hmm_loops=True, self_loop_prob=0.5, topo=None):
     """Full graph compilation: returns (graph, phone_syms_ext).
 
     min(det(L o G)) with disambig symbols mapped back to epsilon (mkgraph.sh
-    phases 2-4), then the 1-state self-loop HMM expansion (phase 5's
-    add-self-loops role).  Graph input labels are phone ids, outputs are
-    word ids."""
+    phases 2-4), then HMM expansion (phase 5's add-self-loops role): either
+    the default 1-state self-loop model, or — when ``topo`` (a parsed
+    topology from tools.lang.parse_topo) is given — the per-phone HMMs it
+    declares.  Graph input labels are phone ids, outputs are word ids."""
     word_syms = dict(word_syms)
     if "#0" not in word_syms:
         word_syms["#0"] = max(word_syms.values()) + 1
@@ -243,7 +317,11 @@ def mkgraph(lexicon, lm: NgramLM, word_syms, phone_syms, *, sil_phone=None,
             if k.startswith("#")}
     omap = {word_syms["#0"]: EPS}
     LG = ops.relabel(LG, imap=imap, omap=omap).connect()
-    if hmm_loops:
+    if topo is not None:
+        from pytorch_kaldi_asr_tpu_torch.tools.lang import expand_hmm
+
+        LG = expand_hmm(LG, topo)
+    elif hmm_loops:
         LG = add_hmm_loops(LG, n_real_phones,
                            self_loop_prob=self_loop_prob)
     return LG.arcsort("ilabel"), phone_syms_ext

@@ -11,15 +11,22 @@ host, token passing in Python (decode/latgen.py).  With any of
 ``-save_lattice_file`` (Kaldi text), ``-save_lattice_ark`` (Kaldi binary
 CompactLattice, with a ``.scp`` beside it) or ``-save_slf`` (HTK SLF, a
 file or a directory) it decodes through ``latgen_lattice`` at
-``-lattice_beam`` and writes each lattice's best path as the result.  Not
-ported yet, and refused by name: ``-device_search``, ``-device_batch``
-and ``-device_mode`` (ROADMAP.md, queue 1 item 11).
+``-lattice_beam`` and writes each lattice's best path as the result.
+
+``-device_search`` runs the best-path search on the card instead
+(decode/device_latgen.py): ``-device_batch`` utterances per call, the
+dense decoder or the top-K frontier decoder by ``-device_mode`` (``auto``
+picks by graph size), on ``-device`` (``cuda`` by default; without a card
+it raises unless ``-device cpu`` is given).  It logs the decoder it ran,
+the graph's size and the utterances the host decoder took over (an
+overflowing traceback falls back to it, as in the JAX package).
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import time
 
 import numpy as np
 
@@ -35,11 +42,6 @@ from pytorch_kaldi_asr_tpu_torch.fst.openfst_io import (
 from pytorch_kaldi_asr_tpu_torch.io.kaldi_io import read_mat_ark, read_mat_scp
 from pytorch_kaldi_asr_tpu_torch.recipes.mkgraph import read_symbol_table
 from pytorch_kaldi_asr_tpu_torch.utils.logging import info, log_startup
-
-# the device search's flags: refused by name when given
-NOT_PORTED = {"device_search": False, "device_batch": None,
-              "device_mode": None}
-
 
 def main(argv=None):
     parser = argparse.ArgumentParser()
@@ -61,16 +63,28 @@ def main(argv=None):
     parser.add_argument("-save_slf", default=None,
                         help="also emit HTK SLF lattices (file or dir)")
     parser.add_argument("-device_search", action="store_true",
-                        help="not ported yet")
-    parser.add_argument("-device_batch", type=int, default=None,
-                        help="not ported yet")
-    parser.add_argument("-device_mode", default=None, help="not ported yet")
+                        help="run the graph search on the card (batched "
+                             "Viterbi, decode/device_latgen) instead of "
+                             "the host token-passing decoder; best-path "
+                             "output only (no lattice emit)")
+    parser.add_argument("-device_batch", type=int, default=8,
+                        help="utterances per device call with "
+                             "-device_search")
+    parser.add_argument("-device_mode", default="auto",
+                        choices=["auto", "dense", "frontier"],
+                        help="device decoder flavor with -device_search: "
+                             "dense full-state-table Viterbi, top-K "
+                             "frontier search, or size-based auto pick")
+    parser.add_argument("-device", default="cuda",
+                        help="the device of -device_search: cuda (the "
+                             "default; raises without a card), cuda:N or "
+                             "cpu")
     opt = parser.parse_args(argv)
-    for name, unset in NOT_PORTED.items():
-        if getattr(opt, name) != unset:
-            raise NotImplementedError(
-                f"latgen -{name} is not ported to pytorch_kaldi_asr_tpu_torch "
-                "yet (ROADMAP.md, queue 1 item 11: device WFST decoding)")
+
+    if opt.device_search and (opt.save_lattice_file or opt.save_slf
+                              or opt.save_lattice_ark):
+        parser.error("-device_search emits best paths only; drop the "
+                     "lattice outputs or use the host decoder")
 
     # read_fst accepts both VectorFst and ConstFst HLG graphs
     graph = read_fst(os.path.join(opt.graph_dir, "HLG.fst"))
@@ -111,13 +125,38 @@ def main(argv=None):
         if opt.save_slf:
             write_slf_file(lats, opt.save_slf)
     else:
-        results = decode_posterior_ark(
-            graph, reader, word_syms, acoustic_scale=opt.acoustic_scale,
-            beam=opt.beam, max_active=opt.max_active, log_priors=log_priors)
+        decoder = None
+        if opt.device_search:
+            from pytorch_kaldi_asr_tpu_torch.decode.device_latgen import (
+                decode_posterior_stream,
+                make_device_latgen,
+                pick_mode,
+            )
+
+            mode = pick_mode(graph, opt.device_mode)
+            decoder = make_device_latgen(
+                graph, mode=mode, acoustic_scale=opt.acoustic_scale,
+                beam=opt.beam, max_active=opt.max_active,
+                log_priors=log_priors, device=opt.device)
+            info("device search: %s decoder (-device_mode %s) on %s, graph "
+                 "%d states, %d arcs", mode, opt.device_mode, decoder.device,
+                 graph.num_states, graph.num_arcs)
+            results = decode_posterior_stream(
+                graph, reader, word_syms, batch_size=opt.device_batch,
+                decoder=decoder)
+        else:
+            results = decode_posterior_ark(
+                graph, reader, word_syms, acoustic_scale=opt.acoustic_scale,
+                beam=opt.beam, max_active=opt.max_active,
+                log_priors=log_priors)
+        t0 = time.perf_counter()
         with open(opt.save_result_file, "w", encoding="utf-8") as f:
             for key, text, _cost in results:
                 f.write(f"{key} {text}\n")
                 n += 1
+        if decoder is not None:
+            info("device search: %d host fallbacks; %.3f s reading and "
+                 "decoding", decoder.host_fallbacks, time.perf_counter() - t0)
     info("decoded %d utterances -> %s", n, opt.save_result_file)
     return 0
 

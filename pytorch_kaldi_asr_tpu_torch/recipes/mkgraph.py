@@ -6,8 +6,9 @@ Inputs are a lexicon text file (``word phone phone ...``, optionally
 phone symbol table; outputs a binary graph plus the word/phone tables the
 latgen CLI needs.  For phone-recognition recipes (where targets ARE
 phones) use -self_lexicon to generate the identity lexicon from the phone
-table.  ``-topo`` (HMM topology files) is not ported yet (ROADMAP.md,
-queue 1 item 8b).
+table.  ``-topo`` expands each phone into the HMM a topology file
+(tools/lang.gen_topo's format) declares for it, in place of the 1-state
+self-loop model.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import os
 from pytorch_kaldi_asr_tpu_torch.fst.graph import mkgraph
 from pytorch_kaldi_asr_tpu_torch.fst.openfst_io import write_const_fst
 from pytorch_kaldi_asr_tpu_torch.lm.arpa import read_arpa
+from pytorch_kaldi_asr_tpu_torch.tools.lang import parse_topo
 from pytorch_kaldi_asr_tpu_torch.utils.logging import info, log_startup
 
 
@@ -66,17 +68,14 @@ def main(argv=None):
     parser.add_argument("-self_loop_prob", type=float, default=0.5)
     parser.add_argument("-no_hmm_loops", action="store_true")
     parser.add_argument("-topo", default=None,
-                        help="HMM topology file: not ported yet")
+                        help="HMM topology file (gen_topo format); "
+                             "overrides the 1-state self-loop default")
     parser.add_argument("-fst_type", choices=("vector", "const"),
                         default="vector",
                         help="HLG.fst on-disk layout (fstconvert "
                              "--fst_type=const role)")
     parser.add_argument("-graph_dir", required=True)
     opt = parser.parse_args(argv)
-    if opt.topo:
-        raise NotImplementedError(
-            "mkgraph -topo is not ported to pytorch_kaldi_asr_tpu_torch yet "
-            "(ROADMAP.md, queue 1 item 8b: tools/lang)")
 
     phone_syms = read_symbol_table(opt.phones)
     if opt.self_lexicon:
@@ -87,6 +86,11 @@ def main(argv=None):
     else:
         parser.error("need -lexicon or -self_lexicon")
 
+    topo = None
+    if opt.topo:
+        with open(opt.topo, encoding="utf-8") as f:
+            topo = parse_topo(f.read())
+
     lm = read_arpa(opt.lm)
     word_syms = {w: i + 1 for i, w in enumerate(sorted(lexicon))}
 
@@ -94,7 +98,7 @@ def main(argv=None):
         lexicon, lm, word_syms, phone_syms,
         sil_phone=opt.sil_phone, sil_prob=opt.sil_prob,
         hmm_loops=not opt.no_hmm_loops,
-        self_loop_prob=opt.self_loop_prob,
+        self_loop_prob=opt.self_loop_prob, topo=topo,
     )
     os.makedirs(opt.graph_dir, exist_ok=True)
     if opt.fst_type == "const":

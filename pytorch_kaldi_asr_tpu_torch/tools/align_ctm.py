@@ -6,8 +6,8 @@ The ali-to-phones --ctm-output / steps/get_train_ctm.sh role: align each
 utterance's AM posteriors against its transcript (decode/align.py) and
 emit NIST CTM lines whose times come from the per-frame alignment —
 refining the lattice-node-frame times tools/lattice_to_ctm.py produces
-(``-refine_ctm``).  Not ported yet, and refused by name: ``-topo`` (HMM
-topology files), ROADMAP.md queue 1 item 8b.
+(``-refine_ctm``).  ``-topo`` aligns through the per-phone HMMs of a
+topology file (tools/lang.gen_topo's format).
 
 Usage::
 
@@ -39,6 +39,7 @@ from pytorch_kaldi_asr_tpu_torch.recipes.mkgraph import (
     read_lexicon,
     read_symbol_table,
 )
+from pytorch_kaldi_asr_tpu_torch.tools.lang import parse_topo
 from pytorch_kaldi_asr_tpu_torch.utils.logging import info, log_startup, warning
 
 
@@ -64,7 +65,7 @@ def main(argv=None):
     parser.add_argument("-sil_prob", type=float, default=0.5)
     parser.add_argument("-self_loop_prob", type=float, default=0.5)
     parser.add_argument("-topo", default=None,
-                        help="HMM topology file: not ported yet")
+                        help="HMM topology file (gen_topo format)")
     parser.add_argument("-acoustic_scale", type=float, default=1.0)
     parser.add_argument("-priors_file", default=None,
                         help="numpy .npy log-priors to subtract")
@@ -77,10 +78,6 @@ def main(argv=None):
     parser.add_argument("rspecifier", help="ark:file or scp:file posteriors")
     parser.add_argument("ctm_out")
     opt = parser.parse_args(argv)
-    if opt.topo:
-        raise NotImplementedError(
-            "align_ctm -topo is not ported to pytorch_kaldi_asr_tpu_torch "
-            "yet (ROADMAP.md, queue 1 item 8b)")
 
     lexicon = read_lexicon(opt.lexicon, opt.pron_probs)
     phone_syms = read_symbol_table(opt.phones)
@@ -95,6 +92,11 @@ def main(argv=None):
             f"table {opt.phones} — silence handling would silently vanish "
             "(check the symbol's exact spelling/case)")
     sil_ids = {phone_syms[opt.sil_phone]} if opt.sil_phone else set()
+    topo = None
+    if opt.topo:
+        with open(opt.topo, encoding="utf-8") as f:
+            topo = parse_topo(f.read())
+
     kind, path = opt.rspecifier.split(":", 1)
     reader = read_mat_scp(path) if kind == "scp" else read_mat_ark(path)
 
@@ -120,7 +122,7 @@ def main(argv=None):
                 graph_cache[key] = align_graph(
                     words, lexicon, word_syms, phone_syms,
                     sil_phone=opt.sil_phone, sil_prob=opt.sil_prob,
-                    self_loop_prob=opt.self_loop_prob)[0]
+                    self_loop_prob=opt.self_loop_prob, topo=topo)[0]
             except ValueError as e:
                 warning("align_ctm: %s: %s", utt, e)
                 graph_cache[key] = None

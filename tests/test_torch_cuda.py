@@ -533,3 +533,40 @@ def test_bf16_compute_train_step_on_the_card_matches_the_cpu(cuda_device):
           f"leaf {np.median(ratios):.3f}, largest {max(ratios):.3f}")
     assert np.median(ratios) <= 0.75
     assert max(ratios) <= 3.0
+
+
+@pytest.mark.parametrize("mode", ["dense", "frontier"])
+def test_device_search_on_the_card_matches_the_cpu(cuda_device, mode):
+    """latgen's device search (decode/device_latgen.py, dense, and
+    decode/frontier_latgen.py) on the card over a batch of padded
+    utterances on a phone-loop graph with an epsilon backoff: the CPU's
+    words and phones, costs within 1e-5 relative, no host fallback."""
+    from pytorch_kaldi_asr_tpu_torch.decode.device_latgen import (
+        make_device_latgen,
+    )
+    from pytorch_kaldi_asr_tpu_torch.fst.core import Fst
+
+    rng = np.random.default_rng(0)
+    P = 6
+    g = Fst()
+    loop, back = g.add_state(), g.add_state()
+    g.start = loop
+    g.set_final(loop, 0.5)
+    for p in range(1, P + 1):
+        hmm = g.add_state()
+        g.add_arc(loop, p, p, float(rng.uniform(0, 2)), hmm)
+        g.add_arc(hmm, p, 0, 0.7, hmm)
+        g.add_arc(hmm, 0, 0, 0.7, back)
+    g.add_arc(back, 0, 0, 0.1, loop)
+    lens = [40, 33, 17]
+    x = rng.normal(size=(len(lens), 64, P))
+    x = (x - np.log(np.exp(x).sum(-1, keepdims=True))).astype(np.float32)
+    kw = dict(mode=mode, beam=12.0, max_active=8)
+    card = make_device_latgen(g, device=cuda_device, **kw)
+    cpu = make_device_latgen(g, device="cpu", **kw)
+    got = card.decode_batch(x, np.array(lens))
+    want = cpu.decode_batch(x, np.array(lens))
+    for r, w in zip(got, want):
+        assert r[0] == w[0] and r[1] == w[1]
+        assert abs(r[2] - w[2]) <= 1e-5 * abs(w[2])
+    assert card.host_fallbacks == cpu.host_fallbacks == 0

@@ -12,7 +12,8 @@ package's, on the CPU.
   back what JAX reads.
 - compose, determinize, rmepsilon, minimize and shortest_path give JAX's
   machines on random inputs.
-- ``mkgraph -topo`` is refused by name.
+- ``mkgraph -topo`` gives JAX's files with a 3-state topology, and a
+  missing topology file is refused as JAX refuses it.
 """
 
 import math
@@ -88,11 +89,24 @@ def test_mkgraph_files_equal_jax(tmp_path, graph):
 
 
 def test_mkgraph_refuses_topo(tmp_path):
+    """A topology file that is not there is refused, as by JAX's mkgraph;
+    a 3-state Bakis topology (tools/lang.gen_topo) gives JAX's files."""
+    from pytorch_kaldi_asr_tpu_torch.tools.lang import gen_topo
+
     lang = _lang(tmp_path)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        mkgraph.main(["-phones", str(lang / "phones.txt"), "-self_lexicon",
-                      "-lm", str(lang / "phone_lm.gz"), "-topo", "x",
-                      "-graph_dir", str(tmp_path / "g")])
+    base = ["-phones", str(lang / "phones.txt"), "-self_lexicon", "-lm",
+            str(lang / "phone_lm.gz")]
+    for cli in (mkgraph, jax_mkgraph):
+        with pytest.raises(FileNotFoundError):
+            cli.main(base + ["-topo", "x", "-graph_dir", str(tmp_path / "g")])
+    (tmp_path / "topo").write_text(gen_topo(range(2, len(PHONES) + 1), [1],
+                                            num_sil_states=3))
+    base += ["-topo", str(tmp_path / "topo")]
+    assert jax_mkgraph.main(base + ["-graph_dir", str(tmp_path / "jax")]) == 0
+    assert mkgraph.main(base + ["-graph_dir", str(tmp_path / "port")]) == 0
+    for name in ("HLG.fst", "words.txt", "phones.txt"):
+        want = (tmp_path / "jax" / name).read_bytes()
+        assert (tmp_path / "port" / name).read_bytes() == want, name
 
 
 def test_vector_fst_golden_bytes(tmp_path):

@@ -7,16 +7,19 @@ package's, on the CPU, on one posterior ark.
   dispatch (its C++ core when built) and its Python decoder; a streamed
   decode in chunks, its traceback arena compacted, equals the one-shot
   decode, its partial hypotheses JAX's.
-- The latgen CLI's decode.txt is byte for byte JAX's; its not-ported
-  options (the device search's) are refused by name.
+- The latgen CLI's decode.txt is byte for byte JAX's, also with
+  ``-device_search -device cpu`` (each device-search flag), and the
+  device search raises without a card unless ``-device cpu`` is given.
 - ``forced_align`` gives JAX's alignment, and the align_ctm CLI's CTM is
-  byte for byte JAX's (with and without an optional silence phone).
+  byte for byte JAX's (with and without an optional silence phone, and
+  through a 3-state topology, ``-topo``).
 """
 
 import os
 
 import numpy as np
 import pytest
+import torch
 
 from pytorch_kaldi_asr_tpu.decode import align as jax_align
 from pytorch_kaldi_asr_tpu.decode import latgen as jax_latgen
@@ -125,10 +128,18 @@ def test_latgen_cli_equals_jax(setup, monkeypatch):
                                            str(out)]) == 0
         assert (work / "port.txt").read_bytes() == out.read_bytes()
     assert len((work / "port.txt").read_text().splitlines()) == 6
-    for flag in (["-device_search"], ["-device_batch", "4"],
-                 ["-device_mode", "dense"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1"):
-            latgen_cli.main(args + ["-save_result_file", "y", *flag])
+    for i, flag in enumerate((["-device_search"],
+                              ["-device_search", "-device_batch", "4"],
+                              ["-device_search", "-device_mode", "dense"])):
+        jax_out, out = work / f"jax_dev{i}.txt", work / f"port_dev{i}.txt"
+        assert jax_latgen_cli.main(args + ["-save_result_file", str(jax_out),
+                                           *flag]) == 0
+        assert latgen_cli.main(args + ["-save_result_file", str(out), *flag,
+                                       "-device", "cpu"]) == 0
+        assert out.read_bytes() == jax_out.read_bytes()
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                latgen_cli.main(args + ["-save_result_file", "y", *flag])
 
 
 def test_forced_align_equals_jax(setup):
@@ -171,6 +182,17 @@ def test_align_ctm_equals_jax(setup, sil):
     assert len(lines) == sum(len(line.split()) - 1 for line in
                              (work / "text").read_text().splitlines())
     assert all(float(line.split()[3]) > 0 for line in lines)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8b"):
-        align_ctm.main(args[:-1] + ["-topo", "t", args[-1], "o"])
+    from pytorch_kaldi_asr_tpu_torch.tools.lang import gen_topo
+
+    topo = work / f"topo_{name}"
+    topo.write_text(gen_topo(range(2, len(PHONES) + 1), [1],
+                             num_nonsil_states=3, num_sil_states=3))
+    with_topo = args[:-1] + ["-topo", str(topo), args[-1]]
+    assert align_ctm.main(with_topo + [str(work / f"port_{name}_t.ctm")]) == 0
+    assert jax_align_ctm.main(with_topo + [str(work / f"jax_{name}_t.ctm")]) \
+        == 0
+    got = (work / f"port_{name}_t.ctm").read_bytes()
+    assert got == (work / f"jax_{name}_t.ctm").read_bytes()
+    assert [line.split()[4] for line in got.decode().splitlines()] == \
+        [line.split()[4] for line in lines]
     assert os.path.exists(work / "graph" / "words.txt")

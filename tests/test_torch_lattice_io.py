@@ -10,8 +10,8 @@ packages' ``latgen_lattice`` give alike over the 4-word lexicon's graph
   reader gives JAX's lattice back (a ``lattice4`` stream too);
 - the latgen CLI with ``-save_lattice_file``, ``-save_lattice_ark`` and
   ``-save_slf`` at a non-default ``-lattice_beam``: every file byte for
-  byte JAX's CLI's, the beam forwarded; the device search's flags refused
-  by name, each in its own test.
+  byte JAX's CLI's, the beam forwarded; the device search, with each of
+  its flags, refused beside the lattice outputs, as JAX refuses it.
 """
 
 import gzip
@@ -258,15 +258,23 @@ def test_latgen_forwards_lattice_beam(setup, tmp_path):
     assert len(sizes["1.0"].splitlines()) < len(sizes["8.0"].splitlines())
 
 
-@pytest.mark.parametrize("flag", [["-device_search"], ["-device_batch", "4"],
+@pytest.mark.parametrize("flag", [[], ["-device_batch", "4"],
                                   ["-device_mode", "frontier"]],
                          ids=["device_search", "device_batch", "device_mode"])
-def test_latgen_refuses_the_device_search_by_name(setup, tmp_path, flag):
+def test_latgen_refuses_the_device_search_by_name(setup, tmp_path, flag,
+                                                  capsys):
+    """The device search emits best paths only: with a lattice output it is
+    refused by name before anything is written, as by JAX's CLI."""
     work, _, _ = setup
     args = ["-graph_dir", str(work / "graph"), "-rspecifier",
             f"scp:{work / 'post.scp'}", "-save_result_file",
-            str(tmp_path / "d.txt"), *flag]
-    with pytest.raises(NotImplementedError,
-                       match=f"latgen {flag[0]} is not ported.*item 11"):
+            str(tmp_path / "d.txt"), "-save_lattice_file",
+            str(tmp_path / "lat.txt"), "-device_search", *flag,
+            "-device", "cpu"]
+    with pytest.raises(SystemExit) as port:
         latgen_cli.main(args)
+    assert "-device_search emits best paths only" in capsys.readouterr().err
+    with pytest.raises(SystemExit) as jax:
+        jax_latgen_cli.main(args[:-2])
+    assert port.value.code == jax.value.code == 2
     assert not (tmp_path / "d.txt").exists()

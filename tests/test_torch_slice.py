@@ -15,8 +15,12 @@
   by ``train_nlm``, scoring the n-best (``score_lm``) and fused into an
   int8 decode; and the hybrid AM's path: ``train_am``, ``compute_priors``,
   ``dump_posteriors``, ``mkgraph``, ``latgen`` (with its lattice ark,
-  read by ``lattice_to_ctm`` and ``lattice_rescore``) and ``align_ctm``.
-- The host's lattice CLIs start without importing torch (or JAX).
+  read by ``lattice_to_ctm`` and ``lattice_rescore``) and ``align_ctm``,
+  then ``prepare_lang`` with 3-state HMMs, ``format_lm``, ``mkgraph
+  -topo`` and ``latgen -device_search -device cpu`` in both modes, which
+  write the host decoder's result.
+- The host's lattice and lang-dir CLIs start without importing torch (or
+  JAX).
 - A decoder band that is not causal decodes through the fixed-buffer
   search: the two packages' decode CLIs agree as above.
 - The entry points refuse what they cannot do: no card without
@@ -130,7 +134,9 @@ _NO_JAX = textwrap.dedent("""
                  "decode.best_path", "decode.confusion", "tools.lattice_copy",
                  "tools.lattice_rescore", "tools.lattice_to_ctm",
                  "tools.rover", "tools.kws", "tools.show_lattice",
-                 "tools.ctm"):
+                 "tools.ctm", "decode.device_latgen",
+                 "decode.frontier_latgen", "lm.fst", "lm.tools",
+                 "tools.lang", "tools.prepare_lang", "tools.lm_tools"):
         assert pkg.__name__ + "." + name in names, name
     importlib.import_module("chip_smoke")
 
@@ -306,6 +312,31 @@ _NO_JAX = textwrap.dedent("""
                     str(hd / "phones.txt"), "-text", str(hd / "test" / "text"),
                     f"scp:{work}/p.scp", str(work / "h.ctm")])
     assert (work / "h.ctm").read_text().strip()
+    # a lang dir with 3-state HMMs (prepare_lang, format_lm), its graph
+    # (mkgraph -topo), and the device search over it on the CPU in both
+    # modes: the host decoder's words
+    from pytorch_kaldi_asr_tpu_torch.tools import lm_tools, prepare_lang
+    (work / "dict").mkdir()
+    (work / "dict" / "lexicon.txt").write_text(
+        (work / "lex.txt").read_text())
+    prepare_lang.main([str(work / "dict"), str(work / "lang"),
+                       "--num-nonsil-states", "3"])
+    lm_tools.main(["format-lm", str(work / "lang"), str(work / "h.gz"),
+                   str(work / "lang_test")])
+    assert (work / "lang_test" / "G.fst").exists()
+    mkgraph.main(["-phones", str(hd / "phones.txt"), "-lexicon",
+                  str(work / "lex.txt"), "-lm", str(work / "h.gz"), "-topo",
+                  str(work / "lang" / "topo"), "-graph_dir",
+                  str(work / "graph3")])
+    dev = []
+    for mode in ("host", "dense", "frontier"):
+        flags = ([] if mode == "host" else
+                 ["-device_search", "-device_mode", mode, "-device", "cpu"])
+        latgen.main(["-graph_dir", str(work / "graph3"), "-rspecifier",
+                     f"scp:{work}/p.scp", "-save_result_file",
+                     str(work / f"topo_{mode}.txt"), *flags])
+        dev.append((work / f"topo_{mode}.txt").read_text())
+    assert dev[0] == dev[1] == dev[2] and len(dev[0].splitlines()) == 2
 
     # the recognition server: a request over HTTP, a streamed partial, and
     # a hybrid n-best through the lattice decode
@@ -348,7 +379,7 @@ _NO_JAX = textwrap.dedent("""
           "scores", len((work / "nlm.score").read_text().splitlines()),
           "fused", len((work / "f.txt").read_text().splitlines()),
           "hybrid", len((work / "hyb.txt").read_text().splitlines()),
-          "served", len(served["nbest"]))
+          "served", len(served["nbest"]), "device_search", len(dev))
 """)
 
 
@@ -362,7 +393,7 @@ def test_port_runs_with_jax_blocked(tmp_path):
     assert "%WER" in proc.stdout
     assert last[2:] == ["lines", "6", "conformer", "6", "bf16", "6",
                         "scores", "6", "fused", "6", "hybrid", "2",
-                        "served", "2"]
+                        "served", "2", "device_search", "3"]
 
 
 # the host's lattice CLIs: a process of each imports neither torch nor JAX
@@ -372,7 +403,7 @@ TORCH_FREE_CLIS = ["recipes.prepare_vocab", "recipes.latgen",
                    "tools.align_ctm", "tools.lattice_copy",
                    "tools.lattice_rescore", "tools.lattice_to_ctm",
                    "tools.rover", "tools.kws", "tools.show_lattice",
-                   "tools.ctm"]
+                   "tools.ctm", "tools.prepare_lang", "tools.lm_tools"]
 
 
 def test_lattice_tools_start_without_torch():
@@ -421,6 +452,16 @@ def test_entry_points_refuse_what_they_cannot_do(tmp_path, monkeypatch):
         decode.main(args + ["-quantize_weights"])
     with pytest.raises(RuntimeError, match="-device cpu"):
         decode.main(args + ["-nlm_model_dir", str(tmp_path)])
+    # the graph search on the card (latgen -device_search)
+    from pytorch_kaldi_asr_tpu_torch.decode.device_latgen import (
+        make_device_latgen,
+    )
+    from pytorch_kaldi_asr_tpu_torch.fst.core import Fst
+    g = Fst()
+    g.start = g.add_state()
+    for mode in ("dense", "frontier"):
+        with pytest.raises(RuntimeError, match="-device cpu"):
+            make_device_latgen(g, mode=mode)
     # compute_dtype is float32 or bfloat16 (tests/test_torch_bf16_compute.py)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         PortConfig(src_dim=4, vocab_size=6, compute_dtype="float16")
