@@ -176,7 +176,24 @@ CUDA card: ``python3 chip_smoke.py`` from the root of a checkout.
    size and build seconds, each decoder's and the host's seconds per
    second of audio, the peak device memory, each CPU reference's seconds,
    the phase's seconds and the run's before and after it.
-14. The serve phase (``serve_phase``, ``run_serve``): the recognition
+14. The tools phase (``tools_phase``, ``run_tools``) over the hybrid
+   phase's posteriors and graphs A and B: the native latgen core
+   (native/src/latgen.cc) against the Python token passer on the test set,
+   on the trained AM's posteriors and on noisy ones (the same words and
+   phones, costs within 1e-9, each decoder's seconds), and
+   ``latgen_lattice`` both ways on 2 utterances (the same lattice up to
+   node numbering and duplicate links, the same 10-best); bench_rtf in
+   this process at its defaults (posterior, decode, streaming, hybrid,
+   hybrid_device, partials at 6 s) and as a CLI process (``--which
+   posterior``); the nnet1 proto DNN (make_nnet_proto's ``dnn 440 2500 4
+   1024 --with-dropout 0.1`` behind an 11-frame splice, 8 x 800 frames)
+   card against CPU, forward within 1e-5 and one frame-CE step with K3 at
+   each dropout site (masks bit-equal, ``card_vs_cpu_step``'s gates); a
+   torch.profiler trace (``profile_trace``) of a streaming session and an
+   offline forward of the same conformer AM, summarised by
+   ``trace_summary`` (K1's kernel row attributed to its wrapper's range);
+   the device list.  Its K1 and K3 launches join the kernels line.
+15. The serve phase (``serve_phase``, ``run_serve``): the recognition
    server, ``python3 -m pytorch_kaldi_asr_tpu_torch.recipes.serve``, as two
    processes on free ports.  First a causal copy of the long-form AM (band
    (-100, 0), ``conformer_causal_conv``; the recipe's band reads ahead and
@@ -198,7 +215,7 @@ CUDA card: ``python3 chip_smoke.py`` from the root of a checkout.
    kernel's) read from their exit logs into the kernels line.  Prints each
    server's start-up and warm-up seconds, /recognize p50/p95 and RTF, the
    partial and push p50s, the streaming RTF and the phase's seconds.
-15. Prints the ``kernels`` JSON line (K1, K2a-c on both dtypes, K3 on both),
+16. Prints the ``kernels`` JSON line (K1, K2a-c on both dtypes, K3 on both),
    the seconds of every CPU reference the run took (each also on its own
    ``cpu reference`` line as it ends), the card line, and as the last line
    ``{"ok": true, "device": {...}}``.  Any failure raises: the script then
@@ -216,7 +233,11 @@ kernel case and the hybrid phase (its inputs), then the lattice phase (12).
 
 ``python3 chip_smoke.py --serve`` runs the kernel builds, the TIMIT decode
 and training paths, the fbank phase and the hybrid phase (the serve phase's
-inputs), then the serve phase (14).
+inputs), then the serve phase (15).
+
+``python3 chip_smoke.py --tools`` runs the kernel builds, the long-form
+kernel case and the hybrid phase (its inputs), builds graph B, then the
+tools phase (14).
 
 ``python3 chip_smoke.py --device-search`` runs the kernel builds, the
 long-form kernel case and the hybrid phase (its inputs), then the
@@ -5220,6 +5241,434 @@ def run_device_search(torch, hybrid_work, graph_b, device="cuda",
     return out
 
 
+# the tools phase: the native latgen core against the Python token passer
+# on the hybrid phase's posteriors over graphs A and B, the port's RTF
+# bench (tools/bench_rtf.py) in this process and as a CLI, an nnet1 proto
+# DNN (tools/make_nnet_proto.py, models/proto.py) card against CPU, a
+# profile (utils/metrics.profile_trace) and its summary
+# (tools/trace_summary.py), and the device list (tools/devices.py)
+TOOLS = {"noise": 0.1, "lattice_utts": 2, "nbest": 10, "session_sec": 6,
+         "chunk": 40,
+         # Kaldi nnet1's steps/nnet/train.sh DNN: 4 hidden layers of 1,024
+         # sigmoids over 11 spliced 40-dim frames, TIMIT's 2,500 leaves
+         "proto": ("dnn", "440", "2500", "4", "1024", "--with-dropout",
+                   "0.1"),
+         "proto_feat_dim": 40, "proto_splice": 5, "proto_utts": 8,
+         "proto_frames": 800}
+# native core against the Python token passer: the same float64 sums
+NATIVE_COST_ATOL = 1e-9
+# the proto DNN's forward, card against CPU, of the output's largest entry
+PROTO_FWD_RTOL = 1e-5
+
+
+def noisy_posteriors(posts, keys, scale=TOOLS["noise"]):
+    """Each utterance's posteriors with bench_rtf's noise: normal of
+    ``scale`` added, renormalised (``bench_rtf._batched_posts``, seeded 1
+    + the utterance's index)."""
+    from pytorch_kaldi_asr_tpu_torch.tools.bench_rtf import _batched_posts
+
+    return {k: _batched_posts(posts[k].astype("float64"), 1, seed=1 + i)[0][0]
+            for i, k in enumerate(keys)}
+
+
+def lattice_form(lat):
+    """What a lattice says, without its node numbering: the node times,
+    the distinct links (their times, word and costs) and the finals
+    (their time and weight).  The native core records links in its hash
+    maps' order, so its node ids and its count of duplicate links differ
+    from the Python token passer's."""
+    times = lat.node_times
+    return (sorted(times),
+            sorted({(times[l.start], times[l.end], l.word, l.acoustic,
+                     l.graph) for l in lat.links}),
+            sorted((times[n], w) for n, w in lat.finals.items()))
+
+
+def _proto_step_on(torch, device, params, comps, batch, seed=0):
+    """One frame cross-entropy step of the proto model ``comps`` from
+    ``params`` on ``device`` with dropout on (its seeds from ``seed``):
+    (loss, {(component, name): gradient on the CPU in float64})."""
+    from pytorch_kaldi_asr_tpu_torch.models.common import DropoutRngs
+    from pytorch_kaldi_asr_tpu_torch.models.proto import apply_proto
+
+    feats, labels = batch
+    ps = [{k: v.detach().to(device, copy=True).requires_grad_()
+           for k, v in p.items()} for p in params]
+    out = apply_proto(ps, comps, torch.as_tensor(feats, device=device),
+                      train=True,
+                      rngs=DropoutRngs(torch.Generator().manual_seed(seed)))
+    lab = torch.as_tensor(labels, device=device)
+    loss = -torch.log(torch.take_along_dim(out, lab[..., None], -1)
+                      + 1e-8).mean()
+    loss.backward()
+    return float(loss.detach()), {(i, k): p[k].grad.cpu().double()
+                         for i, p in enumerate(ps) for k in p}
+
+
+def proto_setup(torch):
+    """The TOOLS["proto"] DNN, ``make_nnet_proto``'s text behind a
+    <Splice> of +-TOOLS["proto_splice"] frames: (proto text, parsed
+    components, parameters on the CPU, (features, frame labels))."""
+    import io
+
+    import numpy as np
+
+    from pytorch_kaldi_asr_tpu_torch.models.proto import (
+        init_proto,
+        parse_proto,
+        proto_output_dim,
+    )
+    from pytorch_kaldi_asr_tpu_torch.tools import make_nnet_proto
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        make_nnet_proto.main(list(TOOLS["proto"]))
+    d, c = TOOLS["proto_feat_dim"], TOOLS["proto_splice"]
+    text = (f"<Splice> <InputDim> {d} <OutputDim> {d * (2 * c + 1)} "
+            f"<Context> {':'.join(str(i) for i in range(-c, c + 1))}\n"
+            + buf.getvalue())
+    comps = parse_proto(text)
+    params = init_proto(torch.Generator().manual_seed(SEED), comps)
+    rng = np.random.default_rng(SEED)
+    shape = (TOOLS["proto_utts"], TOOLS["proto_frames"])
+    feats = rng.normal(size=(*shape, d)).astype(np.float32)
+    labels = rng.integers(0, proto_output_dim(comps), size=shape)
+    return text, comps, params, (feats, labels)
+
+
+def proto_masks_equal(torch, comps, batch, device, seed=0):
+    """Each <Dropout> site's mask of ``_proto_step_on``'s step with seed
+    ``seed``, on ``device`` and on the CPU (the K3 check's way: the
+    kernel's pass against its plain version on the same seed and shape):
+    the mismatched elements per site."""
+    from pytorch_kaldi_asr_tpu_torch.models.common import DropoutRngs, dropout
+
+    rngs = DropoutRngs(torch.Generator().manual_seed(seed))
+    out = []
+    for comp in comps:
+        if comp["type"] != "<Dropout>":
+            continue
+        rate = 1.0 - float(comp["DropoutRetention"])
+        s = rngs.seed()
+        shape = (*batch[0].shape[:2], int(comp["OutputDim"]))
+        card = dropout(torch.ones(shape, device=device), rate, s, True)
+        cpu = dropout(torch.ones(shape), rate, s, True)
+        out.append(int((card.cpu() != cpu).sum()))
+    return out
+
+
+def _run_bench_cli(work, *args):
+    """``python -m pytorch_kaldi_asr_tpu_torch.tools.bench_rtf`` as a
+    process, started at once; ``_finish_bench_cli`` waits for it."""
+    log = open(work / "bench_rtf_cli.log", "w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pytorch_kaldi_asr_tpu_torch.tools.bench_rtf",
+         *map(str, args)], cwd=str(REPO), stdout=subprocess.PIPE,
+        stderr=log, text=True,
+        env=dict(os.environ, PYTHONPATH=str(REPO), PYTHONUNBUFFERED="1"))
+    return proc, log, t0
+
+
+def _finish_bench_cli(run):
+    proc, log, t0 = run
+    stdout, _ = proc.communicate(timeout=300)
+    log.close()
+    if proc.returncode != 0:
+        raise AssertionError(f"bench_rtf CLI exited {proc.returncode}: "
+                             f"{Path(log.name).read_text()[-3000:]}")
+    rows = [json.loads(line) for line in stdout.splitlines()
+            if line.startswith("{")]
+    return rows, time.perf_counter() - t0
+
+
+def profile_attention(torch, work, device="cuda", attempts=PROFILE_ATTEMPTS):
+    """``profile_trace`` around one session of bench_streaming_conformer's
+    push loop and one offline forward of the same conformer AM over the
+    session's audio (the streaming chunks attend through an einsum over
+    [cache | chunk], as JAX's do: the inference kernel K1 runs in the
+    offline forward), then ``trace_summary``: the device track's rows must
+    name ``banded_attention_kernel``, and the by-launching-op view must
+    attribute all of its time to the attention call (the wrapper's
+    ``banded_attention`` range).  A trace that lost the kernel's records
+    is taken again (``attempts`` in all).  Returns the tables and
+    readings."""
+    from pytorch_kaldi_asr_tpu_torch.models.am import am_log_posteriors
+    from pytorch_kaldi_asr_tpu_torch.tools import bench_rtf, trace_summary
+    from pytorch_kaldi_asr_tpu_torch.utils.metrics import profile_trace
+
+    stream, feats = bench_rtf.streaming_conformer_setup(device=device)
+    src = torch.as_tensor(feats, device=device)
+    mask = torch.ones(src.shape[:2], dtype=torch.uint8, device=device)
+
+    def run():
+        bench_rtf.stream_session(stream, feats, TOOLS["chunk"])
+        with torch.no_grad():
+            am_log_posteriors(stream.params, stream.cfg, src, mask)[0].cpu()
+
+    run()  # warm
+    for attempt in range(1, attempts + 1):
+        log_dir = _fresh(work / "trace")
+        before = launch_counts()["banded_attention"]
+        with profile_trace(str(log_dir)):
+            run()
+        launched = launch_counts()["banded_attention"] - before
+        # every row (K1's may rank low on the device track); 12 printed
+        summary = trace_summary.summarize(str(log_dir), top=10 ** 9)
+        by_op = trace_summary.summarize_by_source(str(log_dir), top=10 ** 9)
+        k1 = {track: [r for r in s["rows"]
+                      if "banded_attention_kernel" in r[0]]
+              for track, s in summary.items()}
+        k1 = {t: rows for t, rows in k1.items() if rows}
+        if k1:
+            break
+        print(f"torch.profiler lost the K1 records (attempt {attempt} of "
+              f"{attempts})", flush=True)
+    if not k1:
+        raise AssertionError("trace_summary: no banded_attention_kernel row "
+                             "on any track")
+    (track, rows), = k1.items()
+    k1_us, k1_calls = sum(r[1] for r in rows), sum(r[2] for r in rows)
+    # the by-launching-op view names its device track by the process's
+    # label ("GPU 0"); JAX's per-track view by the name it has seen
+    attributed = {t: {r[0]: (r[1], r[4]) for r in v["rows"]}
+                  for t, v in by_op.items()}
+    ours = [(t, row["banded_attention"]) for t, row in attributed.items()
+            if "banded_attention" in row]
+    if len(ours) != 1 or abs(ours[0][1][0] - k1_us) > 1e-6 * k1_us \
+            or ours[0][1][1] != k1_calls or k1_calls != launched:
+        raise AssertionError(
+            f"trace_summary by launching op: {ours}, K1 {k1_us} us over "
+            f"{k1_calls} calls on {track}, {launched} launches counted")
+
+    def top(tables, *keys):
+        return {t: dict(v, **{k: v[k][:12] for k in keys})
+                for t, v in tables.items()}
+
+    return {"track": track, "by_op_track": ours[0][0], "k1_rows": rows,
+            "k1_us": k1_us, "k1_calls": k1_calls,
+            "k1_launches_counted": launched, "attempts": attempt,
+            "md": trace_summary.format_md(top(summary, "rows")),
+            "source_md": trace_summary.format_source_md(
+                top(by_op, "rows", "category_rows"))}
+
+
+def run_tools(torch, hybrid_work, device="cuda"):
+    """The tools phase over the hybrid phase's ``hybrid_work`` (its card
+    posteriors, exp/post.scp, and HLG, graph A) and graph B (built by
+    ``build_graph_b`` under WORK/device_search/graph_b), in order:
+
+    1. the native latgen core (``native.build``; run.sh's latgen built it
+       already) against the Python token passer (``native=False``) over
+       the test set on graphs A and B at the recipe's knobs, on the
+       trained AM's posteriors and on noisy ones (``noisy_posteriors``):
+       the same words and phones, costs within NATIVE_COST_ATOL, each
+       decoder's seconds; ``latgen_lattice`` both ways on graph A over
+       TOOLS["lattice_utts"] utterances at the lattice phase's beam: the
+       same lattice up to node numbering and duplicate links
+       (``lattice_form``) and the same TOOLS["nbest"]-best, costs within
+       NATIVE_COST_ATOL;
+    2. bench_rtf in this process at its defaults (posterior, decode,
+       streaming, hybrid, hybrid_device; partials at TOOLS["session_sec"]
+       s), and its CLI as a process with ``--which posterior``, started
+       with step 1;
+    3. the proto DNN (``proto_setup``): its forward at ``train=False``,
+       card against CPU within PROTO_FWD_RTOL of the output's largest
+       entry, and one frame-CE step with dropout on (``card_vs_cpu_step``
+       with ``_proto_step_on``: loss, and each leaf within STEP_GRAD_RTOL
+       or F32_NOISE_RATIO times the CPU's one-ulp noise);
+    4. ``profile_attention``;
+    5. K3 launched once a dropout site each way in the step, K1 in the
+       profile; the step's masks card against CPU (``proto_masks_equal``,
+       after the counts are read: comparison launches do not count) all
+       equal; the device list (``tools.devices``).
+
+    Returns the readings, the launches and the seconds."""
+    import numpy as np
+
+    from pytorch_kaldi_asr_tpu_torch import native
+    from pytorch_kaldi_asr_tpu_torch.decode.latgen import (
+        latgen,
+        latgen_lattice,
+    )
+    from pytorch_kaldi_asr_tpu_torch.decode.lattice_ops import nbest
+    from pytorch_kaldi_asr_tpu_torch.fst.openfst_io import read_fst
+    from pytorch_kaldi_asr_tpu_torch.io import kaldi_io
+    from pytorch_kaldi_asr_tpu_torch.models.proto import apply_proto
+    from pytorch_kaldi_asr_tpu_torch.recipes.mkgraph import read_symbol_table
+    from pytorch_kaldi_asr_tpu_torch.tools import bench_rtf, devices
+
+    t_phase = time.perf_counter()
+    hw = Path(hybrid_work).resolve()
+    exp, data = hw / "exp", hw / "data"
+    work = _fresh(WORK / "tools")
+    cli = _run_bench_cli(work, "--which", "posterior", "--device", device)
+    out = {"knobs": dict(HYBRID_SEARCH, **TOOLS), "seconds": {}}
+
+    # 1. the native core against the Python token passer
+    t0 = time.perf_counter()
+    lib, log = native.build()
+    out["native"] = {"library": lib.name, "built_here": bool(log),
+                     "build_s": time.perf_counter() - t0}
+    posts = _search_posts(hw)
+    keys = sorted(posts)
+    frames = kaldi_io.read_key_value_text(str(data / "test" /
+                                              "feats.length"), int)
+    audio_s = 0.010 * sum(frames[k] for k in keys)
+    noisy = noisy_posteriors(posts, keys)
+    graphs = {"A": read_fst(str(exp / "graph" / "HLG.fst")),
+              "B": read_fst(str(WORK / "device_search" / "graph_b" / "graph"
+                                / "HLG.fst"))}
+    decodes = {}
+    for gname, graph in graphs.items():
+        for pname, pp in (("trained", posts), ("noisy", noisy)):
+            res = {}
+            for name, flag in (("native", True), ("python", False)):
+                t0 = time.perf_counter()
+                res[name] = [latgen(graph, pp[k], native=flag,
+                                    **HYBRID_SEARCH) for k in keys]
+                seconds = time.perf_counter() - t0
+                decodes[f"{name}_{gname}_{pname}"] = {
+                    "s": seconds, "s_per_audio_s": seconds / audio_s}
+            check = _same_search(
+                f"native latgen against the Python token passer on graph "
+                f"{gname}, {pname} posteriors",
+                list(zip(keys, res["native"], res["python"])),
+                cost_atol=NATIVE_COST_ATOL)
+            n, p = (decodes[f"{x}_{gname}_{pname}"]["s"]
+                    for x in ("native", "python"))
+            decodes[f"check_{gname}_{pname}"] = dict(check, speedup=p / n)
+            print(f"native latgen on graph {gname}, {pname} posteriors: "
+                  f"{n:.4f} s ({n / audio_s:.6f} s per s of audio), the "
+                  f"Python token passer {p:.3f} s ({p / audio_s:.6f}); "
+                  f"{p / n:.1f} x; the same words and phones, costs "
+                  f"{check['max_cost_gap']:.3g} apart", flush=True)
+    out["decodes"] = decodes
+    out["audio_s"] = audio_s
+    words = read_symbol_table(str(exp / "graph" / "words.txt"))
+    id2word = {i: w for w, i in words.items()}
+    lats = {}
+    for name, flag in (("native", True), ("python", False)):
+        t0 = time.perf_counter()
+        lats[name] = [latgen_lattice(
+            graphs["A"], posts[k], lattice_beam=LATTICE["lattice_beam"],
+            id2word=id2word, utt=k, native=flag, **HYBRID_SEARCH)
+            for k in keys[:TOOLS["lattice_utts"]]]
+        out["seconds"][f"lattice_{name}"] = time.perf_counter() - t0
+        with open(work / f"lat_{name}.txt", "w", encoding="utf-8") as f:
+            for lat in lats[name]:
+                f.write(f"{lat.utt}\n")
+                lat.write_kaldi_text(f)
+                f.write("\n")
+    sizes = []
+    for a, b in zip(lats["native"], lats["python"]):
+        if lattice_form(a) != lattice_form(b):
+            raise AssertionError(f"latgen_lattice {a.utt}: the native "
+                                 f"core's lattice is not the Python's")
+        na, nb = nbest(a, TOOLS["nbest"]), nbest(b, TOOLS["nbest"])
+        if [w for w, _ in na] != [w for w, _ in nb] or any(
+                abs(x - y) > NATIVE_COST_ATOL
+                for (_, x), (_, y) in zip(na, nb)):
+            raise AssertionError(f"latgen_lattice {a.utt}: n-best differs")
+        sizes.append({"utt": a.utt, "nodes": a.num_nodes,
+                      "links_native": len(a.links),
+                      "links_python": len(b.links),
+                      "distinct_links": len(lattice_form(a)[1])})
+    out["lattices"] = sizes
+    print(f"latgen_lattice native against Python on graph A: the same "
+          f"lattices up to node numbering and duplicate links, the same "
+          f"{TOOLS['nbest']}-best: {sizes}; native "
+          f"{out['seconds']['lattice_native']:.3f} s, Python "
+          f"{out['seconds']['lattice_python']:.3f} s", flush=True)
+    out["seconds"]["native_vs_python"] = time.perf_counter() - t_phase
+
+    # 2. bench_rtf in this process (the phase's main path from here on)
+    reset_launch_counts()
+    benches = {}
+    for name, fn in (("posterior", bench_rtf.bench_offline_posteriors),
+                     ("decode", bench_rtf.bench_decode),
+                     ("streaming", bench_rtf.bench_streaming_conformer),
+                     ("hybrid", bench_rtf.bench_hybrid),
+                     ("hybrid_device", bench_rtf.bench_hybrid_device)):
+        t0 = time.perf_counter()
+        benches[name] = fn(device=device)
+        out["seconds"][f"bench_{name}"] = time.perf_counter() - t0
+        print("bench_rtf " + json.dumps(benches[name]), flush=True)
+    t0 = time.perf_counter()
+    benches["partials"] = bench_rtf.bench_partials(
+        total_frames=int(TOOLS["session_sec"] * 100), device=device)
+    out["seconds"]["bench_partials"] = time.perf_counter() - t0
+    print("bench_rtf " + json.dumps(benches["partials"]), flush=True)
+    out["bench_rtf"] = benches
+
+    # 3. the proto DNN, card against CPU
+    t0 = time.perf_counter()
+    text, comps, params, batch = proto_setup(torch)
+    on_card = [{k: v.to(device) for k, v in p.items()} for p in params]
+    with torch.no_grad():
+        got = apply_proto(on_card, comps, torch.as_tensor(batch[0],
+                                                          device=device))
+        want = apply_proto(params, comps, torch.as_tensor(batch[0]))
+    fwd_err = _rel_err(got.cpu(), want)
+    if fwd_err > PROTO_FWD_RTOL:
+        raise AssertionError(f"proto DNN forward, card against CPU: "
+                             f"{fwd_err:.3g} of its largest entry")
+    step = card_vs_cpu_step(torch, device, params, comps, batch,
+                            step_on=_proto_step_on)
+    out["proto"] = {"components": [c["type"] for c in comps],
+                    "parameters": sum(v.numel() for p in params
+                                      for v in p.values()),
+                    "forward_rel_err": fwd_err, "step": step,
+                    "s": time.perf_counter() - t0}
+    print(f"proto DNN ({len(comps)} components, "
+          f"{out['proto']['parameters']} parameters) forward card against "
+          f"CPU {fwd_err:.3g} of its largest entry; step: "
+          + json.dumps(step), flush=True)
+
+    # 4. a profile and its summary (on a card: the CPU runs no kernel)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        t0 = time.perf_counter()
+        prof = profile_attention(torch, work, device)
+        out["profile"] = {k: v for k, v in prof.items()
+                          if not k.endswith("md")}
+        out["seconds"]["profile"] = time.perf_counter() - t0
+        print(prof["md"] + "\n" + prof["source_md"], flush=True)
+        print(f"trace_summary: banded_attention_kernel "
+              f"{prof['k1_us']:.3f} us over {prof['k1_calls']} calls on "
+              f"{prof['track']}, all of it launched by banded_attention on "
+              f"{prof['by_op_track']} ({prof['k1_launches_counted']} "
+              f"launches counted)", flush=True)
+
+    # 5. the counts, then the comparison launches; the device list
+    launches = launch_counts()
+    sites = sum(c["type"] == "<Dropout>" for c in comps) if cuda else 0
+    want_k3 = {"fused_dropout_forward": sites,
+               "fused_dropout_backward": sites}
+    if any(launches[k] != n for k, n in want_k3.items()) \
+            or bool(launches["banded_attention"]) != cuda:
+        raise AssertionError(f"tools phase launches {launches}: expected K3 "
+                             f"{want_k3} (the proto step) and K1 (the "
+                             f"profiled forward)")
+    out["launches"] = launches
+    masks = proto_masks_equal(torch, comps, batch, device)
+    if any(masks):
+        raise AssertionError(f"proto step's dropout masks, card against "
+                             f"CPU: {masks} elements differ")
+    out["proto"]["mask_mismatches"] = masks
+    out["devices"] = devices.available_devices()
+    print("tools.devices: " + json.dumps(out["devices"]), flush=True)
+    cli_rows, cli_s = _finish_bench_cli(cli)
+    if [r.get("metric") for r in cli_rows] != ["posterior_rtf_offline"]:
+        raise AssertionError(f"bench_rtf CLI printed {cli_rows}")
+    out["bench_rtf_cli"] = {"rows": cli_rows, "wall_s": cli_s}
+    print("bench_rtf CLI (--which posterior): " + json.dumps(cli_rows[0])
+          + f" in {cli_s:.1f} s", flush=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("tools: " + json.dumps(out, default=str))
+    return out
+
+
 # the serve phase: the recognition server (recipes/serve.py) as a process,
 # in attention mode on the TIMIT banded checkpoint of the decode path, in
 # hybrid mode on a causal copy of the long-form AM and the hybrid phase's
@@ -5786,6 +6235,7 @@ def main():
     serve_only = sys.argv[1:2] == ["--serve"]
     lattice_only = sys.argv[1:2] == ["--lattice"]
     search_only = sys.argv[1:2] == ["--device-search"]
+    tools_only = sys.argv[1:2] == ["--tools"]
     if sys.argv[1:2] == ["--k3-plain"]:  # the CPU alone: nothing to build
         sys.path.insert(0, str(REPO))
         print(f"card: {card_line()}")
@@ -5827,7 +6277,7 @@ def main():
 
     full_run = not (sources or noisy_leaf or bf16_gates or bf16_compute_gates
                     or step_only or recipe_only or hybrid_only or serve_only
-                    or lattice_only or search_only)
+                    or lattice_only or search_only or tools_only)
     # the training paths' CPU reference steps use the CPU while nvcc builds
     prefetch = (threading.Thread(target=prefetch_cpu_steps, args=(torch,),
                                  daemon=True) if full_run else None)
@@ -5876,7 +6326,7 @@ def main():
         return 0
 
     if not (recipe_only or hybrid_only or serve_only or lattice_only
-            or search_only):
+            or search_only or tools_only):
         kp = kernel_phase(torch)
         print(f"kernel phase done at {time.perf_counter() - t_start:.1f} s")
 
@@ -5997,6 +6447,29 @@ def main():
               f"run {before:.1f} s before it, {after:.1f} s after; {card}")
         return phase
 
+    def tools_phase():
+        """The native core, bench_rtf, the proto DNN, a profile's summary
+        and the device list over the hybrid phase's posteriors and graphs
+        A and B (``run_tools``)."""
+        before = time.perf_counter() - t_start
+        phase = run_tools(torch, WORK / "hybrid")
+        phase["card"] = card
+        d = phase["decodes"]
+        for g in ("A", "B"):
+            for p in ("trained", "noisy"):
+                print(f"tools phase, graph {g}, {p} posteriors: native "
+                      f"latgen {d[f'native_{g}_{p}']['s_per_audio_s']:.6f} s "
+                      f"per s of audio, Python "
+                      f"{d[f'python_{g}_{p}']['s_per_audio_s']:.6f} "
+                      f"({d[f'check_{g}_{p}']['speedup']:.1f} x); {card}")
+        n = phase["launches"]
+        print(f"tools phase: {phase['phase_s']:.1f} s (K1 "
+              f"{n['banded_attention']}, K3 {n['fused_dropout_forward']} + "
+              f"{n['fused_dropout_backward']} launches); the run "
+              f"{before:.1f} s before it, "
+              f"{time.perf_counter() - t_start:.1f} s after; {card}")
+        return phase
+
     def serve_phase():
         """Both servers on the TIMIT decode path's checkpoint and the
         hybrid phase's corpus and graph (``run_serve``)."""
@@ -6024,6 +6497,12 @@ def main():
     if lattice_only:
         hybrid_phase(kernels=True)
         lattice_phase()
+        print(f"whole run {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if tools_only:
+        hybrid_phase(kernels=True)
+        build_graph_b(WORK / "hybrid", WORK / "device_search" / "graph_b")
+        tools_phase()
         print(f"whole run {time.perf_counter() - t_start:.1f} s")
         return 0
     if search_only:
@@ -6095,6 +6574,7 @@ def main():
     print(f"before the lattice phase: {before_lattice:.1f} s")
     lattice = lattice_phase()
     search_phase(graph_b)
+    tools = tools_phase()
     before_serve = time.perf_counter() - t_start
     print(f"before the serve phase: {before_serve:.1f} s (without the "
           f"lattice phase: {before_serve - lattice['seconds']:.1f} s)")
@@ -6104,7 +6584,7 @@ def main():
         return sum(p["launches"][name] for p in paths)
 
     paths = [*decodes.values(), *trainings.values(), *extra.values(),
-             recipe["recipe"], hybrid["recipe"], lattice, serve]
+             recipe["recipe"], hybrid["recipe"], lattice, tools, serve]
     jax_file = "pytorch_kaldi_asr_tpu/ops/banded_attention.py"
     source = "pytorch_kaldi_asr_tpu_torch/ops/csrc/banded_attention_train.cu"
     kernels = []

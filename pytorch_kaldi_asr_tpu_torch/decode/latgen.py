@@ -9,16 +9,25 @@ word sequence (plus the frame-level phone alignment).  Acoustic costs
 follow the hybrid convention: cost(frame, phone) = -acoustic_scale *
 (log p(phone|frame) - log prior(phone)).
 
-The JAX package dispatches to a C++ twin of this decoder when its native
-library is built, with outputs pinned identical; the port runs the Python
-decoder (a native core of its own is on ROADMAP.md's host queue).
-``latgen_lattice`` is the lattice-generating decode, the JAX package's
-Python path (the hybrid server's n-best).
+The token passing runs in the port's native C++ core by default
+(native/src/latgen.cc, built at first use: ``NativeStreamingLatgen`` and
+the lattice decode's ``_native_latgen_lattice``), as the JAX package's
+dispatch does when its core is built; ``native=False`` takes the Python
+token passer (``StreamingLatgen`` and ``latgen_lattice``'s Python loop),
+the oracle the core is held against.  The two give the same words,
+phones and costs, and their lattices the same n-best; but the core
+records links in its hash maps' order, so the link order, the node
+numbering and the count of duplicate links differ (and marginal links
+may).  There is no silent fallback: a core that does not build raises.
+``latgen_lattice`` is the lattice-generating decode (the hybrid server's
+n-best).
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
+import weakref
 
 import numpy as np
 
@@ -211,41 +220,301 @@ class StreamingLatgen:
         return entries[::-1], best_cost
 
 
-def make_streaming_latgen(graph: Fst, **kw):
-    """The carried-state decoder the streaming server drives: the JAX
-    package's constructor of the same name returns its native core when
-    built; the port has the Python decoder only (ROADMAP.md, queue 1 item
-    8d), which gives the same outputs."""
+class _NativeGraph:
+    """Owns a native (C++) copy of an Fst's arcs; shared read-only by any
+    number of decoder instances (one per stream)."""
+
+    def __init__(self, graph: Fst, lib):
+        if graph.start < 0:
+            raise ValueError("decode graph has no start state")
+        self._lib = lib
+        n = graph.num_states
+        n_arcs = graph.num_arcs
+        row = np.zeros(n + 1, np.int64)
+        il = np.empty(n_arcs, np.int32)
+        ol = np.empty(n_arcs, np.int32)
+        w = np.empty(n_arcs, np.float64)
+        ns = np.empty(n_arcs, np.int32)
+        pos = 0
+        for s in range(n):
+            for a in graph.arcs[s]:
+                il[pos], ol[pos], w[pos], ns[pos] = (a.ilabel, a.olabel,
+                                                     a.weight, a.nextstate)
+                pos += 1
+            row[s + 1] = pos
+        finals = np.full(n, np.inf, np.float64)
+        for s, fw in graph.final.items():
+            finals[s] = fw
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        self.handle = lib.pka_graph_create(
+            n, graph.start,
+            row.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            il.ctypes.data_as(i32p), ol.ctypes.data_as(i32p),
+            w.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            ns.ctypes.data_as(i32p),
+            finals.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        )
+
+    def __del__(self):
+        if getattr(self, "handle", None):
+            self._lib.pka_graph_destroy(self.handle)
+            self.handle = None
+
+
+def _graph_fingerprint(graph: Fst):
+    return (graph.start, graph.num_states, graph.num_arcs,
+            tuple(sorted(graph.final.items())))
+
+
+# keyed WEAKLY by the Fst (not stored on it: a ctypes-bearing attribute
+# would break deepcopy/pickle of any graph that has been decoded once);
+# entries carry a fingerprint so mutating the graph rebuilds the copy
+_NATIVE_GRAPHS: "weakref.WeakKeyDictionary[Fst, tuple]" = (
+    weakref.WeakKeyDictionary())
+
+
+def _native_graph(graph: Fst, lib):
+    """Native arc-copy cache, invalidated when the Fst is mutated after a
+    decode (add_arc/set_final/start change the fingerprint)."""
+    fp = _graph_fingerprint(graph)
+    ent = _NATIVE_GRAPHS.get(graph)
+    if ent is None or ent[0] != fp:
+        ent = (fp, _NativeGraph(graph, lib))
+        _NATIVE_GRAPHS[graph] = ent
+    return ent[1]
+
+
+def _check_priors(posts, priors):
+    if priors is not None and posts.shape[1] != len(priors):
+        raise ValueError(
+            f"posterior width {posts.shape[1]} != priors length "
+            f"{len(priors)} (same check the Python decoder's broadcast "
+            "raises)")
+
+
+class NativeStreamingLatgen:
+    """C++ twin of :class:`StreamingLatgen` (native/src/latgen.cc) with
+    the identical interface and outputs, and faster token passing (PERF.md
+    §6 has its times against the Python decoder's).
+    :func:`make_streaming_latgen` returns it unless asked for the Python
+    decoder."""
+
+    def __init__(self, graph: Fst, *, acoustic_scale=1.0, beam=16.0,
+                 max_active=2000, log_priors=None, sym_offset=1,
+                 compact_threshold=None):
+        from pytorch_kaldi_asr_tpu_torch import native
+
+        self._lib = native.load()
+        self._graph = _native_graph(graph, self._lib)  # keep alive
+        self.frames = 0
+        if compact_threshold is None:
+            compact_threshold = max(65536, 64 * max_active)
+        priors_p = None
+        n_priors = 0
+        self._priors = None
+        if log_priors is not None:
+            self._priors = np.ascontiguousarray(log_priors, np.float64)
+            priors_p = self._priors.ctypes.data_as(
+                ctypes.POINTER(ctypes.c_double))
+            n_priors = len(self._priors)
+        self._h = self._lib.pka_latgen_create(
+            self._graph.handle, float(acoustic_scale), float(beam),
+            int(max_active), priors_p, n_priors, int(sym_offset),
+            int(compact_threshold),
+        )
+
+    def __del__(self):
+        if getattr(self, "_h", None):
+            self._lib.pka_latgen_destroy(self._h)
+            self._h = None
+
+    @property
+    def dead(self):
+        return bool(self._lib.pka_latgen_dead(self._h))
+
+    def reset(self):
+        self._lib.pka_latgen_reset(self._h)
+        self.frames = 0
+
+    def push(self, log_posts):
+        posts = np.ascontiguousarray(log_posts, np.float64)
+        _check_priors(posts, self._priors)
+        ok = self._lib.pka_latgen_push(
+            self._h, posts.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            posts.shape[0], posts.shape[1],
+        )
+        self.frames = int(self._lib.pka_latgen_frames(self._h))
+        return bool(ok)
+
+    def partial(self):
+        cap = 256
+        while True:
+            words = np.empty(cap, np.int32)
+            cost = ctypes.c_double()
+            n = self._lib.pka_latgen_partial(
+                self._h, words.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                cap, ctypes.byref(cost))
+            if n < 0:
+                return None
+            if n <= cap:
+                return [int(x) for x in words[:n]], cost.value
+            cap = int(n)
+
+    def finish_entries(self):
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        cap = 1024
+        while True:
+            ols = np.empty(cap, np.int32)
+            ils = np.empty(cap, np.int32)
+            cost = ctypes.c_double()
+            n = self._lib.pka_latgen_finish(
+                self._h, ols.ctypes.data_as(i32p), ils.ctypes.data_as(i32p),
+                cap, ctypes.byref(cost))
+            if n < 0:
+                return None
+            if n <= cap:
+                entries = [(int(o), int(i)) for o, i in
+                           zip(ols[:n], ils[:n])]
+                return entries, cost.value
+            cap = int(n)
+
+    def finish(self):
+        res = self.finish_entries()
+        if res is None:
+            return None
+        entries, best_cost = res
+        words = [ol for ol, _ in entries if ol != EPS]
+        phones = [il for _, il in entries if il != EPS]
+        return words, phones, best_cost
+
+
+def make_streaming_latgen(graph: Fst, *, native=True, **kw):
+    """The carried-state decoder the streaming server drives: the native
+    C++ core (:class:`NativeStreamingLatgen`, built at first use), or with
+    ``native=False`` the Python :class:`StreamingLatgen`; the same
+    outputs (tests/test_torch_native_latgen.py)."""
+    if native:
+        return NativeStreamingLatgen(graph, **kw)
     return StreamingLatgen(graph, **kw)
 
 
 def latgen(graph: Fst, log_posts, *, acoustic_scale=1.0, beam=16.0,
-           max_active=2000, log_priors=None, sym_offset=1):
+           max_active=2000, log_priors=None, sym_offset=1, native=True):
     """Decode one utterance.
 
     log_posts: [T, n_phones] log p(phone | frame).  Graph input label i
     corresponds to posterior column (i - sym_offset) — phone symbol tables
-    start at 1 because 0 is epsilon.
+    start at 1 because 0 is epsilon.  The native core decodes unless
+    ``native=False`` (the Python token passer; the same outputs).
 
     Returns (word_ids, phone_frames, total_cost) or None if no path
     survived."""
-    dec = StreamingLatgen(graph, acoustic_scale=acoustic_scale, beam=beam,
-                          max_active=max_active, log_priors=log_priors,
-                          sym_offset=sym_offset)
+    dec = make_streaming_latgen(graph, native=native,
+                                acoustic_scale=acoustic_scale, beam=beam,
+                                max_active=max_active, log_priors=log_priors,
+                                sym_offset=sym_offset)
     if not dec.push(log_posts):
         return None
     return dec.finish()
 
 
+def _word_label(id2word):
+    def word(ol):
+        if ol == EPS:
+            return "<eps>"
+        return id2word.get(ol, f"#{ol}") if id2word else str(ol)
+    return word
+
+
+def _native_latgen_lattice(graph, log_posts, *, acoustic_scale, beam,
+                           lattice_beam, max_active, log_priors,
+                           sym_offset, id2word, utt):
+    """Native-core lattice decode: the C++ token loop records surviving
+    transitions and beam-prunes them (native/src/latgen.cc
+    LatticeDecoder); the WordLattice is assembled here.  Link RECORDING
+    depends on the relaxation order (a state relaxed again records its
+    links again, and the record test ``nc < cur + lattice_beam`` sees a
+    looser ``cur`` earlier in the relaxation), so the link order and the
+    duplicate links differ from the Python decoder's, and marginal links
+    may; the n-best agrees at wide beams and the 1-best always."""
+    from pytorch_kaldi_asr_tpu_torch import native
+    from pytorch_kaldi_asr_tpu_torch.decode.lattice_io import WordLattice
+
+    lib = native.load()
+    ngraph = _native_graph(graph, lib)
+    posts = np.ascontiguousarray(log_posts, np.float64)
+    priors_p, n_priors = None, 0
+    if log_priors is not None:
+        priors = np.ascontiguousarray(log_priors, np.float64)
+        _check_priors(posts, priors)
+        priors_p = priors.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
+        n_priors = len(priors)
+    h = lib.pka_latlat_create(ngraph.handle, float(acoustic_scale),
+                              float(beam), float(lattice_beam),
+                              int(max_active), priors_p, n_priors,
+                              int(sym_offset))
+    try:
+        rc = lib.pka_latlat_run(
+            h, posts.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            posts.shape[0], posts.shape[1])
+        if rc == -1:
+            raise ValueError("lattice has a cycle")  # as topo_order raises
+        if rc == 0:
+            return None
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        f64p = ctypes.POINTER(ctypes.c_double)
+        nn = int(lib.pka_latlat_n_nodes(h))
+        times = np.empty(nn, np.int32)
+        lib.pka_latlat_node_times(h, times.ctypes.data_as(i32p))
+        n = int(lib.pka_latlat_n_links(h))
+        frm = np.empty(n, np.int32)
+        to = np.empty(n, np.int32)
+        ol = np.empty(n, np.int32)
+        ac = np.empty(n, np.float64)
+        gw = np.empty(n, np.float64)
+        lib.pka_latlat_links(h, frm.ctypes.data_as(i32p),
+                             to.ctypes.data_as(i32p),
+                             ol.ctypes.data_as(i32p),
+                             ac.ctypes.data_as(f64p),
+                             gw.ctypes.data_as(f64p))
+        nf = int(lib.pka_latlat_n_finals(h))
+        fnodes = np.empty(nf, np.int32)
+        fweights = np.empty(nf, np.float64)
+        lib.pka_latlat_finals(h, fnodes.ctypes.data_as(i32p),
+                              fweights.ctypes.data_as(f64p))
+    finally:
+        lib.pka_latlat_destroy(h)
+
+    # the native core already beam-pruned and renumbered by (time, id):
+    # assemble the final WordLattice verbatim
+    word = _word_label(id2word)
+    lat = WordLattice(utt=utt)
+    for t in times:
+        lat.add_node(int(t))
+    for i in range(n):
+        lat.add_link(int(frm[i]), int(to[i]), word(int(ol[i])),
+                     float(ac[i]), float(gw[i]))
+    for i in range(nf):
+        lat.finals[int(fnodes[i])] = float(fweights[i])
+    return lat
+
+
 def latgen_lattice(graph: Fst, log_posts, *, acoustic_scale=1.0, beam=16.0,
                    lattice_beam=8.0, max_active=2000, log_priors=None,
-                   sym_offset=1, id2word=None, utt=""):
+                   sym_offset=1, id2word=None, utt="", native=True):
     """Lattice-generating decode: like :func:`latgen`, but records every
     transition within ``lattice_beam`` of a surviving token and returns the
     pruned WordLattice (the lattice-faster decode role; the hybrid server's
-    n-best reads it through decode/lattice_ops.nbest).  The JAX package's
-    Python token loop, in its order with its float64 sums.  Returns None if
-    no path survives."""
+    n-best reads it through decode/lattice_ops.nbest).  The token loop runs
+    in the native core; with ``native=False`` it is the JAX package's
+    Python loop, in its order with its float64 sums.  Returns None if no
+    path survives."""
+    if native:
+        return _native_latgen_lattice(
+            graph, log_posts, acoustic_scale=acoustic_scale, beam=beam,
+            lattice_beam=lattice_beam, max_active=max_active,
+            log_priors=log_priors, sym_offset=sym_offset, id2word=id2word,
+            utt=utt)
     from pytorch_kaldi_asr_tpu_torch.decode.lattice_io import WordLattice
 
     log_posts = np.asarray(log_posts, dtype=np.float64)
@@ -262,10 +531,7 @@ def latgen_lattice(graph: Fst, log_posts, *, acoustic_scale=1.0, beam=16.0,
             node_of[key] = lat.add_node(t)
         return node_of[key]
 
-    def word(ol):
-        if ol == EPS:
-            return "<eps>"
-        return id2word.get(ol, f"#{ol}") if id2word else str(ol)
+    word = _word_label(id2word)
 
     def eps_expand(t, tokens):
         stack = list(tokens.keys())

@@ -51,6 +51,7 @@ instantiations (``launches_bf16`` counts them), never the float32 ones.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -163,8 +164,14 @@ def _count(wrapper, dtype):
 
 def _run(name, fn, device, *args):
     """Call C entry point ``fn`` on PyTorch's current stream of ``device``;
-    raise if the launch was refused."""
-    with torch.cuda.device(device):
+    raise if the launch was refused.  Under torch.profiler the call is a
+    ``name`` range, so a trace attributes the kernel to its wrapper
+    (tools/trace_summary.summarize_by_source); otherwise nothing is
+    recorded."""
+    annotate = (torch.profiler.record_function(name)
+                if torch.autograd._profiler_enabled()
+                else contextlib.nullcontext())
+    with torch.cuda.device(device), annotate:
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

@@ -7,7 +7,9 @@ the hybrid-AM pipeline (posterior dump -> graph decode -> WER).  Reads the
 graph dir written by recipes/mkgraph.py; posteriors are LOG posteriors as
 dumped by the AM (``-priors_file``, a numpy .npy of log-priors, turns them
 into pseudo-likelihoods, as in decode/latgen.py).  The search runs on the
-host, token passing in Python (decode/latgen.py).  With any of
+host, token passing in the port's native C++ core (decode/latgen.py,
+native/src/latgen.cc, built at first use; a failed build is an error),
+and it logs the decoder it ran.  With any of
 ``-save_lattice_file`` (Kaldi text), ``-save_lattice_ark`` (Kaldi binary
 CompactLattice, with a ``.scp`` beside it) or ``-save_slf`` (HTK SLF, a
 file or a directory) it decodes through ``latgen_lattice`` at
@@ -95,6 +97,9 @@ def main(argv=None):
     reader = read_mat_scp(path) if kind == "scp" else read_mat_ark(path)
 
     n = 0
+    if not opt.device_search:
+        info("host search: native C++ decoder (native/src/latgen.cc), graph "
+             "%d states, %d arcs", graph.num_states, graph.num_arcs)
     if opt.save_lattice_file or opt.save_slf or opt.save_lattice_ark:
         id2word = {v: k for k, v in word_syms.items()}
         lats = []

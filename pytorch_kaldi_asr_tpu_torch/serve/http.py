@@ -20,7 +20,8 @@ shapes of docs/SERVING.md):
   weights keep serving.
 - ``GET /healthz``: status, mode, model, buckets, beam, request counters
   and the latency histogram with p50/p95/p99; in hybrid mode the graph
-  searches, with ``"native": false`` (the port's graph search is Python).
+  searches, with ``"native": true`` (the graph search runs in the port's
+  native C++ core, decode/latgen.py).
 """
 
 from __future__ import annotations
@@ -114,7 +115,7 @@ def make_handler(recognizer, sessions=None, stats=None):
                     n = recognizer.graph_searches
                     ms = recognizer.graph_search_ms_total
                 out["graph_search"] = {
-                    "native": False,
+                    "native": True,
                     "decode_workers": recognizer.decode_workers,
                     "searches": n,
                     "mean_ms": round(ms / n, 3) if n else None,

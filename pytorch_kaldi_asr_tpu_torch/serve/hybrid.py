@@ -4,11 +4,12 @@ acoustic model (recipes/train_am.py) and a decode graph (recipes/mkgraph.py).
 
 ``/recognize`` runs the AM forward per length bucket on the device (K1 in
 every attention layer of a ``banded`` or ``conformer`` AM on the card),
-then the graph searches on the host: ``latgen`` for the 1-best,
-``latgen_lattice`` and ``lattice_ops.nbest`` for an n-best, over a thread
-pool and outside the device lock.  Streaming sessions are true streaming:
-chunked AM posteriors (models/streaming.py) feed the carried-token graph
-decoder (decode/latgen.StreamingLatgen), so every push returns a partial.
+then the graph searches on the host, in the native C++ core: ``latgen``
+for the 1-best, ``latgen_lattice`` and ``lattice_ops.nbest`` for an n-best,
+over a thread pool (ctypes releases the GIL) and outside the device lock.
+Streaming sessions are true streaming: chunked AM posteriors
+(models/streaming.py) feed the carried-token graph decoder
+(decode/latgen.make_streaming_latgen), so every push returns a partial.
 Clients may push any chunk sizes: the conformer and banded frontends
 re-chunk to ``stream_chunk`` frames (FixedChunkStream) and pad the ragged
 tail at the end, exact since band and conv are causal.  Scores are the

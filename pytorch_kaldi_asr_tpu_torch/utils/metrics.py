@@ -1,7 +1,9 @@
-"""Observability: stage timers and structured metric logging (the JAX
-package's ``utils/metrics.py``; its ``profile_trace`` wraps the JAX
-profiler and is not ported).  A ``MetricsLogger`` appends JSONL records
-(step, epoch, loss, accuracy, ...) that tooling can tail."""
+"""Observability: stage timers, structured metric logging, profiler hooks
+(the port's ``pytorch_kaldi_asr_tpu.utils.metrics``).  A ``MetricsLogger``
+appends JSONL records (step, epoch, loss, accuracy, ...) that tooling can
+tail, and ``profile_trace`` wraps a block in a ``torch.profiler`` trace
+(tools/trace_summary.py summarises it; perfetto or chrome://tracing show
+it)."""
 
 from __future__ import annotations
 
@@ -61,3 +63,35 @@ class MetricsLogger:
 
     def __exit__(self, *exc):
         self.close()
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir, *, with_flops=False):
+    """Capture a torch.profiler trace of the enclosed block: the host's
+    ops, and on a card its CUDA kernels, copies and fills too.  On exit a
+    gzipped Chrome trace, ``<worker>.<time>.pt.trace.json.gz``, is written
+    under ``log_dir`` (``tools.trace_summary.find_trace_files`` finds it);
+    ``with_flops`` records each op's FLOPs (and input shapes).  Yields the
+    profiler."""
+    import torch
+    from torch.profiler import (
+        ProfilerActivity,
+        profile,
+        tensorboard_trace_handler,
+    )
+
+    cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU]
+    if cuda:
+        activities.append(ProfilerActivity.CUDA)
+        torch.cuda.synchronize()
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities, with_flops=with_flops,
+                 record_shapes=with_flops,
+                 on_trace_ready=tensorboard_trace_handler(
+                     log_dir, use_gzip=True)) as prof:
+        try:
+            yield prof
+        finally:
+            if cuda:
+                torch.cuda.synchronize()

@@ -21,6 +21,7 @@ import struct
 import pytest
 import torch
 
+from pytorch_kaldi_asr_tpu import native as jax_native
 from pytorch_kaldi_asr_tpu.decode import lattice_io as jax_lio
 from pytorch_kaldi_asr_tpu.fst import openfst_io as jax_ofi
 from pytorch_kaldi_asr_tpu.recipes import latgen as jax_latgen_cli
@@ -222,9 +223,13 @@ def test_latgen_lattice_outputs_equal_jax_cli(setup, tmp_path, monkeypatch,
                                               beam):
     """Both CLIs at a non-default -lattice_beam: decode.txt, the Kaldi-text
     lattices, the binary ark and its .scp (the ark's path aside) and each
-    utterance's .lat.gz the same bytes."""
+    utterance's .lat.gz the same bytes.  Both decode in their C++ cores
+    (the port's by default, JAX's when built: built here), whose link
+    order is not the Python loops'."""
     work, lats, _ = setup
-    monkeypatch.setenv("PKA_NATIVE_LATGEN", "0")
+    if not jax_native.available():
+        jax_native.build()
+    monkeypatch.setenv("PKA_NATIVE_LATGEN", "1")
     for name, main in (("port", latgen_cli.main),
                        ("jax", jax_latgen_cli.main)):
         assert main(_latgen_args(work, tmp_path / name, beam)) == 0

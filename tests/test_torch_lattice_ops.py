@@ -29,8 +29,8 @@ SETTINGS = {"wide": dict(beam=14.0, lattice_beam=5.0, acoustic_scale=1.0),
 
 @pytest.fixture
 def lattices(setup, monkeypatch, request):  # noqa: F811
-    """Each utterance's lattice from both packages (JAX's Python token
-    loop) at one setting, with log-priors."""
+    """Each utterance's lattice from both packages' Python token loops
+    (the port's with ``native=False``) at one setting, with log-priors."""
     work, log_priors = setup
     monkeypatch.setenv("PKA_NATIVE_LATGEN", "0")
     graph = read_fst(str(work / "graph" / "HLG.fst"))
@@ -41,7 +41,8 @@ def lattices(setup, monkeypatch, request):  # noqa: F811
               id2word=id2word)
     out = []
     for key, mat in read_mat_scp(str(work / "post.scp")):
-        got = latgen.latgen_lattice(graph, mat, utt=key, **kw)
+        got = latgen.latgen_lattice(graph, mat, utt=key, native=False,
+                                    **kw)
         want = jax_latgen.latgen_lattice(jgraph, mat, utt=key, **kw)
         assert got is not None and want is not None, key
         out.append((key, mat, got, want))

@@ -136,7 +136,10 @@ _NO_JAX = textwrap.dedent("""
                  "tools.rover", "tools.kws", "tools.show_lattice",
                  "tools.ctm", "decode.device_latgen",
                  "decode.frontier_latgen", "lm.fst", "lm.tools",
-                 "tools.lang", "tools.prepare_lang", "tools.lm_tools"):
+                 "tools.lang", "tools.prepare_lang", "tools.lm_tools",
+                 "native", "models.proto", "tools.make_nnet_proto",
+                 "tools.transforms", "tools.lda", "tools.trace_summary",
+                 "tools.devices", "tools.bench_rtf"):
         assert pkg.__name__ + "." + name in names, name
     importlib.import_module("chip_smoke")
 
@@ -337,6 +340,41 @@ _NO_JAX = textwrap.dedent("""
                      str(work / f"topo_{mode}.txt"), *flags])
         dev.append((work / f"topo_{mode}.txt").read_text())
     assert dev[0] == dev[1] == dev[2] and len(dev[0].splitlines()) == 2
+    # the native latgen core (the host decoder above) against the Python
+    # token passer; an nnet1 proto model with an LDA frontend; a profile
+    # and its summary; the device list; the host search bench
+    from pytorch_kaldi_asr_tpu_torch.decode import latgen as dlat
+    from pytorch_kaldi_asr_tpu_torch.fst.openfst_io import read_fst
+    from pytorch_kaldi_asr_tpu_torch.io.kaldi_io import read_mat_scp
+    from pytorch_kaldi_asr_tpu_torch.models import proto
+    from pytorch_kaldi_asr_tpu_torch.models.common import DropoutRngs
+    from pytorch_kaldi_asr_tpu_torch.tools import (
+        bench_rtf, devices, lda, make_nnet_proto, trace_summary, transforms)
+    from pytorch_kaldi_asr_tpu_torch.utils.metrics import profile_trace
+    g3 = read_fst(str(work / "graph3" / "HLG.fst"))
+    for _, mat in read_mat_scp(f"{work}/p.scp"):
+        assert dlat.latgen(g3, mat) == dlat.latgen(g3, mat, native=False)
+    import contextlib, io, torch
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        make_nnet_proto.main(["dnn", "30", "12", "2", "16",
+                              "--with-dropout", "0.1"])
+    comps = proto.parse_proto("<Splice> <InputDim> 6 <OutputDim> 30 "
+                              "<Context> -2:-1:0:1:2\\n" + buf.getvalue())
+    params = proto.init_proto(torch.Generator().manual_seed(0), comps)
+    feats = torch.randn(2, 9, 6)
+    with profile_trace(str(work / "prof")):
+        out = proto.apply_proto(params, comps, feats, train=True,
+                                rngs=DropoutRngs(torch.Generator()))
+    assert out.shape == (2, 9, 12)
+    assert trace_summary.summarize(str(work / "prof"))
+    mat = lda.estimate_lda([(rng.normal(size=(60, 6)),
+                             rng.integers(0, 3, 60))], out_dim=2)
+    assert mat.shape == (2, 7) and transforms.dct_matrix(4, 6).shape == (4, 6)
+    assert devices.available_devices() == []
+    graph, posts = bench_rtf.hybrid_bench_setup(8, 6, 10)
+    assert dlat.latgen(graph, posts) == dlat.latgen(graph, posts,
+                                                    native=False)
 
     # the recognition server: a request over HTTP, a streamed partial, and
     # a hybrid n-best through the lattice decode
@@ -379,7 +417,8 @@ _NO_JAX = textwrap.dedent("""
           "scores", len((work / "nlm.score").read_text().splitlines()),
           "fused", len((work / "f.txt").read_text().splitlines()),
           "hybrid", len((work / "hyb.txt").read_text().splitlines()),
-          "served", len(served["nbest"]), "device_search", len(dev))
+          "served", len(served["nbest"]), "device_search", len(dev),
+          "proto", len(comps))
 """)
 
 
@@ -393,7 +432,7 @@ def test_port_runs_with_jax_blocked(tmp_path):
     assert "%WER" in proc.stdout
     assert last[2:] == ["lines", "6", "conformer", "6", "bf16", "6",
                         "scores", "6", "fused", "6", "hybrid", "2",
-                        "served", "2", "device_search", "3"]
+                        "served", "2", "device_search", "3", "proto", "9"]
 
 
 # the host's lattice CLIs: a process of each imports neither torch nor JAX

@@ -62,8 +62,8 @@ def build(work):
 
 def lattices(work, lattice_beam=12.0):
     """{key: (port WordLattice, JAX WordLattice)} of latgen_lattice over
-    each utterance, both packages (JAX's Python token loop) on the same
-    graph file."""
+    each utterance, both packages' Python token loops (the port's with
+    ``native=False``) on the same graph file."""
     import os
 
     from pytorch_kaldi_asr_tpu.decode import latgen as jax_latgen
@@ -84,7 +84,8 @@ def lattices(work, lattice_beam=12.0):
     try:
         out = {}
         for key, mat in read_mat_scp(str(work / "post.scp")):
-            out[key] = (latgen.latgen_lattice(graph, mat, utt=key, **kw),
+            out[key] = (latgen.latgen_lattice(graph, mat, utt=key,
+                                              native=False, **kw),
                         jax_latgen.latgen_lattice(jgraph, mat, utt=key,
                                                   **kw))
     finally:
