@@ -6184,6 +6184,710 @@ def check_train_launches(training):
           f"per train step; launches over {steps} steps: {launches}")
 
 
+# ---------------------------------------------------------------------------
+# the parallel phase: ranks of one torch.distributed world sharing the card
+# ---------------------------------------------------------------------------
+
+PARALLEL_RANKS = 8  # the long-form recipe's seq_shards
+PARALLEL_TIMEOUT_S = 300  # the main world, and train_am's
+PROBE_TIMEOUT_S = 120
+PROBE_OPS = ("all_reduce", "broadcast", "broadcast_pair_group",
+             "all_gather", "send_recv")
+SP_FWD_RTOL = 2e-5  # of the largest entry: 8 ranks against one
+PP_FWD_RTOL = 2e-5
+PARAM_RTOL = 1e-5  # dp x tp: the updated parameters, of each leaf's largest
+SP_STEP_REPEATS = 5
+# the TIMIT recipe's banded model (RECIPE_MODEL) at dropout 0, on a 2 x 2
+# ("data", "model") mesh, one step at batch 100
+TP_MESH = (2, 2)
+TP_BATCH = 100
+# a banded AM at TIMIT's encoder widths over 3 stages, 6 microbatches
+PP_MODEL = dict(encoder_type="banded", en_layers=3, en_d_model=256,
+                n_head=2, d_k=64, d_v=64, encoder_sub_sequence=(-100, 0),
+                en_dropout=0.0)
+PP_STAGES, PP_MICRO = 3, 6
+
+
+def _tp_config(torch, **narrow):
+    """The TIMIT recipe's banded model at dropout 0 (``narrow``: fields
+    replaced, for a rehearsal on the CPU)."""
+    from pytorch_kaldi_asr_tpu_torch.models.transformer import (
+        TransformerConfig,
+    )
+
+    flags = dict(zip(RECIPE_MODEL[::2], RECIPE_MODEL[1::2]))
+    band = tuple(int(x) for x in flags["-encoder_sub_sequence"].strip(
+        "()").split(","))
+    dband = tuple(int(x) for x in flags["-decoder_sub_sequence"].strip(
+        "()").split(","))
+    return TransformerConfig(
+        src_dim=FEAT_DIM, vocab_size=4 + len(TIMIT["words"]),
+        encoder_max_len=int(flags["-encoder_max_len"]),
+        decoder_max_len=int(flags["-decoder_max_len"]),
+        encoder_sub_sequence=band, decoder_sub_sequence=dband,
+        en_layers=int(flags["-en_layers"]), de_layers=int(flags["-de_layers"]),
+        n_head=int(flags["-n_head"]), en_d_model=int(flags["-en_d_model"]),
+        de_d_model=int(flags["-de_d_model"]), d_k=int(flags["-d_k"]),
+        d_v=int(flags["-d_v"]), en_dropout=0.0, de_dropout=0.0,
+        encoder_type=flags["-encoder_type"]).replace(**narrow)
+
+
+def _tp_batch(torch, cfg, rows=TP_BATCH, seed=SEED):
+    """A TIMIT-shaped batch of ``rows``: 150-500 frames, 20-75 phones
+    between <s> and </s>, from a numpy seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    s = cfg.encoder_max_len
+    lens = rng.integers(min(TIMIT["frames"][0], s - 1), s + 1, rows)
+    src = rng.normal(size=(rows, s, cfg.src_dim)).astype(np.float32)
+    mask = (np.arange(s)[None, :] < lens[:, None]).astype(np.uint8)
+    src *= mask[..., None]
+    t = 78
+    n_tok = rng.integers(20, 76, rows)
+    tgt = np.zeros((rows, t), np.int64)
+    for i, n in enumerate(n_tok):
+        tgt[i, 0], tgt[i, n + 1] = 2, 3
+        tgt[i, 1:n + 1] = rng.integers(4, cfg.vocab_size, n)
+    return tuple(torch.from_numpy(a) for a in
+                 (src, mask, tgt, (tgt != 0).astype(np.uint8)))
+
+
+def _max_rel(got, want):
+    """max |got - want| over the largest |want|."""
+    return float((got.double() - want.double()).abs().max()
+                 / want.double().abs().max().clamp_min(1e-30))
+
+
+def _leaf_errs(got, want):
+    """{leaf: max |got - want| over that leaf's largest |want|}."""
+    return {k: _max_rel(got[k], want[k]) for k in want}
+
+
+def _grads_of(torch, params):
+    from pytorch_kaldi_asr_tpu_torch.train.optim import named_leaves
+
+    return {"/".join(map(str, p)): (l.grad.detach().clone() if l.grad is not
+                                     None else torch.zeros_like(l))
+            for p, l in named_leaves(params)}
+
+
+def _leaf_dict(params):
+    from pytorch_kaldi_asr_tpu_torch.train.optim import named_leaves
+
+    return {"/".join(map(str, p)): l.detach() for p, l in named_leaves(params)}
+
+
+def _card_sync(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _timed_ms(torch, fn, device, barrier=None, repeats=SP_STEP_REPEATS):
+    """Median milliseconds of ``fn`` (the card synchronised, and the world
+    at a barrier before each, when ``barrier`` is given)."""
+    times = []
+    for _ in range(repeats):
+        if barrier is not None:
+            barrier()
+        _card_sync(torch, device)
+        t0 = time.perf_counter()
+        fn()
+        _card_sync(torch, device)
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def parallel_rank(torch, spec_path):
+    """One rank of the parallel phase's world (``--parallel-rank``): every
+    rank on cuda:0 under gloo with CUDA tensors.  Rank 0 writes the
+    gates' readings to ``spec["result"]``."""
+    from pytorch_kaldi_asr_tpu_torch.data.loader import to_device
+    from pytorch_kaldi_asr_tpu_torch.models import am
+    from pytorch_kaldi_asr_tpu_torch.models.encoders import banded_encode
+    from pytorch_kaldi_asr_tpu_torch.models.transformer import (
+        TransformerConfig,
+        encode,
+        init_transformer,
+        tree_map,
+    )
+    from pytorch_kaldi_asr_tpu_torch.ops.launches import (
+        launch_counts as counts_now,
+    )
+    from pytorch_kaldi_asr_tpu_torch.parallel import multihost
+    from pytorch_kaldi_asr_tpu_torch.parallel.collectives import (
+        all_reduce_,
+        broadcast_,
+        gather_rows,
+    )
+    from pytorch_kaldi_asr_tpu_torch.parallel.mesh import (
+        gather_params,
+        make_mesh,
+        param_shardings,
+        shard_batch_arrays,
+        shard_params,
+    )
+    from pytorch_kaldi_asr_tpu_torch.parallel.pipeline import (
+        make_pipe_mesh,
+        pp_banded_encode,
+        pp_frame_ce_loss,
+        stage_params,
+    )
+    from pytorch_kaldi_asr_tpu_torch.parallel.sequence import (
+        make_seq_mesh,
+        sp_encode,
+        sp_frame_ce_loss,
+    )
+    from pytorch_kaldi_asr_tpu_torch.recipes.train_am import (
+        am_batch_loader,
+        am_setup,
+        am_sp_train_step,
+        am_train_step,
+        create_am_state,
+    )
+    from pytorch_kaldi_asr_tpu_torch.train.optim import named_leaves
+    from pytorch_kaldi_asr_tpu_torch.train.state import (
+        create_train_state,
+        sum_grads,
+        train_step,
+    )
+    from pytorch_kaldi_asr_tpu_torch.utils.device import disable_tf32
+
+    spec = json.loads(Path(spec_path).read_text())
+    entered_s = time.time() - spec["t0"]
+    narrow = spec["narrow"]
+    torch.set_num_threads(1)
+    rank, n = multihost.initialize(backend="gloo", device=spec["device"])
+    device = multihost.rank_device(spec["device"], 0)  # all on one card
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+        disable_tf32()
+    seq = make_seq_mesh(n)
+    world = seq.axis("seq")
+    tp = make_mesh(*TP_MESH, ranks=list(range(TP_MESH[0] * TP_MESH[1])))
+    pipe = make_pipe_mesh(pipe=PP_STAGES, data=1,
+                          ranks=list(range(PP_STAGES)))
+
+    def barrier():
+        all_reduce_(torch.zeros(1, device=device), world)
+
+    def dev(tree):
+        return tree_map(lambda t: t.detach().to(device, copy=True), tree)
+
+    out = {"section_s": {"entered": entered_s}}
+    t_rank = time.perf_counter() - (time.time() - spec["t0"])
+
+    def section(name):
+        barrier()
+        out["section_s"][name] = time.perf_counter() - t_rank
+
+    section("joined")
+    data = Path(spec["corpus"])
+    # sequence parallelism: train_am's long-form AM at the recipe's widths
+    _, _, cfg, init = am_setup(str(data / "train"), str(data / "dev"),
+                               HYBRID_BATCH, **narrow["hybrid_model"])
+    cfg0 = cfg.replace(en_dropout=0.0)
+    test = next(iter(am_batch_loader(str(data / "test"), HYBRID_BATCH,
+                                     mode="all")))
+    b = to_device(test, device)
+    s = b.src.shape[1]
+    out["sp_shape"] = list(b.src.shape)
+    # the step times, first (train_am starts beside the rest of the world
+    # once they are taken: ``spec["timed"]``), and after the updates the
+    # parameters bit-equal across the ranks
+    state = create_am_state(dev(init), lr=0.003, seed=1)
+    sp_ms = _timed_ms(torch, lambda: am_sp_train_step(
+        state, cfg0, b.src, b.src_mask, b.tgt, seq), device, barrier)
+    if rank == 0:
+        one = create_am_state(dev(init), lr=0.003, seed=1)
+        out["sp_step_ms_1_rank"] = _timed_ms(torch, lambda: am_train_step(
+            one, cfg0, b.src, b.src_mask, b.tgt), device)
+        Path(spec["timed"]).write_text("")
+    flat = torch.cat([l.detach().reshape(-1) for _, l in
+                      named_leaves(state.params)])
+    mine = flat.clone()
+    broadcast_(flat, world, 0)
+    mismatches = torch.tensor([float((flat.view(torch.int32)
+                                      != mine.view(torch.int32)).sum())],
+                              device=device)
+    out["sp_param_mismatches"] = float(all_reduce_(mismatches, world))
+    out["sp_step_ms_8_ranks"] = sp_ms
+    section("timed")
+    with torch.no_grad():
+        local = sp_encode(dev(init)["encoder"], cfg0, b.src, b.src_mask, seq)
+        whole = torch.cat(list(gather_rows(local, world)), dim=1)
+        if rank == 0:
+            ref, _ = encode(dev(init), cfg0, b.src, b.src_mask)
+            out["sp_fwd_rel"] = _max_rel(whole, ref)
+    # the step: the batch, and the batch padded so its last shard holds no
+    # valid frame
+    s_pad = -(-(8 * s) // (7 * 64)) * 64
+    padded = tuple(torch.nn.functional.pad(x, (0, 0, 0, s_pad - s)) if
+                   x.dim() == 3 else torch.nn.functional.pad(x, (0, s_pad - s))
+                   for x in (b.src, b.src_mask, b.tgt))
+    out["sp_step"] = {}
+    for name, (src, mask, tgt) in (("batch", (b.src, b.src_mask, b.tgt)),
+                                   ("last_shard_padding", padded)):
+        params = dev(init)
+        for _, leaf in named_leaves(params):
+            leaf.requires_grad_(True)
+        loss, _, nf = sp_frame_ce_loss(params, cfg0, src, mask, tgt, seq,
+                                       train=True)
+        (loss / nf).backward()
+        sum_grads(params, world)
+        row = {"loss": float((loss / nf).detach()),
+               "finite": bool(all(torch.isfinite(g).all() for g in
+                                  _grads_of(torch, params).values()))}
+        if rank == 0:
+            one = dev(init)
+            for _, leaf in named_leaves(one):
+                leaf.requires_grad_(True)
+            l1, _, n1 = am.frame_ce_loss(one, cfg0, src, mask, tgt,
+                                         train=True)
+            (l1 / n1).backward()
+            errs = _leaf_errs(_grads_of(torch, params), _grads_of(torch, one))
+            lv, l1v = float((loss / nf).detach()), float((l1 / n1).detach())
+            row.update(one_loss=l1v, loss_rel=abs(lv - l1v) / abs(l1v),
+                       grad_rel_max=max(errs.values()),
+                       grad_rel_leaf=max(errs, key=errs.get))
+        out["sp_step"][name] = row
+    section("sp")
+
+    # dp x tp: the TIMIT banded model on a 2 x 2 mesh, one step at batch 100
+    cfg_t = _tp_config(torch, **narrow["tp_cfg"])
+    init_t = init_transformer(torch.Generator().manual_seed(SEED), cfg_t)
+    batch_t = tuple(x.to(device) for x in _tp_batch(torch, cfg_t,
+                                                     narrow["tp_batch"]))
+    if tp.member:
+        specs = param_shardings(init_t, tp)
+        st = create_train_state(shard_params(dev(init_t), tp))
+        m = train_step(st, cfg_t, *shard_batch_arrays(tp, *batch_t), mesh=tp)
+        full = gather_params(st.params, specs, tp)
+        grads = gather_params(tree_map(lambda t: t.grad, st.params), specs,
+                              tp)
+        if rank == 0:
+            one = create_train_state(dev(init_t))
+            m1 = train_step(one, cfg_t, *batch_t)
+            # the one-rank step's own noise: from every weight one ulp off
+            ulp = create_train_state(dev(one_ulp_off(torch, init_t)))
+            train_step(ulp, cfg_t, *batch_t)
+            want = _leaf_dict(one.params)
+            errs = _leaf_errs(_leaf_dict(full), want)
+            noise = {k: max(v, NOISE_FLOOR) for k, v in
+                     _leaf_errs(_leaf_dict(ulp.params), want).items()}
+            ratios = {k: errs[k] / noise[k] for k in errs
+                      if errs[k] > PARAM_RTOL}
+            gerrs = _leaf_errs(_leaf_dict(grads), _grads_of(torch,
+                                                            one.params))
+            out["tp"] = {"loss": float(m["loss"]), "one_loss": float(m1["loss"]),
+                         "loss_rel": abs(float(m["loss"]) - float(m1["loss"]))
+                         / abs(float(m1["loss"])),
+                         "param_rel_max": max(errs.values()),
+                         "param_rel_leaf": max(errs, key=errs.get),
+                         "param_noise": noise[max(errs, key=errs.get)],
+                         "over_limit_noise_ratios": ratios,
+                         "grad_rel_max": max(gerrs.values()),
+                         "grad_rel_leaf": max(gerrs, key=gerrs.get)}
+    section("tp")
+
+    # pipeline: a banded AM at TIMIT's encoder widths, 3 stages, 6
+    # microbatches of a hybrid-corpus batch
+    loader6 = am_batch_loader(str(data / "train"), PP_MICRO)
+    batch6 = to_device(next(iter(loader6)), device)
+    n_targets = 1 + max(int(l.max()) for l in loader6.labels)
+    cfg_p = TransformerConfig(src_dim=loader6.feat_dim, vocab_size=n_targets,
+                              encoder_max_len=loader6.src_pad,
+                              **narrow["pp_model"])
+    init_p = am.init_am(torch.Generator().manual_seed(SEED + 1), cfg_p,
+                        n_targets)
+    row = {}
+    if pipe.member:
+        own = dev(stage_params(init_p, cfg_p, pipe))
+        with torch.no_grad():
+            enc_pp = pp_banded_encode(own["encoder"], cfg_p, batch6.src,
+                                      batch6.src_mask, pipe,
+                                      n_microbatches=PP_MICRO)
+        for _, leaf in named_leaves(own):
+            leaf.requires_grad_(True)
+        loss, _, nf = pp_frame_ce_loss(own, cfg_p, batch6.src,
+                                       batch6.src_mask, batch6.tgt, pipe,
+                                       n_microbatches=PP_MICRO, train=True)
+        (loss / nf).backward()
+        one = dev(init_p)
+        for _, leaf in named_leaves(one):
+            leaf.requires_grad_(True)
+        with torch.no_grad():
+            enc1, _ = banded_encode(one["encoder"], cfg_p, batch6.src,
+                                    batch6.src_mask)
+        l1, _, n1 = am.frame_ce_loss(one, cfg_p, batch6.src, batch6.src_mask,
+                                     batch6.tgt, train=True)
+        (l1 / n1).backward()
+        want = _grads_of(torch, one)
+        lps = cfg_p.en_layers // PP_STAGES
+        got = {}
+        for key, g in _grads_of(torch, own).items():
+            parts = key.split("/")
+            if parts[:2] == ["encoder", "layers"]:
+                parts[2] = str(pipe.index("pipe") * lps + int(parts[2]))
+            got["/".join(parts)] = g
+        errs = {k: _max_rel(g, want[k]) for k, g in got.items()}
+        lv, l1v = float((loss / nf).detach()), float((l1 / n1).detach())
+        row = [_max_rel(enc_pp, enc1), abs(lv - l1v) / abs(l1v),
+               max(errs.values())]
+    rows = gather_rows(torch.tensor(row or [0.0, 0.0, 0.0], device=device,
+                                    dtype=torch.float64), world)
+    if rank == 0:
+        out["pp"] = {"shape": list(batch6.src.shape), "stages": [
+            dict(zip(("fwd_rel", "loss_rel", "grad_rel_max"), r))
+            for r in rows[:PP_STAGES].tolist()]}
+
+    section("pp")
+    counts = counts_now()
+    every = gather_rows(torch.tensor([float(counts[k]) for k in counts],
+                                     device=device), world)
+    if rank == 0:
+        out["launches_by_rank"] = [dict(zip(counts, map(int, r)))
+                                   for r in every.tolist()]
+        Path(spec["result"]).write_text(json.dumps(out))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def probe_rank(torch, spec_path):
+    """One of the 2 ranks of the collectives probe (``--probe-rank``): each
+    op of PROBE_OPS on CUDA tensors under gloo, both ranks on cuda:0, its
+    outcome appended to ``spec["result"]``.<rank> as it completes (an op
+    that kills the process leaves the earlier ones written)."""
+    import torch.distributed as dist
+
+    from pytorch_kaldi_asr_tpu_torch.parallel import multihost
+
+    spec = json.loads(Path(spec_path).read_text())
+    rank, _ = multihost.initialize(backend="gloo", device=spec["device"])
+    device = multihost.rank_device(spec["device"], 0)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    pair = dist.new_group([0, 1])
+    path = Path(f"{spec['result']}.{rank}")
+
+    def record(op, outcome):
+        with open(path, "a") as f:
+            f.write(json.dumps({"op": op, "outcome": outcome}) + "\n")
+
+    for op in PROBE_OPS:
+        x = torch.full((4,), float(rank + 1), device=device)
+        record(op, "started")
+        try:
+            if op == "all_reduce":
+                dist.all_reduce(x)
+                ok = x.tolist() == [3.0] * 4
+            elif op == "broadcast":
+                dist.broadcast(x, src=1)
+                ok = x.tolist() == [2.0] * 4
+            elif op == "broadcast_pair_group":
+                dist.broadcast(x, src=1, group=pair)
+                ok = x.tolist() == [2.0] * 4
+            elif op == "all_gather":
+                parts = [torch.zeros_like(x) for _ in range(2)]
+                dist.all_gather(parts, x)
+                ok = [p[0].item() for p in parts] == [1.0, 2.0]
+            else:
+                if rank == 0:
+                    dist.send(x, dst=1)
+                    ok = True
+                else:
+                    dist.recv(x, src=0)
+                    ok = x.tolist() == [1.0] * 4
+            _card_sync(torch, device)
+            record(op, "ok" if ok else "wrong result")
+        except Exception as e:  # the probe's reading, not a failure
+            record(op, f"raised {type(e).__name__}: {str(e)[:200]}")
+    dist.destroy_process_group()
+    return 0
+
+
+def start_probe(work, device):
+    """The probe's 2 ranks as processes (their output to work/probe.log)."""
+    from pytorch_kaldi_asr_tpu_torch.parallel import multihost
+
+    spec = work / "probe.json"
+    spec.write_text(json.dumps({"result": str(work / "probe"),
+                                "device": device}))
+    port = multihost.free_port()
+    log = open(work / "probe.log", "w")
+    procs = [subprocess.Popen(
+        [sys.executable, str(REPO / "chip_smoke.py"), "--probe-rank",
+         str(spec)], stdout=log, stderr=subprocess.STDOUT,
+        env=multihost.world_env(r, 2, port,
+                                dict(os.environ, PYTHONPATH=str(REPO))))
+        for r in range(2)]
+    return procs, log, time.perf_counter()
+
+
+def finish_probe(work, probe):
+    """Wait for the probe (killing a rank that hangs) and read each op's
+    outcome on each rank: ok, wrong result, raised ..., or, for the op a
+    rank was in when it died or was stopped, that."""
+    procs, log, t0 = probe
+    for p in procs:
+        try:
+            p.wait(timeout=max(1.0, PROBE_TIMEOUT_S - (time.perf_counter()
+                                                        - t0)))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+    log.close()
+    result = {}
+    for r, p in enumerate(procs):
+        path = work / f"probe.{r}"
+        rows = [json.loads(x) for x in path.read_text().splitlines()] \
+            if path.exists() else []
+        ops = {}
+        for row in rows:
+            ops[row["op"]] = row["outcome"]
+        for op, outcome in ops.items():
+            if outcome == "started":
+                ops[op] = (f"the rank ended in it (exit {p.returncode})"
+                           if p.returncode != -9 else "hung: stopped")
+        result[f"rank{r}"] = {op: ops.get(op, "not reached")
+                              for op in PROBE_OPS}
+    return result
+
+
+def _run_cli_timed(cwd, log, module, *args):
+    """``_run_cli`` with each output line's arrival second (written to
+    ``log`` as ``[+S] line``).  Returns (wall seconds, text, the second of
+    each line)."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", f"pytorch_kaldi_asr_tpu_torch.{module}",
+         *map(str, args)], cwd=str(cwd), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, PYTHONPATH=str(REPO), PYTHONUNBUFFERED="1"))
+    lines = [(time.perf_counter() - t0, line) for line in proc.stdout]
+    code = proc.wait()
+    wall = time.perf_counter() - t0
+    log.write_text("".join(f"[+{t:.1f}] {line}" for t, line in lines))
+    text = "".join(line for _, line in lines)
+    if code != 0:
+        raise AssertionError(f"{module} exited {code}: {text[-3000:]}")
+    return wall, text, lines
+
+
+def _first_at(lines, needle):
+    """The second the first line holding ``needle`` arrived, or None."""
+    return next((round(t, 1) for t, line in lines if needle in line), None)
+
+
+def parallel_corpus(work):
+    """The hybrid phase's corpus, or (the phase alone) a fresh one at
+    run.sh's defaults (tools.make_synthetic_data)."""
+    data = WORK / "hybrid" / "data"
+    if (data / "test" / "ali.txt").exists():
+        return data
+    _run_cli(work, work / "corpus.log", "tools.make_synthetic_data",
+             "-out_dir", work / "corpus", "-n_train", 64, "-n_dev", 8,
+             "-n_test", 8, "-feat_dim", FEAT_DIM, "-min_words", 80,
+             "-max_words", 140, "-frames_per_word", 25)
+    return work / "corpus" / "data"
+
+
+PARALLEL_FULL = {"hybrid_model": HYBRID_MODEL, "tp_cfg": {},
+                 "tp_batch": TP_BATCH, "pp_model": PP_MODEL}
+
+
+def run_parallel(torch, device="cuda", narrow=None):
+    """The parallel phase: ranks sharing the card under gloo with CUDA
+    tensors, every gate float32 at dropout 0.
+
+    1. The probe: which collectives gloo carries on CUDA tensors, 2 ranks
+       on cuda:0 (beside the main world).
+    2.-3. Sequence parallelism (``parallel_rank``): train_am's long-form AM
+       (conformer, d_model 144, band (-100, 50)) on the hybrid corpus's
+       test batch, 8 ranks against one: the forward within SP_FWD_RTOL of
+       its largest entry; the step's loss within STEP_LOSS_RTOL and every
+       gradient leaf within GRAD_ATOL of its largest entry, on the batch
+       and on it padded so its last shard holds no valid frame; after an
+       Adam update the parameters bit-equal across the ranks; the step's
+       time on 8 ranks and on 1.
+    4. ``train_am -seq_shards 8 -dist_backend gloo -epoch 1`` on the hybrid
+       corpus at the recipe's defaults: exit 0, finite losses, on every
+       rank K2a-c exactly en_layers x steps, K3 exactly dropout sites x
+       steps each way and K1 en_layers x dev batches; ``dump_posteriors``
+       on one card reads its checkpoint.
+    5. dp x tp: the TIMIT banded model on a 2 x 2 mesh, one step at batch
+       100 against one rank: loss within STEP_LOSS_RTOL, the updated
+       parameters within PARAM_RTOL of each leaf's largest entry.
+    6. The pipeline: a banded AM at TIMIT's encoder widths over 3 stages
+       and 6 microbatches of a hybrid-corpus batch: the forward within
+       PP_FWD_RTOL, the loss within STEP_LOSS_RTOL, every gradient within
+       GRAD_ATOL of its leaf's largest entry.
+    A failed rank fails the run.  Returns the readings, the launches (every
+    rank's, summed: they join the kernels line), the processes and the
+    seconds.  ``narrow`` replaces PARALLEL_FULL's models and batch (a
+    rehearsal on the CPU)."""
+    import numpy as np
+
+    from pytorch_kaldi_asr_tpu_torch.parallel import multihost
+    from pytorch_kaldi_asr_tpu_torch.train import load_checkpoint
+
+    narrow = dict(PARALLEL_FULL, **(narrow or {}))
+    model = narrow["hybrid_model"]
+    t_phase = time.perf_counter()
+    work = _fresh(WORK / "parallel")
+    data = parallel_corpus(work)
+    probe = start_probe(work, device)
+    spec = work / "world.json"
+    spec.write_text(json.dumps({"corpus": str(data), "device": device,
+                                "narrow": narrow, "t0": time.time(),
+                                "timed": str(work / "timed"),
+                                "result": str(work / "world_result.json")}))
+    # train_am -seq_shards starts beside the world once the world's step
+    # times are taken (its marker file), so its start-up overlaps the
+    # world's gates
+    world_done = threading.Event()
+    side = {}
+
+    def train_am_beside():
+        while not (work / "timed").exists():
+            if world_done.wait(0.2):
+                return
+        try:
+            side["at"] = time.perf_counter() - t_phase
+            side["run"] = _run_cli_timed(work, work / "train_am.log",
+                                         "recipes.train_am", *train_am_args)
+        except Exception as e:  # raised in the caller's thread below
+            side["error"] = e
+
+    train_am_args = (
+        "-read_train_dir", data / "train", "-read_dev_dir", data / "dev",
+        "-save_model_dir", work / "am", "-encoder_type",
+        model["encoder_type"], "-epoch", 1, "-batch_size", HYBRID_BATCH,
+        "-en_d_model", model["en_d_model"], "-optim_start_lr", 0.003,
+        "-en_dropout", model["en_dropout"], "-encoder_sub_sequence",
+        "({},{})".format(*model["encoder_sub_sequence"]), "-seq_shards",
+        PARALLEL_RANKS, "-dist_backend", "gloo", "-device", device)
+    beside = threading.Thread(target=train_am_beside, daemon=True)
+    beside.start()
+    t0 = time.perf_counter()
+    env_path = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = str(REPO)
+    try:
+        multihost.spawn_local([sys.executable, str(REPO / "chip_smoke.py"),
+                               "--parallel-rank", str(spec)],
+                              PARALLEL_RANKS, timeout=PARALLEL_TIMEOUT_S)
+    finally:
+        world_done.set()
+        if env_path is None:
+            os.environ.pop("PYTHONPATH")
+        else:
+            os.environ["PYTHONPATH"] = env_path
+    world_s = time.perf_counter() - t0
+    beside.join(PARALLEL_TIMEOUT_S)
+    if "error" in side or "run" not in side:
+        raise AssertionError(f"train_am -seq_shards: {side.get('error')}")
+    res = json.loads((work / "world_result.json").read_text())
+    res["probe"] = finish_probe(work, probe)
+    print("parallel probe (gloo, CUDA tensors, 2 ranks on cuda:0): "
+          + json.dumps(res["probe"]))
+    fails = []
+    if res["sp_fwd_rel"] > SP_FWD_RTOL:
+        fails.append(f"SP forward {res['sp_fwd_rel']:.3g}")
+    for name, row in res["sp_step"].items():
+        if not row["finite"] or row["loss_rel"] > STEP_LOSS_RTOL \
+                or row["grad_rel_max"] > GRAD_ATOL:
+            fails.append(f"SP step ({name}) {row}")
+    if res["sp_param_mismatches"]:
+        fails.append(f"{res['sp_param_mismatches']} parameter words differ "
+                     "across the ranks after the update")
+    tp_row = res["tp"]
+    if tp_row["loss_rel"] > STEP_LOSS_RTOL or any(
+            r > F32_NOISE_RATIO for r in
+            tp_row["over_limit_noise_ratios"].values()):
+        fails.append(f"dp x tp {tp_row}")
+    for s, row in enumerate(res["pp"]["stages"]):
+        if row["fwd_rel"] > PP_FWD_RTOL or row["loss_rel"] > STEP_LOSS_RTOL \
+                or row["grad_rel_max"] > GRAD_ATOL:
+            fails.append(f"pipeline stage {s} {row}")
+    for r, counts in enumerate(res["launches_by_rank"]):
+        # every rank ran the SP forward (K1) and steps (K2a-c)
+        if device.startswith("cuda") and not (
+                counts["banded_attention"] and counts["banded_attention_fwd"]
+                and counts["banded_attention_dq"]
+                and counts["banded_attention_dkv"]):
+            fails.append(f"rank {r} launched {counts}")
+
+    # train_am -seq_shards 8 through its CLI (beside the world), then
+    # dump_posteriors on one card, in this process
+    wall, text, lines = side["run"]
+    ckpt = load_checkpoint(str(work / "am"))
+    cfg, steps = ckpt["cfg"], ckpt["step"]
+    losses = re.findall(r"mean train loss (\S+) over (\d+) steps", text)
+    if not losses or not all(math.isfinite(float(l)) for l, _ in losses):
+        fails.append(f"train_am -seq_shards losses {losses}")
+    sites = dropout_sites(cfg, decoder=False)["float32"]
+    from pytorch_kaldi_asr_tpu_torch.ops.launches import LOG_RE
+
+    ranks = {d: json.loads(c) for d, c in re.findall(LOG_RE, text)}
+    dev_batches = -(-len((data / "dev" / "ali.txt").read_text()
+                         .splitlines()) // HYBRID_BATCH)
+    want = {"banded_attention_fwd": cfg.en_layers * steps,
+            "banded_attention_dq": cfg.en_layers * steps,
+            "banded_attention_dkv": cfg.en_layers * steps,
+            "fused_dropout_forward": sites * steps,
+            "fused_dropout_backward": sites * steps,
+            "banded_attention": cfg.en_layers * dev_batches}
+    if sorted(int(name.split("#rank")[1]) for name in ranks) != list(
+            range(PARALLEL_RANKS)):
+        fails.append(f"train_am -seq_shards logged ranks {sorted(ranks)}")
+    for name, counts in ranks.items():
+        wrong = {k: (counts.get(k), v) for k, v in want.items()
+                 if counts.get(k) != v}
+        if wrong and device.startswith("cuda"):
+            fails.append(f"train_am {name}: (launched, expected) {wrong}")
+    t0 = time.perf_counter()
+    before = launch_counts()
+    from pytorch_kaldi_asr_tpu_torch.recipes import dump_posteriors
+
+    if dump_posteriors.main([
+            "-read_data_dir", str(data / "test"), "-load_model_file",
+            str(work / "am"), "-wspecifier",
+            f"ark,scp:{work}/post.ark,{work}/post.scp", "-device",
+            device]) != 0:
+        fails.append("dump_posteriors failed")
+    dump_launches = {k: v - before[k] for k, v in launch_counts().items()}
+    from pytorch_kaldi_asr_tpu_torch.io import kaldi_io
+
+    posts = list(kaldi_io.read_mat_scp(str(work / "post.scp")))
+    n_test = len((data / "test" / "ali.txt").read_text().splitlines())
+    if len(posts) != n_test or not all(np.isfinite(m).all()
+                                       for _, m in posts):
+        fails.append(f"dump_posteriors wrote {len(posts)} of {n_test}")
+    dump_s = time.perf_counter() - t0
+    launches = {}
+    for counts in [*res["launches_by_rank"], *ranks.values(),
+                   dump_launches]:
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    marks = {name: _first_at(lines, needle) for name, needle in (
+        ("started", "train_am started in"),
+        ("first_rank_joined", "joined distributed world"),
+        ("loaders_ready", "sequence-parallel training:"),
+        ("epoch_done", "dev frame-acc"),
+        ("saved", "AM saved to"), ("launches", "kernel launches on"))}
+    out = dict(res, launches=launches, train_am={
+        "wall_s": wall, "steps": steps, "losses": losses, "at_s": marks,
+        "launches_by_rank": ranks, "expected": want},
+        processes=2 + PARALLEL_RANKS + (1 + PARALLEL_RANKS),
+        seconds={"world": world_s, "train_am": wall,
+                 "train_am_started_at": side["at"], "dump": dump_s,
+                 "phase": time.perf_counter() - t_phase})
+    print("parallel: " + json.dumps(out))
+    if fails:
+        raise AssertionError("parallel phase: " + "; ".join(fails))
+    return out
+
+
 def kernel_phase(torch):
     """Every kernel against its plain version on the card (K1, K2a-c on
     float32 and bfloat16, K3 on both), the launch checks, the bfloat16 mma
@@ -6221,6 +6925,11 @@ def kernel_phase(torch):
 def main():
     import torch
 
+    for flag, rank_main in (("--parallel-rank", parallel_rank),
+                            ("--probe-rank", probe_rank)):
+        if sys.argv[1:2] == [flag]:  # a rank of the parallel phase: its
+            sys.path.insert(0, str(REPO))  # device is in its spec
+            return rank_main(torch, sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a card",
               file=sys.stderr)
@@ -6236,6 +6945,7 @@ def main():
     lattice_only = sys.argv[1:2] == ["--lattice"]
     search_only = sys.argv[1:2] == ["--device-search"]
     tools_only = sys.argv[1:2] == ["--tools"]
+    parallel_only = sys.argv[1:2] == ["--parallel"]
     if sys.argv[1:2] == ["--k3-plain"]:  # the CPU alone: nothing to build
         sys.path.insert(0, str(REPO))
         print(f"card: {card_line()}")
@@ -6277,7 +6987,8 @@ def main():
 
     full_run = not (sources or noisy_leaf or bf16_gates or bf16_compute_gates
                     or step_only or recipe_only or hybrid_only or serve_only
-                    or lattice_only or search_only or tools_only)
+                    or lattice_only or search_only or tools_only
+                    or parallel_only)
     # the training paths' CPU reference steps use the CPU while nvcc builds
     prefetch = (threading.Thread(target=prefetch_cpu_steps, args=(torch,),
                                  daemon=True) if full_run else None)
@@ -6326,7 +7037,7 @@ def main():
         return 0
 
     if not (recipe_only or hybrid_only or serve_only or lattice_only
-            or search_only or tools_only):
+            or search_only or tools_only or parallel_only):
         kp = kernel_phase(torch)
         print(f"kernel phase done at {time.perf_counter() - t_start:.1f} s")
 
@@ -6488,6 +7199,32 @@ def main():
               f"{time.perf_counter() - t_start:.1f} s")
         return phase
 
+    def parallel_phase():
+        """Ranks of one world sharing the card (``run_parallel``)."""
+        before = time.perf_counter() - t_start
+        phase = run_parallel(torch)
+        phase["card"] = card
+        sp = phase["sp_step"]["batch"]
+        print(f"parallel phase: {phase['seconds']['phase']:.1f} s over "
+              f"{phase['processes']} processes (the world "
+              f"{phase['seconds']['world']:.1f} s; train_am -seq_shards "
+              f"{PARALLEL_RANKS} {phase['seconds']['train_am']:.1f} s from "
+              f"{phase['seconds']['train_am_started_at']:.1f} s, beside it; "
+              f"dump_posteriors {phase['seconds']['dump']:.1f} s); SP "
+              f"forward {phase['sp_fwd_rel']:.3g}, step loss "
+              f"{sp['loss_rel']:.3g}, gradients {sp['grad_rel_max']:.3g}; "
+              f"dp x tp loss {phase['tp']['loss_rel']:.3g}, parameters "
+              f"{phase['tp']['param_rel_max']:.3g}; the SP step "
+              f"{phase['sp_step_ms_8_ranks']:.1f} ms on {PARALLEL_RANKS} "
+              f"ranks sharing the card, {phase['sp_step_ms_1_rank']:.1f} ms "
+              f"on one; the run {before:.1f} s before it, "
+              f"{time.perf_counter() - t_start:.1f} s after; {card}")
+        return phase
+
+    if parallel_only:
+        parallel_phase()
+        print(f"whole run {time.perf_counter() - t_start:.1f} s")
+        return 0
     if recipe_only:
         recipe_phase()
         return 0
@@ -6579,12 +7316,14 @@ def main():
     print(f"before the serve phase: {before_serve:.1f} s (without the "
           f"lattice phase: {before_serve - lattice['seconds']:.1f} s)")
     serve = serve_phase()
+    parallel = parallel_phase()
 
     def total(name, paths):
         return sum(p["launches"][name] for p in paths)
 
     paths = [*decodes.values(), *trainings.values(), *extra.values(),
-             recipe["recipe"], hybrid["recipe"], lattice, tools, serve]
+             recipe["recipe"], hybrid["recipe"], lattice, tools, serve,
+             parallel]
     jax_file = "pytorch_kaldi_asr_tpu/ops/banded_attention.py"
     source = "pytorch_kaldi_asr_tpu_torch/ops/csrc/banded_attention_train.cu"
     kernels = []

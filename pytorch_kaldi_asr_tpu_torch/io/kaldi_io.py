@@ -3,8 +3,8 @@ specifiers (``scp:``, ``ark:``, ``ark,t:``, ``ark,scp:``) of the Kaldi CLI
 contract the recipe's tools take.
 
 The port's own copy of ``pytorch_kaldi_asr_tpu.io.kaldi_io`` without the
-compressed writers and the vectors (pure Python; the JAX package's ctypes
-parser in ``native/`` stays its own).
+vectors (pure Python; the JAX package's ctypes parser in ``native/`` stays
+its own).
 
 Supported object types
 ----------------------
@@ -16,8 +16,8 @@ Supported object types
 
 Rxfilename handling follows Kaldi: ``path``, ``path:offset`` (offset points
 at the object header inside an ark), ``-`` (stdin), and trailing-``|``
-command pipes.  :class:`ArkWriter` writes uncompressed float matrices,
-binary or text, with an optional paired scp.
+command pipes.  :class:`ArkWriter` writes float matrices, binary (also
+compressed: CM, CM2, CM3) or text, with an optional paired scp.
 """
 
 from __future__ import annotations
@@ -385,21 +385,25 @@ def read_table(rspecifier):
     return read_mat_ark(path)
 
 
-def open_writer(wspecifier):
+def open_writer(wspecifier, compress=False):
     """An :class:`ArkWriter` for a wspecifier: 'ark:f', 'ark,t:f' or
-    'ark,scp:f.ark,f.scp'."""
+    'ark,scp:f.ark,f.scp'.  ``compress`` is passed through to ArkWriter
+    (False | True=CM2 | 'CM' | 'CM2' | 'CM3'); ignored in text mode the
+    same way Kaldi's --compress is."""
     head, _, rest = wspecifier.partition(":")
     parts = head.split(",")
     if parts[0] != "ark":
         raise ValueError(f"unsupported wspecifier {wspecifier!r}")
     text = "t" in parts[1:]
+    if text:
+        compress = False
     if "scp" in parts[1:]:
         ark_path, _, scp_path = rest.partition(",")
         if not scp_path:
             raise ValueError(
                 f"ark,scp wspecifier needs two paths: {wspecifier!r}")
-        return ArkWriter(ark_path, scp_path, text=text)
-    return ArkWriter(rest, text=text)
+        return ArkWriter(ark_path, scp_path, text=text, compress=compress)
+    return ArkWriter(rest, text=text, compress=compress)
 
 
 # ---------------------------------------------------------------------------
@@ -421,16 +425,115 @@ def _matrix_binary_bytes(mat):
     return b"".join(out)
 
 
+def _compressed_matrix_bytes(mat):
+    """Kaldi CM2 encoding (two-byte codes with a global min/range): the
+    simple compressed format, ~2x smaller feature arks, max quantization
+    error range/65535."""
+    mat = np.asarray(mat, dtype=np.float32)
+    mn = float(mat.min()) if mat.size else 0.0
+    mx = float(mat.max()) if mat.size else 0.0
+    rg = max(mx - mn, 1e-10)
+    codes = np.round((mat - mn) / rg * 65535.0).astype("<u2")
+    return (
+        b"CM2 "
+        + struct.pack("<ff", mn, rg)
+        + struct.pack("<ii", mat.shape[0], mat.shape[1])
+        + codes.tobytes()
+    )
+
+
+def _compressed_matrix_bytes_cm3(mat):
+    """Kaldi CM3 encoding (one-byte codes with a global min/range): 4x
+    smaller feature arks, max quantization error range/255."""
+    mat = np.asarray(mat, dtype=np.float32)
+    mn = float(mat.min()) if mat.size else 0.0
+    mx = float(mat.max()) if mat.size else 0.0
+    rg = max(mx - mn, 1e-10)
+    codes = np.round((mat - mn) / rg * 255.0).astype(np.uint8)
+    return (
+        b"CM3 "
+        + struct.pack("<ff", mn, rg)
+        + struct.pack("<ii", mat.shape[0], mat.shape[1])
+        + codes.tobytes()
+    )
+
+
+def _compressed_matrix_bytes_cm1(mat):
+    """Kaldi CM encoding (the default CompressedMatrix format): per-column
+    4x-uint16 percentile headers (p0/p25/p75/p100 quantized against a
+    global min/range) + one-byte codes on a piecewise scale, stored
+    column-major.  Mirrors CompressedMatrix::ComputeColHeader/FloatToChar
+    (percentiles at row indices 0, n/4, 3n/4, n-1 with the forced
+    one-step separation in the uint16 domain), so Kaldi tools decode the
+    stream exactly as :func:`_decode_cm1` does."""
+    mat = np.asarray(mat, dtype=np.float32)
+    rows, cols = mat.shape
+    mn = float(mat.min()) if mat.size else 0.0
+    mx = float(mat.max()) if mat.size else 0.0
+    rg = max(mx - mn, 1e-10)
+    srt = np.sort(mat, axis=0)  # per-column ascending, (rows, cols)
+    if rows >= 5:
+        q = rows // 4
+        pf = srt[[0, q, 3 * q, rows - 1], :]  # (4, cols) float percentiles
+    elif rows > 0:
+        # short columns: degenerate percentiles from whatever rows exist
+        idx = [0, min(1, rows - 1), min(2, rows - 1), rows - 1]
+        pf = srt[idx, :]
+    else:  # empty matrix: headers only, no codes
+        pf = np.zeros((4, cols), np.float32)
+    pq = np.clip(np.round((pf - mn) / rg * 65535.0), 0, 65535).astype(np.int64)
+    # force p0 < p25 < p75 < p100 by >=1 uint16 step (Kaldi's clamps)
+    p0 = np.minimum(pq[0], 65532)
+    p25 = np.minimum(np.maximum(pq[1], p0 + 1), 65533)
+    p75 = np.minimum(np.maximum(pq[2], p25 + 1), 65534)
+    p100 = np.maximum(pq[3], p75 + 1)
+    headers = np.stack([p0, p25, p75, p100], axis=1).astype("<u2")  # (cols,4)
+    # dequantized breakpoints actually used by the decoder
+    d = mn + rg * (headers.astype(np.float64) / 65535.0)  # (cols, 4)
+    b0, b25, b75, b100 = d[:, 0], d[:, 1], d[:, 2], d[:, 3]
+    v = mat.astype(np.float64).T  # (cols, rows), column-major like the codes
+    low = np.round(64.0 * (v - b0[:, None]) / (b25 - b0)[:, None])
+    midv = 64.0 + np.round(128.0 * (v - b25[:, None]) / (b75 - b25)[:, None])
+    high = 192.0 + np.round(63.0 * (v - b75[:, None]) / (b100 - b75)[:, None])
+    codes = np.where(
+        v < b25[:, None],
+        np.clip(low, 0, 64),
+        np.where(v < b75[:, None], np.clip(midv, 64, 192),
+                 np.clip(high, 192, 255)),
+    ).astype(np.uint8)
+    return (
+        b"CM "
+        + struct.pack("<ff", mn, rg)
+        + struct.pack("<ii", rows, cols)
+        + headers.tobytes()
+        + codes.tobytes()
+    )
+
+
+_COMPRESSORS = {
+    "CM": _compressed_matrix_bytes_cm1,
+    "CM2": _compressed_matrix_bytes,
+    "CM3": _compressed_matrix_bytes_cm3,
+}
+
+
 class ArkWriter:
-    """Write an archive of uncompressed matrices, binary or text
-    (``text=True``, the ``ark,t:`` form), optionally with a paired scp (the
-    ``ark,scp:foo.ark,foo.scp`` contract)::
+    """Write an archive of matrices, binary or text (``text=True``, the
+    ``ark,t:`` form), optionally with a paired scp (the
+    ``ark,scp:foo.ark,foo.scp`` contract); ``compress`` (False | True=CM2 |
+    'CM' | 'CM2' | 'CM3') writes binary matrices in Kaldi's compressed
+    formats::
 
         with ArkWriter("feats.ark", "feats.scp") as w:
             w.write("utt1", mat1)
     """
 
-    def __init__(self, ark_path, scp_path=None, text=False):
+    def __init__(self, ark_path, scp_path=None, text=False, compress=False):
+        if compress is True:
+            compress = "CM2"
+        if compress and compress not in _COMPRESSORS:
+            raise ValueError(f"unknown compression method {compress!r}")
+        self.compress = compress
         self.ark_path = os.path.abspath(ark_path)
         self._ark = open(ark_path, "wb")
         self._scp = open(scp_path, "w", encoding="utf-8") if scp_path else None
@@ -448,7 +551,8 @@ class ArkWriter:
             self._ark.write(f"[\n  {lines} ]\n".encode("utf-8"))
         else:
             self._ark.write(b"\x00B")
-            self._ark.write(_matrix_binary_bytes(mat))
+            self._ark.write(_COMPRESSORS[self.compress](mat) if self.compress
+                            else _matrix_binary_bytes(mat))
         if self._scp is not None:
             self._scp.write(f"{key} {self.ark_path}:{offset}\n")
 

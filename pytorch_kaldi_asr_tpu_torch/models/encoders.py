@@ -67,8 +67,16 @@ from pytorch_kaldi_asr_tpu_torch.models.common import (
 )
 from pytorch_kaldi_asr_tpu_torch.models.transformer import (
     _drop,
+    _enter_region,
     _init_ffn,
     _init_mha,
+    _local_bias,
+    _region_rngs,
+    _tp_attention,
+    _tp_ffn,
+    _tp_out,
+    _tp_proj,
+    _tp_weight,
     compute_dtype,
     feed_forward,
 )
@@ -110,20 +118,25 @@ def _banded_self_attention(p, x, src_mask, cfg, rate, rngs, train):
     dtype = compute_dtype(cfg)
     # float32 compute: a bfloat16 stream attends in float32
     xf = x.to(dtype or p["w_qs"].dtype)
-    qs, ks, vs = (torch.einsum("bld,hdk->bhlk", xf, cast(p[w], dtype))
+    tp = _tp_attention(p, cfg)  # heads split over ``model``
+    if tp is not None:
+        (xf,) = _enter_region((xf,), tp)
+    qs, ks, vs = (torch.einsum("bld,hdk->bhlk", xf,
+                               cast(_tp_weight(p, w, cfg, tp), dtype))
                   .reshape(b * h, s, -1) for w in ("w_qs", "w_ks", "w_vs"))
     key_valid = torch.repeat_interleave(src_mask.to(torch.int32), h, dim=0)
     scale = 1.0 / float(d_model) ** 0.5
     if train:
+        seeds = _region_rngs(rngs, tp)
         out = banded_attention_trainable(
-            qs, ks, vs, key_valid, 0 if rngs is None else rngs.seed(),
+            qs, ks, vs, key_valid, 0 if rngs is None else seeds.seed(),
             start=start, end=end, scale=scale,
             dropout_rate=0.0 if rngs is None else float(rate))
     else:
         out = banded_attention(qs, ks, vs, key_valid, start=start, end=end,
                                scale=scale)
     out = out.reshape(b, h, s, -1).transpose(1, 2).reshape(b, s, -1)
-    out = linear(out, p["proj"]["w"], p["proj"]["b"], dtype)
+    out = _tp_proj(out, p["proj"], dtype, tp)
     out = _drop(out, rate, rngs, train)
     # the residual sum in float32, rounded once to the stream's dtype
     return layer_norm((out + x).to(x.dtype), p["ln"]["gamma"],
@@ -190,9 +203,14 @@ def _half_ffn(p, x, cfg, rate, rngs, train):
     the stream's dtype)."""
     dtype = compute_dtype(cfg)
     h = layer_norm(x, p["ln"]["gamma"], p["ln"]["beta"], skip_len1=False)
-    h = _swish(linear(h, p["w1"]["w"], p["w1"]["b"], dtype))
-    h = _drop(h, rate, rngs, train)
-    h = linear(h, p["w2"]["w"], p["w2"]["b"], dtype)
+    tp = _tp_ffn(p)  # inner dimension split over ``model``
+    b1 = p["w1"]["b"]
+    if tp is not None:
+        (h,) = _enter_region((h,), tp)
+        b1 = _local_bias(b1, p["w1"]["w"].shape[1], tp)
+    h = _swish(linear(h, p["w1"]["w"], b1, dtype))
+    h = _drop(h, rate, _region_rngs(rngs, tp), train)
+    h = _tp_out(h, p["w2"], dtype, tp)
     h = _drop(h.to(x.dtype), rate, rngs, train)
     return x + 0.5 * h
 

@@ -53,6 +53,12 @@ from pytorch_kaldi_asr_tpu_torch.models.common import (
     torch_default_uniform,
     xavier_normal,
 )
+from pytorch_kaldi_asr_tpu_torch.parallel.collectives import (
+    copy_to,
+    gather_from,
+    model_axis,
+    reduce_from,
+)
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
@@ -249,6 +255,91 @@ def _drop(x, rate, rngs, train):
     return dropout(x, rate, rngs.seed(), train)
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism: the collectives GSPMD inserts in the JAX package's
+# sharded step (parallel/mesh.py has the layout).  With no ``model`` axis
+# active (parallel/collectives.tensor_parallel) every hook is the identity.
+# A region starts where a replicated tensor meets split weights (copy_to:
+# its gradient summed over ``model``) and ends where the partial products
+# are summed (reduce_from), the bias added after the sum.
+# ---------------------------------------------------------------------------
+
+
+def _enter_region(tensors, axis):
+    """Each distinct tensor of ``tensors`` through ``copy_to`` once."""
+    seen = {}
+    return tuple(seen.setdefault(id(t), copy_to(t, axis)) for t in tensors)
+
+
+def _tp_attention(p, cfg):
+    """The ``model`` axis when this attention block's output projection
+    is split over it, else None."""
+    axis = model_axis()
+    if axis is None or p["proj"]["w"].shape[0] == cfg.n_head * cfg.d_v:
+        return None
+    return axis
+
+
+def _tp_weight(p, name, cfg, axis):
+    """A head projection inside a region: as held when its heads are split;
+    when they are replicated (the axis does not divide them) its gradient
+    is a partial sum, so it enters through ``copy_to``."""
+    w = p[name]
+    if axis is None or w.shape[0] != cfg.n_head:
+        return w
+    return copy_to(w, axis)
+
+
+def _region_rngs(rngs, axis):
+    """Inside a region each rank of ``model`` holds other heads (or FFN
+    columns): their dropout seeds differ by rank, one seed drawn from the
+    shared stream per site so the ranks' streams stay in step."""
+    if axis is None or rngs is None:
+        return rngs
+    return _MixedRngs(rngs, axis.index)
+
+
+class _MixedRngs:
+    def __init__(self, rngs, index):
+        self.rngs, self.index = rngs, index
+
+    def seed(self):
+        return (self.rngs.seed() + self.index * 0x9E3779B1) % (2**31 - 1)
+
+
+def _tp_proj(out, proj, dtype, axis):
+    """``out @ proj.w + proj.b``; in a region the rows of ``proj.w`` held
+    here (``out``'s matching columns) and the partial sums summed."""
+    if axis is None:
+        return linear(out, proj["w"], proj["b"], dtype)
+    rows = proj["w"].shape[0]
+    if out.shape[-1] != rows:  # replicated heads, split projection
+        out = out[..., axis.index * rows:(axis.index + 1) * rows]
+    return _tp_out(out, proj, dtype, axis)
+
+
+def _tp_out(h, layer, dtype, axis):
+    """``h @ layer.w + layer.b`` leaving a region (or plain)."""
+    if axis is None:
+        return linear(h, layer["w"], layer["b"], dtype)
+    out = reduce_from(linear(h, layer["w"], None, dtype), axis)
+    return out + cast(layer["b"], dtype)
+
+
+def _tp_ffn(p):
+    """The ``model`` axis when this FFN's inner dimension is split."""
+    axis = model_axis()
+    if axis is None or p["w1"]["w"].shape[1] == p["w1"]["b"].shape[0]:
+        return None
+    return axis
+
+
+def _local_bias(b, n, axis):
+    """The slice of a replicated bias that matches this rank's ``n``
+    columns (its gradient summed over ``model``)."""
+    return copy_to(b, axis)[axis.index * n:(axis.index + 1) * n]
+
+
 def compute_dtype(cfg):
     """The dtype the products run in: None for float32 (the weights'
     dtype), or torch.bfloat16."""
@@ -275,20 +366,24 @@ def multi_head_attention(p, q, k, v, blocked, cfg, rate=0.0, rngs=None,
     dtype = compute_dtype(cfg)
     residual = q
     scale = q.shape[-1]
-    qs = torch.einsum("bld,hdk->bhlk", cast(q, dtype), cast(p["w_qs"], dtype))
-    ks = torch.einsum("bld,hdk->bhlk", cast(k, dtype), cast(p["w_ks"], dtype))
-    vs = torch.einsum("bld,hdv->bhlv", cast(v, dtype), cast(p["w_vs"], dtype))
+    tp = _tp_attention(p, cfg)
+    if tp is not None:
+        q, k, v = _enter_region((q, k, v), tp)
+    w = {n: _tp_weight(p, n, cfg, tp) for n in ("w_qs", "w_ks", "w_vs")}
+    qs = torch.einsum("bld,hdk->bhlk", cast(q, dtype), cast(w["w_qs"], dtype))
+    ks = torch.einsum("bld,hdk->bhlk", cast(k, dtype), cast(w["w_ks"], dtype))
+    vs = torch.einsum("bld,hdv->bhlv", cast(v, dtype), cast(w["w_vs"], dtype))
     logits = torch.einsum("bhqk,bhlk->bhql", qs, ks) / logit_divisor(scale,
                                                                       dtype)
     if dtype is None:
         attn = masked_softmax(logits, blocked[:, None, :, :])
     else:
         attn = masked_softmax(logits.float(), blocked[:, None, :, :]).to(dtype)
-    attn = _drop(attn, rate, rngs, train)
+    attn = _drop(attn, rate, _region_rngs(rngs, tp), train)
     out = torch.einsum("bhql,bhlv->bhqv", attn, vs)
     b, h, lq, dv = out.shape
     out = out.transpose(1, 2).reshape(b, lq, h * dv)
-    out = linear(out, p["proj"]["w"], p["proj"]["b"], dtype)
+    out = _tp_proj(out, p["proj"], dtype, tp)
     out = _drop(out, rate, rngs, train)
     return layer_norm(out + residual, p["ln"]["gamma"], p["ln"]["beta"],
                       skip_len1=cfg.ln_skip_len1)
@@ -299,8 +394,13 @@ def feed_forward(p, x, cfg, rate=0.0, rngs=None, train=False):
     FFN's output.  In bfloat16 compute both products are bfloat16 and the
     residual sum float32."""
     dtype = compute_dtype(cfg)
-    h = torch.relu(linear(x, p["w1"]["w"], p["w1"]["b"], dtype))
-    out = linear(h, p["w2"]["w"], p["w2"]["b"], dtype)
+    tp = _tp_ffn(p)
+    xin, b1 = x, p["w1"]["b"]
+    if tp is not None:
+        (xin,) = _enter_region((x,), tp)
+        b1 = _local_bias(b1, p["w1"]["w"].shape[1], tp)
+    h = torch.relu(linear(xin, p["w1"]["w"], b1, dtype))
+    out = _tp_out(h, p["w2"], dtype, tp)
     out = _drop(out, rate, rngs, train)
     return layer_norm(out + x, p["ln"]["gamma"], p["ln"]["beta"],
                       skip_len1=cfg.ln_skip_len1)
@@ -365,7 +465,10 @@ def decode_logits(params, cfg: TransformerConfig, tgt_seq, tgt_mask,
     # here (``linear``'s cast); a bfloat16 product comes back to float32
     enc = linear(enc_output, p["enc_dec_proj"]["w"], None, dtype)
     enc = enc if dtype is None else enc.float()
-    x = p["embed"][tgt_seq] + pos_table[:t][None, :, :]
+    x = p["embed"][tgt_seq]
+    if model_axis() is not None and x.shape[-1] != cfg.de_d_model:
+        x = gather_from(x, model_axis())  # d_model split over ``model``
+    x = x + pos_table[:t][None, :, :]
 
     slf_blocked = padding_attn_mask(tgt_mask, tgt_mask) | banded_attn_mask(
         t, cfg.decoder_sub_sequence[0], cfg.decoder_sub_sequence[1],
@@ -380,7 +483,13 @@ def decode_logits(params, cfg: TransformerConfig, tgt_seq, tgt_mask,
                                  cfg, rate, rngs, train)
         x = feed_forward(layer["ffn"], x, cfg, rate, rngs, train)
     x = _drop(x, rate, rngs, train)
-    logits = linear(x, p["word_proj"]["w"], None, dtype)
+    w = p["word_proj"]["w"]
+    tp = model_axis()
+    if tp is not None and w.shape[1] != cfg.vocab_size:  # vocab split
+        (x,) = _enter_region((x,), tp)
+        logits = gather_from(linear(x, w, None, dtype), tp)
+    else:
+        logits = linear(x, w, None, dtype)
     return logits if dtype is None else logits.float()
 
 

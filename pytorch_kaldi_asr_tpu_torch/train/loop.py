@@ -18,6 +18,8 @@ import signal
 import time
 from typing import Any, NamedTuple
 
+import torch.distributed as dist
+
 from pytorch_kaldi_asr_tpu_torch.data.loader import to_device
 from pytorch_kaldi_asr_tpu_torch.models.transformer import (
     compute_dtype,
@@ -28,6 +30,12 @@ from pytorch_kaldi_asr_tpu_torch.train.checkpoint import (
     load_checkpoint,
     read_checkpoint_config,
     save_checkpoint,
+)
+from pytorch_kaldi_asr_tpu_torch.parallel.mesh import (
+    gather_params,
+    param_shardings,
+    shard_batch_arrays,
+    shard_params,
 )
 from pytorch_kaldi_asr_tpu_torch.train.optim import fast_forward
 from pytorch_kaldi_asr_tpu_torch.train.state import (
@@ -55,8 +63,15 @@ def _per_word(totals):
     return float(totals["loss"]) / words, float(totals["n_correct"]) / words
 
 
+def _rows(b, mesh, *names):
+    """The named arrays of device batch ``b``: this rank's rows with a
+    mesh (``shard_batch_arrays``)."""
+    arrays = tuple(getattr(b, n) for n in names)
+    return arrays if mesh is None else shard_batch_arrays(mesh, *arrays)
+
+
 def run_train_epoch(state, cfg, loader, device, *, smoothing=False,
-                    specaugment=False, stop_flag=None):
+                    specaugment=False, stop_flag=None, mesh=None):
     """One full training pass over ``loader``, updating ``state`` in place;
     returns (loss per word, accuracy).  The metric sums stay on the device
     until the pass ends.  ``specaugment`` masks each batch's features in
@@ -64,7 +79,8 @@ def run_train_epoch(state, cfg, loader, device, *, smoothing=False,
     the current batch: the preemption hook.  In bfloat16 compute the
     features go to the device as bfloat16, as the JAX package's loop sends
     them: every encoder casts them there first, so the step's numbers are
-    the same and the copy half the bytes."""
+    the same and the copy half the bytes.  With a ``mesh`` each rank steps
+    on its rows and parameter slices (train/state.py)."""
     src_dtype = compute_dtype(cfg)
     totals = None
     for batch in loader:
@@ -72,19 +88,20 @@ def run_train_epoch(state, cfg, loader, device, *, smoothing=False,
             break
         b = to_device(batch, device, src_dtype)
         totals = _sum_metrics(totals, train_step(
-            state, cfg, b.src, b.src_mask, b.tgt, b.tgt_mask,
-            smoothing=smoothing, specaugment=specaugment))
+            state, cfg, *_rows(b, mesh, "src", "src_mask", "tgt", "tgt_mask"),
+            smoothing=smoothing, specaugment=specaugment, mesh=mesh))
     return _per_word(totals)
 
 
-def run_eval(params, cfg, loader, device, max_batches=None):
+def run_eval(params, cfg, loader, device, max_batches=None, mesh=None):
     """Evaluation pass; respects the loader's ``valid`` tail mask.
     ``max_batches`` implements the reference's train-set eval."""
     totals = None
     for i, batch in enumerate(loader):
         b = to_device(batch, device)
         totals = _sum_metrics(totals, eval_step(
-            params, cfg, b.src, b.src_mask, b.tgt, b.tgt_mask, b.valid))
+            params, cfg, *_rows(b, mesh, "src", "src_mask", "tgt", "tgt_mask",
+                                "valid"), mesh=mesh))
         if max_batches is not None and i + 1 >= max_batches:
             break
     return _per_word(totals)
@@ -115,6 +132,34 @@ class TrainResult(NamedTuple):
 
 def _host_copy(params):
     return tree_map(lambda t: t.detach().to("cpu", copy=True), params)
+
+
+class _Placement:
+    """Where the parameters live: whole on one device, or split over a
+    ``("data", "model")`` mesh, whose rank 0 alone writes checkpoints (of
+    the whole parameters; without Adam's state, which is split too: a
+    resume takes fresh moments and the step)."""
+
+    def __init__(self, mesh, params):
+        self.mesh = mesh
+        self.specs = None if mesh is None else param_shardings(params, mesh)
+        self.writer = mesh is None or not dist.is_initialized() \
+            or dist.get_rank() == 0
+
+    def place(self, params):
+        return params if self.mesh is None else shard_params(params,
+                                                             self.mesh)
+
+    def host(self, params):
+        if self.mesh is not None:
+            params = gather_params(params, self.specs, self.mesh)
+        return _host_copy(params)
+
+    def save(self, path, params, cfg, optimizer=None, **kw):
+        if self.mesh is not None:
+            params, optimizer = self.host(params), None
+        if self.writer:
+            save_checkpoint(path, params, cfg, optimizer=optimizer, **kw)
 
 
 def _resume_point(save_model_dir):
@@ -153,7 +198,7 @@ def train_model(params, cfg, train_loader, dev_loader, test_loader,
                 save_model_dir, *, epochs=500, start_lr=0.001,
                 soft_coefficient=25000.0, save_interval=1, smoothing=False,
                 seed=0, resume=False, metrics_path=None, device="cuda",
-                specaugment=False):
+                specaugment=False, mesh=None):
     """Full training driver on ``device``; returns a ``TrainResult``.
 
     ``specaugment`` masks the features in every train step (never in the
@@ -165,7 +210,12 @@ def train_model(params, cfg, train_loader, dev_loader, test_loader,
 
     SIGTERM arms preemption: training stops before the next batch and
     saves a ``preempt`` checkpoint (params, optimizer state, global step).
-    The previous handler is restored on return.  Off the main thread no
+    The previous handler is restored on return.
+
+    ``mesh`` (a ``("data", "model")`` mesh of parallel/mesh.py, every rank
+    calling with the same arguments) trains dp x tp: each rank holds its
+    parameter slices and steps on its rows of every batch; rank 0 writes
+    the checkpoints.  Off the main thread no
     handler can be installed, and the run has no preemption hook."""
     os.makedirs(save_model_dir, exist_ok=True)
     preempted = {"flag": False}
@@ -185,7 +235,7 @@ def train_model(params, cfg, train_loader, dev_loader, test_loader,
                       start_lr=start_lr, soft_coefficient=soft_coefficient,
                       save_interval=save_interval, smoothing=smoothing,
                       seed=seed, resume=resume, metrics_path=metrics_path,
-                      device=device, specaugment=specaugment)
+                      device=device, specaugment=specaugment, mesh=mesh)
     finally:
         if installed:
             signal.signal(signal.SIGTERM, previous)
@@ -193,7 +243,7 @@ def train_model(params, cfg, train_loader, dev_loader, test_loader,
 
 def _train(params, cfg, train_loader, dev_loader, test_loader, save_model_dir,
            preempted, *, epochs, start_lr, soft_coefficient, save_interval,
-           smoothing, seed, resume, metrics_path, device, specaugment):
+           smoothing, seed, resume, metrics_path, device, specaugment, mesh):
     opts = dict(start_lr=start_lr, soft_coefficient=soft_coefficient,
                 seed=seed)
     start_epoch = 1
@@ -203,8 +253,10 @@ def _train(params, cfg, train_loader, dev_loader, test_loader, save_model_dir,
         path, last_epoch = _resume_point(save_model_dir)
         if path is not None:
             ckpt = load_checkpoint(path, device=device)
-            state = create_train_state(ckpt["params"], **opts)
-            if ckpt["opt_state"] is not None:
+            placement = _Placement(mesh, ckpt["params"])
+            state = create_train_state(placement.place(ckpt["params"]),
+                                       **opts)
+            if ckpt["opt_state"] is not None and mesh is None:
                 state.optimizer.load_state_dict(ckpt["opt_state"])
             else:
                 warning("%s has no opt_state.pt: Adam moments reset; LR "
@@ -217,17 +269,18 @@ def _train(params, cfg, train_loader, dev_loader, test_loader, save_model_dir,
             info("resuming from %s (epoch %d, step %d)", path, last_epoch,
                  ckpt["step"])
     if state is None:
-        state = create_train_state(
-            tree_map(lambda t: t.detach().to(device, copy=True), params),
-            **opts)
+        full = tree_map(lambda t: t.detach().to(device, copy=True), params)
+        placement = _Placement(mesh, full)
+        state = create_train_state(placement.place(full), **opts)
 
-    metrics = MetricsLogger(metrics_path) if metrics_path else None
+    metrics = (MetricsLogger(metrics_path)
+               if metrics_path and placement.writer else None)
 
     # start below zero so the first epoch always becomes the initial best;
     # when resuming, re-establish the pre-interruption best from the
     # dev_accu each epoch checkpoint records
     best_accu, best_epoch = -1.0, resumed_epoch
-    best_params = _host_copy(state.params) if resumed_epoch else params
+    best_params = placement.host(state.params) if resumed_epoch else params
     if resumed_epoch:
         accu, epoch = _best_so_far(save_model_dir)
         if epoch is not None:
@@ -244,33 +297,36 @@ def _train(params, cfg, train_loader, dev_loader, test_loader, save_model_dir,
         loss, accu = run_train_epoch(state, cfg, train_loader, device,
                                      smoothing=smoothing,
                                      specaugment=specaugment,
-                                     stop_flag=lambda: preempted["flag"])
+                                     stop_flag=lambda: preempted["flag"],
+                                     mesh=mesh)
         if preempted["flag"]:
             ppath = os.path.join(save_model_dir, "preempt")
-            save_checkpoint(
+            placement.save(
                 ppath, state.params, cfg, epoch=epoch - 1, step=state.step,
                 optimizer=state.optimizer,
                 extra={"preempted_in_epoch": epoch})
             info("preempted: saved %s at step %d (epoch %d interrupted); "
                  "rerun with -resume to continue", ppath, state.step, epoch)
             if best_accu < 0:
-                best_params = _host_copy(state.params)
+                best_params = placement.host(state.params)
                 best_epoch = max(epoch - 1, 0)
             break
         info("-----(Training)----- accuracy: %3.2f %%, elapse: %3.2f min",
              100 * accu, (time.time() - start) / 60)
 
         _, tr_accu = run_eval(state.params, cfg, train_loader, device,
-                              max_batches=EVAL_TRAIN_BATCHES)
+                              max_batches=EVAL_TRAIN_BATCHES, mesh=mesh)
         info("-----(evaluating train set for %d batch)----- accuracy: "
              "%3.2f %%", EVAL_TRAIN_BATCHES, 100 * tr_accu)
-        _, dev_accu = run_eval(state.params, cfg, dev_loader, device)
+        _, dev_accu = run_eval(state.params, cfg, dev_loader, device,
+                               mesh=mesh)
         info("-----(evaluating dev set)----- accuracy: %3.2f %%",
              100 * dev_accu)
         if dev_accu > best_accu:
             best_accu, best_epoch = dev_accu, epoch
-            best_params = _host_copy(state.params)
-        _, test_accu = run_eval(state.params, cfg, test_loader, device)
+            best_params = placement.host(state.params)
+        _, test_accu = run_eval(state.params, cfg, test_loader, device,
+                                mesh=mesh)
         info("-----(evaluating test set)----- accuracy: %3.2f %%",
              100 * test_accu)
 
@@ -280,7 +336,7 @@ def _train(params, cfg, train_loader, dev_loader, test_loader, save_model_dir,
                         test_accu=test_accu)
         if epoch % save_interval == 0 or epochs - epoch < save_interval:
             path = os.path.join(save_model_dir, f"epoch.{epoch}")
-            save_checkpoint(
+            placement.save(
                 path, state.params, cfg, epoch=epoch, step=state.step,
                 optimizer=state.optimizer,
                 extra={"dev_accu": float(dev_accu)})
@@ -291,8 +347,9 @@ def _train(params, cfg, train_loader, dev_loader, test_loader, save_model_dir,
          100 * best_accu, best_epoch)
     best_path = os.path.join(
         save_model_dir, f"best.epoch{best_epoch}.accu{100 * best_accu:3.2f}")
-    save_checkpoint(best_path, best_params, cfg, epoch=best_epoch,
-                    extra={"dev_accu": best_accu})
+    if placement.writer:
+        save_checkpoint(best_path, best_params, cfg, epoch=best_epoch,
+                        extra={"dev_accu": best_accu})
     info("best model is saved to %s", best_path)
     if metrics is not None:
         metrics.close()

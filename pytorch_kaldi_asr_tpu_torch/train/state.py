@@ -21,6 +21,12 @@ import torch
 from pytorch_kaldi_asr_tpu_torch.models.common import DropoutRngs
 from pytorch_kaldi_asr_tpu_torch.models.transformer import transformer_forward
 from pytorch_kaldi_asr_tpu_torch.ops.specaugment import spec_augment
+from pytorch_kaldi_asr_tpu_torch.parallel.collectives import (
+    all_reduce_,
+    all_reduce_tensors_,
+    tensor_parallel,
+)
+from pytorch_kaldi_asr_tpu_torch.parallel.sequence import per_shard_rng
 from pytorch_kaldi_asr_tpu_torch.train.loss import cross_entropy_loss
 from pytorch_kaldi_asr_tpu_torch.train.optim import (
     hyperbolic_schedule,
@@ -78,33 +84,75 @@ def loss_and_metrics(params, cfg, src, src_mask, tgt, tgt_mask, *,
                               extra_mask=extra_mask)
 
 
+def sum_grads(params, axis):
+    """Sum every trainable leaf's gradient over ``axis`` in place (one
+    all_reduce per dtype); a leaf with no gradient takes part as zeros, so
+    every rank reduces the same list."""
+    leaves = trainable_leaves(params)
+    for leaf in leaves:
+        if leaf.grad is None:
+            leaf.grad = torch.zeros_like(leaf)
+    all_reduce_tensors_([leaf.grad for leaf in leaves], axis)
+
+
+def _data_rngs(rngs, mesh):
+    """The step's randomness for this rank's rows: with the batch split
+    over ``data``, each data rank draws its own stream (the ``model``
+    ranks of one row block share it)."""
+    if mesh is None or mesh.size("data") == 1:
+        return rngs
+    return per_shard_rng(rngs, mesh.index("data"))
+
+
 def train_step(state, cfg, src, src_mask, tgt, tgt_mask, *, smoothing=False,
-               specaugment=False):
+               specaugment=False, mesh=None):
     """One update of ``state`` in place.  Returns the step's metrics
     ({loss, n_correct, n_words}, detached, on the device).  With
     ``specaugment`` the features are masked first (ops/specaugment.py, the
     JAX package's defaults), from the step's generator before it draws the
-    dropout seeds."""
-    rngs = step_rngs(state.seed, state.step)
+    dropout seeds.
+
+    With a ``("data", "model")`` ``mesh`` (parallel/mesh.py) the arrays are
+    this rank's rows (``shard_batch_arrays``) and ``state.params`` its
+    slices (``shard_params``): the forward runs tensor-parallel over
+    ``model``, the gradients of the summed loss are summed over ``data``
+    (the global batch's gradient), and the metrics are the global
+    batch's."""
+    rngs = _data_rngs(step_rngs(state.seed, state.step), mesh)
     if specaugment:
         src = spec_augment(rngs.seeds, src, src_mask)
-    loss, n_correct, n_words = loss_and_metrics(
-        state.params, cfg, src, src_mask, tgt, tgt_mask, train=True,
-        rngs=rngs, smoothing=smoothing)
+    with tensor_parallel(None if mesh is None else mesh.axis("model")):
+        loss, n_correct, n_words = loss_and_metrics(
+            state.params, cfg, src, src_mask, tgt, tgt_mask, train=True,
+            rngs=rngs, smoothing=smoothing)
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    metrics = {"loss": loss.detach(), "n_correct": n_correct,
+               "n_words": n_words}
+    if mesh is not None:
+        sum_grads(state.params, mesh.axis("data"))
+        metrics = _sum_metrics(metrics, mesh)
     set_learning_rate(state.optimizer, state.schedule(state.step))
     state.optimizer.step()
     state.step += 1
-    return {"loss": loss.detach(), "n_correct": n_correct, "n_words": n_words}
+    return metrics
+
+
+def _sum_metrics(metrics, mesh):
+    values = torch.stack([metrics[k].float() for k in sorted(metrics)])
+    all_reduce_(values, mesh.axis("data"))
+    return dict(zip(sorted(metrics), values))
 
 
 @torch.no_grad()
 def eval_step(params, cfg, src, src_mask, tgt, tgt_mask, valid,
-              smoothing=False):
+              smoothing=False, mesh=None):
     """Metrics of the inference forward; ``valid`` excludes the loader's
-    padded tail rows."""
-    loss, n_correct, n_words = loss_and_metrics(
-        params, cfg, src, src_mask, tgt, tgt_mask, smoothing=smoothing,
-        extra_mask=valid)
-    return {"loss": loss, "n_correct": n_correct, "n_words": n_words}
+    padded tail rows.  With a ``mesh``, as :func:`train_step`: this rank's
+    rows and parameter slices, the global batch's metrics."""
+    with tensor_parallel(None if mesh is None else mesh.axis("model")):
+        loss, n_correct, n_words = loss_and_metrics(
+            params, cfg, src, src_mask, tgt, tgt_mask, smoothing=smoothing,
+            extra_mask=valid)
+    metrics = {"loss": loss, "n_correct": n_correct, "n_words": n_words}
+    return metrics if mesh is None else _sum_metrics(metrics, mesh)

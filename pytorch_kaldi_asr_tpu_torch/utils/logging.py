@@ -27,6 +27,11 @@ if not _logger.handlers:
 STARTUP_RE = r"\[INFO\] (\S+) started in ([0-9.]+) s"
 
 
+def quiet():
+    """Log warnings and errors only (the ranks of a world other than 0)."""
+    _logger.setLevel(logging.WARNING)
+
+
 def info(msg, *args):
     _logger.info("[INFO] " + (msg % args if args else msg))
 

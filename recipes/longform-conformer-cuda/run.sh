@@ -16,15 +16,17 @@
 # Scale knobs are env-overridable.  device=cuda (the default) trains the
 # AM and dumps its posteriors on the card, device=cpu on the CPU; without
 # a card and without device=cpu those steps fail rather than fall back.
-# seq_shards stays 1: the time axis sharded over several cards waits for
-# the port's torch.distributed parallelism (train_am refuses more).
+# seq_shards N > 1 splits the time axis over N ranks that train_am
+# starts itself (parallel/sequence.py): N cards under NCCL, or any N
+# sharing the card (or the CPU) under dist_backend=gloo.
 #------------------------------------------------------------
 . "$(dirname "$0")/path.sh"
 set -e
 #------------------------------------------------------------
 stage=${stage:-0}
 device=${device:-cuda}            # cuda|cuda:N|cpu for train_am, dump
-seq_shards=${seq_shards:-1}       # time shards: 1 on one card
+seq_shards=${seq_shards:-1}       # time shards: N ranks (1: none)
+dist_backend=${dist_backend:-}    # nccl|gloo (default: nccl on cuda, gloo on cpu)
 n_train=${n_train:-64}
 n_dev=${n_dev:-8}
 n_test=${n_test:-8}
@@ -72,6 +74,7 @@ if [ $stage -le 2 ]; then
         -read_train_dir data/train -read_dev_dir data/dev \
         -save_model_dir exp/am \
         -encoder_type conformer -seq_shards $seq_shards \
+        ${dist_backend:+-dist_backend $dist_backend} \
         -encoder_sub_sequence "$encoder_sub_sequence" \
         -en_d_model $en_d_model -en_dropout $en_dropout \
         -epoch $epochs -batch_size $batch_size -optim_start_lr $lr \

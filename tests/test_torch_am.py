@@ -159,17 +159,22 @@ def test_am_batch_loader_errors_match_jax(tmp_path):
 
 
 def test_train_am_refusals(tmp_path, monkeypatch):
-    """Alignment ids past the head, sequence parallelism, and (for
-    train_am and dump_posteriors) no card without ``-device cpu``."""
+    """Alignment ids past the head, sequence parallelism of an encoder that
+    has none and NCCL with more ranks than cards, and (for train_am and
+    dump_posteriors) no card without ``-device cpu``."""
     from pytorch_kaldi_asr_tpu_torch.recipes import dump_posteriors
 
     train, dev = _corpus(tmp_path)
     with pytest.raises(ValueError, match="n_targets"):
         train_am.train_am(str(train), str(dev), str(tmp_path / "am"),
                           n_targets=3, device="cpu")
-    with pytest.raises(ValueError, match="queue 1 item 12"):
+    with pytest.raises(ValueError, match="no sequence-parallel forward"):
         train_am.train_am(str(train), str(dev), str(tmp_path / "am"),
-                          seq_shards=2, device="cpu")
+                          seq_shards=2, device="cpu")  # the tdnnf default
+    with pytest.raises(ValueError, match="NCCL refuses two ranks"):
+        train_am.train_am(str(train), str(dev), str(tmp_path / "am"),
+                          encoder_type="banded", seq_shards=2,
+                          device="cuda", dist_backend="nccl")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="-device cpu"):
         train_am.main(["-read_train_dir", str(train), "-read_dev_dir",

@@ -570,3 +570,24 @@ def test_device_search_on_the_card_matches_the_cpu(cuda_device, mode):
         assert r[0] == w[0] and r[1] == w[1]
         assert abs(r[2] - w[2]) <= 1e-5 * abs(w[2])
     assert card.host_fallbacks == cpu.host_fallbacks == 0
+
+
+def test_sp_step_on_ranks_sharing_the_card(cuda_device, tmp_path):
+    """The sequence-parallel step (parallel/sequence.py) of a small
+    conformer AM on 2 ranks sharing the card under gloo with CUDA tensors
+    (tests/torch_parallel_worker.py, started by the port's launcher),
+    against one rank's step on the card: the loss within 1e-5, every
+    gradient within 1e-4 of its leaf's largest, K2a-c launched on each
+    rank."""
+    # tests/ is on the path as pytest imports this file (no package): a
+    # machine with only PyTorch may hold another top-level ``tests``
+    from torch_parallel_helpers import run_world
+
+    out = run_world("sp_cuda", 2, tmp_path, device="cuda")
+    assert abs(out[0]["loss"] - out[0]["one_loss"]) <= 1e-5 * abs(
+        out[0]["one_loss"])
+    assert out[1]["loss"] == out[0]["loss"]
+    assert out[0]["grad_rel"] <= 1e-4
+    for rank in out:
+        for k in ("fwd", "dq", "dkv"):
+            assert rank["launches"][f"banded_attention_{k}"] > 0

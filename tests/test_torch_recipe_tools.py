@@ -411,8 +411,21 @@ def test_launch_retries_and_resubmits_as_jax(tmp_path, opts, exit_of,
 @pytest.mark.parametrize("opt", [["--gang"], ["--hosts", "hosts.txt"],
                                  ["--backend=slurm"], ["-q", "all.q"]])
 def test_launch_refuses_what_is_not_ported(tmp_path, opt):
-    with pytest.raises(SystemExit, match="queue 1 item 12"):
-        launch.launch([*opt, "JOB=1:2", str(tmp_path / "x.log"), "true"])
+    """The options ported with the parallel slice refuse what the JAX
+    launcher refuses, with its message: a gang without an array, an empty
+    hosts file, a scheduler with a gang, a scheduler with retries."""
+    (tmp_path / "hosts.txt").write_text("# no hosts\n")
+    rest = {"--gang": [], "--hosts": ["JOB=1:2"],
+            "--backend=slurm": ["--gang", "JOB=1:2"],
+            "-q": ["--backend", "sge", "--retries", "1", "JOB=1:2"]}[opt[0]]
+    argv = [*opt, *rest, str(tmp_path / "x.log"), "true"]
+    messages = []
+    for mod in (jax_launch, launch):
+        with pytest.raises(SystemExit) as err:
+            mod.launch([a.replace("hosts.txt", str(tmp_path / "hosts.txt"))
+                        for a in argv])
+        messages.append(str(err.value))
+    assert messages[0] == messages[1]
 
 
 def test_launch_runs_as_the_recipes_call_it(tmp_path):

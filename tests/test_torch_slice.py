@@ -139,7 +139,13 @@ _NO_JAX = textwrap.dedent("""
                  "tools.lang", "tools.prepare_lang", "tools.lm_tools",
                  "native", "models.proto", "tools.make_nnet_proto",
                  "tools.transforms", "tools.lda", "tools.trace_summary",
-                 "tools.devices", "tools.bench_rtf"):
+                 "tools.devices", "tools.bench_rtf", "parallel.multihost",
+                 "parallel.collectives", "parallel.mesh",
+                 "parallel.sequence", "parallel.pipeline", "parallel.batch",
+                 "tools.copy_feats", "tools.data_dir",
+                 "tools.divide_train_valid", "tools.perturb_speed",
+                 "tools.segmentation", "tools.summarize_logs",
+                 "tools.tokenize_text", "score.details"):
         assert pkg.__name__ + "." + name in names, name
     importlib.import_module("chip_smoke")
 
