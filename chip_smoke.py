@@ -8,9 +8,9 @@ CUDA card: ``python3 chip_smoke.py`` from the root of a checkout.
 2. Builds every CUDA kernel of the port from ``ops/csrc`` (one nvcc per
    translation unit, all started together: the attention source as one
    unit per element type) and prints what ptxas reports.  Meanwhile a
-   thread takes the CPU reference steps of the conformer training paths
-   (``prefetch_cpu_steps``), which those paths then find in ``cpu_step``'s
-   cache (keyed by a hash of the weights and the batch).
+   thread takes the CPU reference steps of the TIMIT and conformer
+   training paths (``prefetch_cpu_steps``), which those paths then find in
+   ``cpu_step``'s cache (keyed by a hash of the weights and the batch).
 3. Kernel phase: holds each kernel against its plain PyTorch version on the
    card at the paths' shapes and at edge cases, then times the kernel, the
    plain version and the PyTorch library call that computes the same
@@ -66,7 +66,7 @@ CUDA card: ``python3 chip_smoke.py`` from the root of a checkout.
    [150, 1600]): the decode of 16 utterances with the recipe's stage-5
    flags (its CPU cross-check deferred to the side thread, as in 4);
    then ``generate_archive`` (512 per archive) and ``train
-   -train_archive_dir`` on 128/16/16 utterances at batch 32 for 2 epochs,
+   -train_archive_dir`` on 128/16/16 utterances at batch 32 for 1 epoch,
    ``combine``, the exact launch counts, and card against CPU on a batch of
    4 utterances with dropout on.  Then the same for the recipe as it
    ships, with its bfloat16 residual stream (K3 on bfloat16 at 25 sites per
@@ -84,7 +84,8 @@ CUDA card: ``python3 chip_smoke.py`` from the root of a checkout.
    showing the bfloat16 attention kernels and no float32 one.
 9. The TIMIT recipe's other switches (run.sh:27-61, 112-120, 198-236),
    at its widths: the ``tdnnf`` (its six contexts, bottleneck 64) trained
-   with ``-specaugment`` and the ``blstm``, each decoded (16 utterances,
+   with ``-specaugment`` and the ``blstm`` (cut to one encoder layer of
+   three), each decoded (16 utterances,
    CPU cross-check on the first batch) and trained as in 5 (K3 exactly at
    their dropout sites, no K1 or K2; the step card vs CPU, SpecAugment's
    masks the same on both; the step's time and profile, the blstm's
@@ -192,7 +193,22 @@ CUDA card: ``python3 chip_smoke.py`` from the root of a checkout.
    torch.profiler trace (``profile_trace``) of a streaming session and an
    offline forward of the same conformer AM, summarised by
    ``trace_summary`` (K1's kernel row attributed to its wrapper's range);
-   the device list.  Its K1 and K3 launches join the kernels line.
+   then the native host core under the recipe phase's data
+   (``run_native_host``): the library and ``pka-tools`` built from the
+   checkout's sources; the recipe's test set written as FM, DM, CM, CM2 and
+   CM3 arks, the core's ``read_mat`` 0 words apart from the Python readers'
+   on every matrix (a DM as float64), each reader's seconds per 1,000
+   matrices; on the side thread, ``pka-feat-to-len`` against
+   ``tools.feat_to_len`` (``scp:`` and ``ark:``, every kind) and
+   ``pka-compute-wer`` against ``tools.compute_wer`` (``present`` and
+   ``all``) on the recipe's test decode, byte for byte; on the card, fed by
+   the core alone (the Python readers' binary decoding made to raise,
+   ``one_reader``), the CM2 test set decoded with the recipe's checkpoint
+   (K1; the n-best byte for byte that of the same decode fed by the Python
+   readers) and 2 train steps from a CM feats.scp of its training set
+   (K2a-c and K3 exactly as the recipe's steps; losses and parameters bit
+   for bit the Python readers' run's); the device list.  Its K1, K2a-c
+   and K3 launches join the kernels line.
 15. The serve phase (``serve_phase``, ``run_serve``): the recognition
    server, ``python3 -m pytorch_kaldi_asr_tpu_torch.recipes.serve``, as two
    processes on free ports.  First a causal copy of the long-form AM (band
@@ -235,9 +251,13 @@ kernel case and the hybrid phase (its inputs), then the lattice phase (12).
 and training paths, the fbank phase and the hybrid phase (the serve phase's
 inputs), then the serve phase (15).
 
-``python3 chip_smoke.py --tools`` runs the kernel builds, the long-form
-kernel case and the hybrid phase (its inputs), builds graph B, then the
-tools phase (14).
+``python3 chip_smoke.py --tools`` runs the kernel builds, the TIMIT
+recipe's run.sh (``run_recipe``), the long-form kernel case and the hybrid
+phase (its inputs), builds graph B, then the tools phase (14).
+
+``python3 chip_smoke.py --native-host`` runs the kernel builds, the TIMIT
+recipe's run.sh (``run_recipe``) and the native host core's part of the
+tools phase alone (``run_native_host``).
 
 ``python3 chip_smoke.py --device-search`` runs the kernel builds, the
 long-form kernel case and the hybrid phase (its inputs), then the
@@ -356,11 +376,14 @@ FEAT_DIM, SEED = 40, 0
 TIMIT = {
     "name": "timit", "model": RECIPE_MODEL, "frames": (150, 500),
     "words": [f"ph{i:02d}" for i in range(48)],  # + 4 control words = 52
+    # its CPU cross-check deferred to the side thread (``cpu_side``)
     "decode": {"utts": 16, "batch": 8, "beam": 25, "nbest": 10,
-               "buckets": 4, "max_tokens": 100},
-    # stage-4 flags of run.sh:153-175; 3 steps per epoch
+               "buckets": 4, "max_tokens": 100, "cpu_side": True},
+    # stage-4 flags of run.sh:153-175; 3 steps per epoch; the step profiled
+    # over one step (three took the whole run past 1,100 s)
     "train": {"utts": {"train": 300, "dev": 40, "test": 40}, "batch": 100,
-              "epochs": 2, "size_archive": None, "cpu_rows": None},
+              "epochs": 2, "size_archive": None, "cpu_rows": None,
+              "profiled_steps": 1},
 }
 LIBRISPEECH = {
     "name": "librispeech", "model": CONFORMER_MODEL, "frames": (150, 1600),
@@ -375,7 +398,8 @@ LIBRISPEECH = {
     # card-vs-CPU step takes 4 utterances: the plain attention at 32 x 1600
     # would need about 40 GB
     "train": {"utts": {"train": 128, "dev": 16, "test": 16}, "batch": 32,
-              "epochs": 2, "size_archive": 512, "cpu_rows": 4},
+              "epochs": 1, "size_archive": 512, "cpu_rows": 4,
+              "profiled_steps": 1},
 }
 LIBRISPEECH_BF16 = dict(LIBRISPEECH, name="librispeech_bf16",
                         model=CONFORMER_BF16_MODEL)
@@ -402,10 +426,13 @@ TIMIT_TDNNF = dict(TIMIT, name="timit_tdnnf",
                           for x in RECIPE_MODEL],
                    train=dict(TIMIT["train"], specaugment=True,
                               cpu_dtype="float64", cpu_rows=20))
-TIMIT_BLSTM = dict(TIMIT, name="timit_blstm",
-                   model=[x if x != "banded" else "blstm"
-                          for x in RECIPE_MODEL],
-                   train=dict(TIMIT["train"], timed_steps=3,
+# The blstm is cut to one encoder layer of the recipe's three: at three its
+# step took 1.9 s and 66,131 launches, and its profile of one step 40.8 s,
+# which took the whole run past 1,100 s (PERF.md §4)
+BLSTM_MODEL = [x if x != "banded" else "blstm" for x in RECIPE_MODEL]
+BLSTM_MODEL[BLSTM_MODEL.index("-en_layers") + 1] = "1"
+TIMIT_BLSTM = dict(TIMIT, name="timit_blstm", model=BLSTM_MODEL,
+                   train=dict(TIMIT["train"], timed_steps=3, epochs=1,
                               profiled_steps=1, cpu_rows=20))
 # stage 2's neural LM (run.sh:27-37, 112-120): train_nlm at its defaults
 # with the recipe's nlm_max_len (max_token_seq_len + 2), 2 epochs over the
@@ -479,12 +506,12 @@ BF16_DECODE_FLOAT32_FLOOR = 0.85
 TIMIT_BF16 = dict(TIMIT, name="timit_bf16", compute_dtype="bfloat16",
                   train=dict(TIMIT["train"], cpu_rows=20),
                   decode_encoder_ratio=BF16_COMPUTE_ENCODER_RATIO)
-# (the conformer for 1 epoch: 4 steps, which the launch checks count; the
-# earlier paths' 2 epochs run combine over two checkpoints)
+# (the conformer paths train 1 epoch: 4 steps, which the launch checks
+# count; TIMIT's paths' 2 epochs run combine over two checkpoints)
 LIBRISPEECH_BF16_COMPUTE = dict(
     LIBRISPEECH_BF16, name="librispeech_bf16_compute",
     compute_dtype="bfloat16",
-    train=dict(LIBRISPEECH_BF16["train"], epochs=1),
+    train=LIBRISPEECH_BF16["train"],
     decode_encoder_ratio=BF16_CONFORMER_ENCODER_RATIO)
 # the TIMIT leaf whose float32 gate sat at its noise under PR 6's float64
 # yardstick (ROADMAP.md queue 3)
@@ -2576,9 +2603,10 @@ def step_batches(dirs, vocab, archive_args, batch, cpu_rows):
 
 
 # the training paths whose CPU reference steps are taken while the kernels
-# build: the conformer's three, which take about as long as the build
-# (TIMIT's two as well would keep the card waiting after it)
-PREFETCHED = (LIBRISPEECH, LIBRISPEECH_BF16, LIBRISPEECH_BF16_COMPUTE)
+# build: TIMIT's (its step and, for its leaf at its noise, NOISY_LEAF, its
+# one-ulp step) and the conformer's three, about 95 s of the build's
+# 120-126 s on the H100 host (PERF.md §4)
+PREFETCHED = (TIMIT, LIBRISPEECH, LIBRISPEECH_BF16, LIBRISPEECH_BF16_COMPUTE)
 
 
 def prefetch_cpu_steps(torch):
@@ -2602,6 +2630,8 @@ def prefetch_cpu_steps(torch):
             cpu_step(torch, params, cfg, rows)
             if "bfloat16" in (cfg.conformer_stream_dtype, cfg.compute_dtype):
                 cpu_step(torch, params, own_error_config(cfg), rows)
+            if corpus is TIMIT:
+                cpu_step(torch, one_ulp_off(torch, params), cfg, rows)
         except Exception as e:  # noqa: BLE001 — the path takes it again
             print(f"prefetch of {corpus['name']}'s CPU steps failed: "
                   f"{e!r}")
@@ -3102,7 +3132,8 @@ def run_nlm(torch, decoded, device="cuda"):
 def run_lm_decodes(torch, decoded, nlm_dir, device="cuda"):
     """The banded TIMIT decode of run_slice (``decoded``, its summary) with
     the neural LM fused at NLM's weight, with int8 weights, and with both;
-    each's first batch again on the CPU (``compare_nbest``).  On the card,
+    each's first batch again on the CPU (``compare_nbest``, deferred to the
+    side thread: ``defer_side_check``).  On the card,
     ``-lm_weight 0`` writes the unfused decode's lines exactly (tokens and
     scores bit-equal).  Records each decode's RTF, its time split, its K1
     launches, its peak device memory and the parameter bytes of the float32
@@ -3152,18 +3183,20 @@ def run_lm_decodes(torch, decoded, nlm_dir, device="cuda"):
         if len(gpu) != spec["utts"]:
             raise AssertionError(f"{name} decode: {len(gpu)} utterances")
         if name in ("fused", "int8", "fused_int8"):
-            cpu_path = work / f"decode_{name}_cpu.txt"
-            t0 = time.perf_counter()
-            decode.main(stage5_args(spec, work / "data_first_batch", vocab,
-                                    model, cpu_path, "cpu") + extra)
-            row["cpu_first_batch_s"] = time.perf_counter() - t0
-            cpu_reference_done(f"timit {name} decode, first batch",
-                               row["cpu_first_batch_s"])
-            cpu = read_nbest(cpu_path)
-            if sorted(cpu) != sorted(decoded["first_batch_keys"]):
-                raise AssertionError("the CPU decode covered other "
-                                     "utterances")
-            row["cpu_vs_card_max_score_err"] = compare_nbest(gpu, cpu)
+            def cpu_cross_check(name=name, extra=extra, gpu=gpu):
+                cpu_path = work / f"decode_{name}_cpu.txt"
+                decode.main(stage5_args(spec, work / "data_first_batch",
+                                        vocab, model, cpu_path, "cpu")
+                            + extra)
+                cpu = read_nbest(cpu_path)
+                if sorted(cpu) != sorted(decoded["first_batch_keys"]):
+                    raise AssertionError("the CPU decode covered other "
+                                         "utterances")
+                return compare_nbest(gpu, cpu)
+
+            defer_side_check(f"timit {name} decode, first batch",
+                             cpu_cross_check)
+            row["cpu_vs_card_max_score_err"] = "on the side thread"
         out[name] = row
         print(f"timit {name} decode: RTF {row['rtf']:.4f}, "
               + json.dumps(row))
@@ -3794,7 +3827,7 @@ RECIPE_SH = "recipes/attention-transformer-timit-cuda/run.sh"
 # 256/128, d_k = d_v = 64, dropout 0.35, band (-100, 0), batch_size 100,
 # beam_size 25, nbest 10, decode_batch 8, max_token_seq_len 100)
 RECIPE_KNOBS = {"device": "cuda", "encoder_type": "banded", "cmvn": "true",
-                "nlm_rescore": "true", "nlm_epochs": "2", "epochs": "2",
+                "nlm_rescore": "true", "nlm_epochs": "1", "epochs": "2",
                 "model_dir": "exp/model"}
 # run.sh's decode knobs at their defaults, for the CPU cross-check
 RECIPE_DECODE = {"decode_batch": "8", "beam_size": "25", "nbest": "10",
@@ -4424,7 +4457,7 @@ def run_hybrid(torch, device="cuda", knobs=None):
 # the lattice phase: the hybrid phase's posteriors and graph through the
 # lattice tools, each CLI as its own process, as a user runs them
 LATTICE = {"lattice_beam": 8.0, "prune_beam": 6.0, "nbest": 10,
-           "rescore_n": 20, "nlm_epochs": 2, "keywords": 4, "jobs": 8}
+           "rescore_n": 20, "nlm_epochs": 1, "keywords": 4, "jobs": 8}
 
 
 def run_lattice(torch, hybrid_work, device="cuda", knobs=None):
@@ -5453,7 +5486,392 @@ def profile_attention(torch, work, device="cuda", attempts=PROFILE_ATTEMPTS):
                 top(by_op, "rows", "category_rows"))}
 
 
-def run_tools(torch, hybrid_work, device="cuda"):
+# the native host core under the recipe's data (run_native_host): the
+# matrix kinds the core reads, and how many reads each reader is timed on
+NATIVE_KINDS = ("FM", "DM", "CM", "CM2", "CM3")
+NATIVE_TIMED_READS = 1000
+# the train steps fed from a CM feats.scp (the recipe's train set)
+NATIVE_STEPS = 2
+# the kinds tools.feat_to_len runs on as a process (each about 1 s)
+NATIVE_CLI_KINDS = ("FM", "CM2")
+
+
+def _write_kind(kaldi_io, mats, folder, kind, text):
+    """``mats`` as a ``kind`` ark (a DM from the features in float64) with
+    its feats.scp, and ``text``, in ``folder``: a data dir."""
+    folder.mkdir(parents=True)
+    compress = kind if kind.startswith("CM") else False
+    with kaldi_io.ArkWriter(str(folder / "feats.ark"),
+                            str(folder / "feats.scp"),
+                            compress=compress) as w:
+        for key, mat in mats.items():
+            w.write(key, mat.astype("float64") if kind == "DM" else mat)
+    shutil.copy(text, folder / "text")
+    return folder
+
+
+@contextlib.contextmanager
+def one_reader(which):
+    """Within: every matrix ``io/kaldi_io`` reads goes through one reader.
+    ``"native"``: the Python readers' binary decoding and header reads
+    raise, so only the native core can feed a caller; ``"python"``: the
+    header peek says no and the core's entry points raise, so only the
+    Python readers can.  Yields a list that counts the chosen reader's matrix
+    reads."""
+    from pytorch_kaldi_asr_tpu_torch import native
+    from pytorch_kaldi_asr_tpu_torch.io import kaldi_io
+
+    reads = []
+
+    def blocked(*args):
+        raise AssertionError(f"the {'Python' if which == 'native' else 'native'}"
+                             f" reader was called under one_reader({which!r})")
+
+    def counted(fn):
+        def read(*args):
+            reads.append(args[-1])
+            return fn(*args)
+        return read
+
+    saved = [(kaldi_io, n, getattr(kaldi_io, n)) for n in
+             ("_read_matrix_binary", "_read_matrix_header_binary",
+              "_peek_native", "read_mat_python")]
+    saved += [(native, n, getattr(native, n)) for n in
+              ("read_mat_fd", "mat_header_fd", "scan_ark")]
+    try:
+        if which == "native":
+            kaldi_io._read_matrix_binary = blocked
+            kaldi_io._read_matrix_header_binary = blocked
+            native.read_mat_fd = counted(native.read_mat_fd)
+        else:
+            kaldi_io._peek_native = lambda rx: None
+            kaldi_io.read_mat_python = counted(kaldi_io.read_mat_python)
+            native.read_mat_fd = native.mat_header_fd = blocked
+            native.scan_ark = blocked
+        yield reads
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+
+def _words(torch, t):
+    """``t``'s bits as integers of its width."""
+    return t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[
+        t.element_size()])
+
+
+def _cli_bytes(cmd, out=None):
+    """Run ``cmd``; its stdout (or the file ``out``) and its wall
+    seconds.  Fails unless it exits 0."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([str(c) for c in cmd], capture_output=True,
+                          env=dict(os.environ, PYTHONPATH=str(REPO)))
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{cmd} exited {proc.returncode}: "
+                             f"{proc.stderr.decode()[-2000:]}")
+    return (Path(out).read_bytes() if out else proc.stdout), wall
+
+
+def native_host_clis(dirs, decode_dir, ref):
+    """The CPU-only checks of run_native_host, for the side thread: (a)
+    ``pka-tools`` built from the checkout's sources; (c) ``pka-feat-to-len``
+    (scp input) against ``tools.feat_to_len`` as processes over ``scp:``
+    and ``ark:`` of the NATIVE_CLI_KINDS in ``dirs``: the same ``.length``
+    bytes; (d)
+    ``pka-compute-wer`` against ``tools.compute_wer`` as processes on the
+    recipe's test decode (``decode_dir``/scoring/rescore_10.0 against the
+    reference ``ref``), in ``present`` and ``all`` modes, and
+    ``score.wer`` in this process on every rescore file of both scoring
+    dirs: the same three lines byte for byte.  Every process
+    is its own, so the main thread's ``one_reader`` does not reach them.
+    Returns the readings and walls."""
+    from pytorch_kaldi_asr_tpu_torch import native
+    from pytorch_kaldi_asr_tpu_torch.io import kaldi_io
+    from pytorch_kaldi_asr_tpu_torch.score.wer import (
+        compute_wer,
+        format_wer_report,
+    )
+
+    t0 = time.perf_counter()
+    tools, log = native.build_tools()
+    out = {"tools": {"dir": tools.name, "files": sorted(
+        p.name for p in tools.iterdir()), "built_here": log is not None,
+        "build_s": time.perf_counter() - t0}}
+    py = [sys.executable, "-m"]
+    lengths = {}
+    for kind, d in ((k, dirs[k]) for k in NATIVE_CLI_KINDS):
+        want, _ = _cli_bytes([tools / "pka-feat-to-len", f"scp:{d}/feats.scp",
+                              f"ark,t:{d}/pka.length"], d / "pka.length")
+        for spec in ("scp", "ark"):
+            src = d / f"feats.{spec}"
+            got, wall = _cli_bytes(
+                [*py, "pytorch_kaldi_asr_tpu_torch.tools.feat_to_len",
+                 f"{spec}:{src}", f"ark,t:{d}/{spec}.length"],
+                d / f"{spec}.length")
+            if got != want or not want:
+                raise AssertionError(f"feat_to_len {spec}:{src}: not "
+                                     f"pka-feat-to-len's bytes")
+            lengths[f"{kind}_{spec}"] = wall
+    out["feat_to_len_s"] = lengths
+    hyps = sorted(p for p in decode_dir.glob("scoring*/rescore_*")
+                  if not p.name.endswith("_wer"))
+    one = decode_dir / "scoring" / "rescore_10.0"
+    walls = {}
+    for mode in ("present", "all"):
+        args = [f"--mode={mode}", f"ark:{ref}", f"ark:{one}"]
+        want, walls[f"pka_{mode}"] = _cli_bytes(
+            [tools / "pka-compute-wer", *args])
+        got, walls[f"python_{mode}"] = _cli_bytes(
+            [*py, "pytorch_kaldi_asr_tpu_torch.tools.compute_wer", *args])
+        if got != want or len(want.splitlines()) != 3:
+            raise AssertionError(f"compute_wer --mode={mode} {one}: "
+                                 f"{got!r} against pka-compute-wer's "
+                                 f"{want!r}")
+        refs = kaldi_io.read_key_value_text(str(ref))
+        for hyp in hyps:
+            report = format_wer_report(compute_wer(
+                refs, kaldi_io.read_key_value_text(str(hyp)), mode=mode))
+            pka, _ = _cli_bytes([tools / "pka-compute-wer", f"--mode={mode}",
+                                 f"ark:{ref}", f"ark:{hyp}"])
+            if report.encode() != pka:
+                raise AssertionError(f"score.wer on {hyp} ({mode}): "
+                                     f"{report!r} against {pka!r}")
+    out["compute_wer_s"] = walls
+    out["compute_wer_files"] = len(hyps)
+    out["report"] = want.decode()
+    return out
+
+
+def run_native_host(torch, recipe_work, device="cuda", knobs=None):
+    """The native host core (native/src/ark_io.cc, edit_distance.cc,
+    tools_main.cc) under the recipe phase's data (``recipe_work``: run.sh's
+    corpus, checkpoints and decode output), in order:
+
+    a. the library built from the checkout's sources (by the first CLI of
+       run.sh that read a matrix; its file name, and whether this call
+       built it), ``pka-tools`` and its links on the side thread;
+    b. the test set's features (data/test_filtered, after CMVN) written as
+       FM, DM, CM, CM2 and CM3 arks with their feats.scp: the core's
+       ``read_mat`` against the Python readers' on every matrix, 0 words
+       apart, a DM as float64; each reader's seconds per 1,000 matrices
+       over NATIVE_TIMED_READS reads, beside an open and close of the
+       file;
+    c. and d. on the side thread (``native_host_clis``), beside e and f;
+    e. the CM2 test set decoded on ``device`` with run.sh's combined
+       checkpoint and stage-5 flags, fed by the core alone
+       (``one_reader("native")``): K1 launched, and the n-best file
+       byte for byte that of the same decode fed by the Python readers
+       alone (its launches not counted);
+    f. NATIVE_STEPS train steps from run.sh's model.init on its training
+       set written as CM at its batch size, fed by the core alone: K2a-c at
+       en_layers and K3 at the dropout sites each way per step, exactly;
+       every step's loss and the updated parameters bit for bit those of
+       the same steps fed by the Python readers alone.
+
+    ``knobs``: those run.sh ran with, over RECIPE_KNOBS (its model dir,
+    batch size and stage-5 flags).  Returns the readings, seconds and the
+    launches of e and f."""
+    import numpy as np
+
+    from pytorch_kaldi_asr_tpu_torch import native
+    from pytorch_kaldi_asr_tpu_torch.data import read_vocab
+    from pytorch_kaldi_asr_tpu_torch.data.loader import (
+        make_batch_loader,
+        to_device,
+    )
+    from pytorch_kaldi_asr_tpu_torch.io import kaldi_io
+    from pytorch_kaldi_asr_tpu_torch.models.transformer import tree_map
+    from pytorch_kaldi_asr_tpu_torch.recipes import decode
+    from pytorch_kaldi_asr_tpu_torch.train import (
+        create_train_state,
+        load_checkpoint,
+        train_step,
+    )
+    from pytorch_kaldi_asr_tpu_torch.train.optim import named_leaves
+
+    t_phase = time.perf_counter()
+    knobs = dict(RECIPE_KNOBS, **(knobs or {}))
+    rw = Path(recipe_work).resolve()
+    model_dir = rw / knobs["model_dir"]
+    work = _fresh(WORK / "native_host")
+    sync = _sync(torch, device)
+    out = {}
+
+    # a. the library
+    t0 = time.perf_counter()
+    lib, log = native.build()
+    out["library"] = {"file": lib.name, "built_here": log is not None,
+                      "build_s": time.perf_counter() - t0}
+
+    # b. the test set in every kind; the core against the Python readers
+    test = rw / "data" / "test_filtered"
+    feats = dict(kaldi_io.read_mat_scp(str(test / "feats.scp")))
+    dirs = {kind: _write_kind(kaldi_io, feats, work / f"test_{kind}", kind,
+                              test / "text") for kind in NATIVE_KINDS}
+    apart, rxs = {}, []
+    for kind, d in dirs.items():
+        n = 0
+        for key, rx in kaldi_io.scp_entries(str(d / "feats.scp")):
+            got, want = native.read_mat(rx), kaldi_io.read_mat_python(rx)
+            dtype = np.float64 if kind == "DM" else np.float32
+            if got.dtype != dtype or want.dtype != dtype \
+                    or got.shape != want.shape:
+                raise AssertionError(f"{kind} {key}: {got.dtype} "
+                                     f"{got.shape} against {want.dtype} "
+                                     f"{want.shape}")
+            view = np.uint64 if kind == "DM" else np.uint32
+            n += int((got.view(view) != want.view(view)).sum())
+            rxs.append(rx)
+        apart[kind] = n
+    if any(apart.values()):
+        raise AssertionError(f"the native read_mat against the Python "
+                             f"readers: {apart} words apart")
+    reads = (rxs * (-(-NATIVE_TIMED_READS // len(rxs))))[:NATIVE_TIMED_READS]
+    per_1000 = {}
+
+    def open_close(rx):  # what one read costs the host before any byte
+        os.close(os.open(kaldi_io._split_offset(rx)[0], os.O_RDONLY))
+
+    for name, fn in (("native", kaldi_io.read_mat),
+                     ("python", kaldi_io.read_mat_python),
+                     ("open_close", open_close)):
+        t0 = time.perf_counter()
+        for rx in reads:
+            fn(rx)
+        per_1000[name] = (time.perf_counter() - t0) * 1000 / len(reads)
+    out["read_mat"] = {"matrices": len(feats), "words_apart": apart,
+                       "frames": int(sum(m.shape[0] for m in feats.values())),
+                       "dim": int(next(iter(feats.values())).shape[1]),
+                       "s_per_1000": per_1000}
+    print(f"native read_mat against the Python readers on the recipe's test "
+          f"set ({len(feats)} matrices in each of {', '.join(dirs)}): 0 "
+          f"words apart, DM float64", flush=True)
+    # the training set as CM, for f
+    train_dir = rw / "data" / "train_filtered"
+    train_cm = _write_kind(
+        kaldi_io, dict(kaldi_io.read_mat_scp(str(train_dir / "feats.scp"))),
+        work / "train_CM", "CM", train_dir / "text")
+
+    # c. and d. on the side thread, beside the card's work
+    defer_side_check("native host CLIs", lambda: native_host_clis(
+        dirs, model_dir / "decode_test", test / "text"))
+    start_side_checks(torch)
+
+    # e. the CM2 test set decoded, fed by the core alone
+    vocab = rw / "data" / "language" / "vocab.txt"
+    combined = sorted(model_dir.glob("combined*"))[-1]
+    dec = {k: knobs.get(k, v) for k, v in RECIPE_DECODE.items()}
+    flags = ["-max_token_seq_len", dec["max_token_seq_len"], "-batch_size",
+             dec["decode_batch"], "-beam_size", dec["beam_size"], "-nbest",
+             dec["nbest"], "-device", device]
+    decodes = {}
+    for which in ("native", "python"):
+        result = work / f"decode_{which}.txt"
+        with one_reader(which) as n_reads:
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            decode.main(["-read_data_dir", str(dirs["CM2"]),
+                         "-read_vocab_file", str(vocab), "-load_model_file",
+                         str(combined), "-save_result_file", str(result),
+                         *flags])
+            sync()
+            decodes[which] = {"s": time.perf_counter() - t0,
+                              "reads": len(n_reads),
+                              "launches": launch_counts()}
+    launches = decodes["native"]["launches"]
+    cuda = device.startswith("cuda")
+    if decodes["native"]["reads"] < len(feats) \
+            or bool(launches["banded_attention"]) != cuda \
+            or any(n for k, n in launches.items()
+                   if k != "banded_attention"):
+        raise AssertionError(f"the CM2 decode fed by the native core: "
+                             f"{decodes['native']}")
+    if (work / "decode_native.txt").read_bytes() != \
+            (work / "decode_python.txt").read_bytes():
+        raise AssertionError("the CM2 decode fed by the native core is not "
+                             "the Python readers' n-best")
+    out["decode"] = {k: {"s": v["s"], "reads": v["reads"]}
+                     for k, v in decodes.items()}
+    print(f"the CM2 test set decoded on {device}, fed by the native core "
+          f"alone: K1 {launches['banded_attention']} launches, the n-best "
+          f"of the Python readers' decode byte for byte; "
+          + json.dumps(out["decode"]), flush=True)
+
+    # f. train steps from a CM feats.scp, fed by the core alone
+    ckpt = load_checkpoint(str(model_dir / "model.init"))
+    cfg = ckpt["cfg"]
+    batch = int(knobs.get("batch_size", 100))  # run.sh's default
+    steps = {}
+    for which in ("native", "python"):
+        with one_reader(which) as n_reads:
+            loader = make_batch_loader(str(train_cm), read_vocab(str(vocab)),
+                                       batch, mode="drop", shuffle=False)
+            state = create_train_state(tree_map(
+                lambda t: t.detach().to(device, copy=True), ckpt["params"]))
+            reset_launch_counts()
+            losses = []
+            t0 = time.perf_counter()
+            for _, b in zip(range(NATIVE_STEPS), loader):
+                b = to_device(b, device)
+                m = train_step(state, cfg, b.src, b.src_mask, b.tgt,
+                               b.tgt_mask)
+                losses.append(float(m["loss"]))
+            sync()
+            steps[which] = {
+                "s": time.perf_counter() - t0, "losses": losses,
+                "reads": len(n_reads), "launches": launch_counts(),
+                "params": {p: t.detach().cpu() for p, t in
+                           named_leaves(state.params)}}
+    sites = dropout_sites(cfg)
+    want = {f"banded_attention_{k}": NATIVE_STEPS * cfg.en_layers
+            for k in ("fwd", "dq", "dkv")}
+    for way in ("forward", "backward"):
+        for dtype, sfx in (("float32", ""), ("bfloat16", "_bf16")):
+            want[f"fused_dropout_{way}{sfx}"] = NATIVE_STEPS * sites[dtype]
+    if cuda:
+        check_step_launches("the train steps fed by the native core",
+                            steps["native"]["launches"], want)
+    nat, pyt = steps["native"], steps["python"]
+    words = sum(int((_words(torch, nat["params"][p])
+                     != _words(torch, pyt["params"][p])).sum())
+                for p in nat["params"])
+    if len(nat["losses"]) != NATIVE_STEPS or nat["reads"] < NATIVE_STEPS \
+            or nat["losses"] != pyt["losses"] or words:
+        raise AssertionError(
+            f"the train steps fed by the native core: losses "
+            f"{nat['losses']} against the Python readers' {pyt['losses']}, "
+            f"{words} parameter words apart, {nat['reads']} reads")
+    out["steps"] = {k: {"s": v["s"], "losses": v["losses"],
+                        "reads": v["reads"]} for k, v in steps.items()}
+    out["steps"]["parameter_words_apart"] = words
+    print(f"{NATIVE_STEPS} train steps on {device} from a CM feats.scp fed "
+          f"by the native core alone: losses {nat['losses']}, the Python "
+          f"readers' bit for bit, 0 parameter words apart; launches "
+          + json.dumps({k: v for k, v in nat["launches"].items() if v}),
+          flush=True)
+    out["launches"] = {k: decodes["native"]["launches"][k]
+                       + nat["launches"][k] for k in launches}
+
+    # c. and d.: joined
+    t0 = time.perf_counter()
+    out["clis"] = join_side_checks(torch)["native host CLIs"]["result"]
+    out["side_wait_s"] = time.perf_counter() - t0
+    walls = out["clis"]["compute_wer_s"]
+    print(f"native host core: read_mat "
+          f"{per_1000['native']:.4f} s per 1,000 matrices, the Python readers "
+          f"{per_1000['python']:.4f}, an open and close "
+          f"{per_1000['open_close']:.4f} ({out['read_mat']['frames']} frames of "
+          f"{out['read_mat']['dim']} in {len(feats)} matrices, each kind); "
+          f"pka-compute-wer {walls['pka_present']:.3f} s, python -m "
+          f"tools.compute_wer {walls['python_present']:.3f} s (--mode="
+          f"present); {card_line() if cuda else 'cpu'}",
+          flush=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def run_tools(torch, hybrid_work, recipe_work, device="cuda"):
     """The tools phase over the hybrid phase's ``hybrid_work`` (its card
     posteriors, exp/post.scp, and HLG, graph A) and graph B (built by
     ``build_graph_b`` under WORK/device_search/graph_b), in order:
@@ -5481,7 +5899,12 @@ def run_tools(torch, hybrid_work, device="cuda"):
     5. K3 launched once a dropout site each way in the step, K1 in the
        profile; the step's masks card against CPU (``proto_masks_equal``,
        after the counts are read: comparison launches do not count) all
-       equal; the device list (``tools.devices``).
+       equal;
+    6. the native host core under the recipe phase's data
+       (``run_native_host`` over ``recipe_work``: its reads, CLIs, a
+       decode and train steps fed by the core alone, its K1, K2a-c and K3
+       launches counted apart from 2-5's and added to them); the device
+       list (``tools.devices``).
 
     Returns the readings, the launches and the seconds."""
     import numpy as np
@@ -5508,7 +5931,7 @@ def run_tools(torch, hybrid_work, device="cuda"):
     # 1. the native core against the Python token passer
     t0 = time.perf_counter()
     lib, log = native.build()
-    out["native"] = {"library": lib.name, "built_here": bool(log),
+    out["native"] = {"library": lib.name, "built_here": log is not None,
                      "build_s": time.perf_counter() - t0}
     posts = _search_posts(hw)
     keys = sorted(posts)
@@ -5656,6 +6079,14 @@ def run_tools(torch, hybrid_work, device="cuda"):
         raise AssertionError(f"proto step's dropout masks, card against "
                              f"CPU: {masks} elements differ")
     out["proto"]["mask_mismatches"] = masks
+
+    # 6. the native host core, its launches counted on their own
+    t0 = time.perf_counter()
+    host = run_native_host(torch, recipe_work, device)
+    out["native_host"] = host
+    out["seconds"]["native_host"] = time.perf_counter() - t0
+    out["launches"] = {k: n + host["launches"][k]
+                       for k, n in launches.items()}
     out["devices"] = devices.available_devices()
     print("tools.devices: " + json.dumps(out["devices"]), flush=True)
     cli_rows, cli_s = _finish_bench_cli(cli)
@@ -6196,7 +6627,7 @@ PROBE_OPS = ("all_reduce", "broadcast", "broadcast_pair_group",
 SP_FWD_RTOL = 2e-5  # of the largest entry: 8 ranks against one
 PP_FWD_RTOL = 2e-5
 PARAM_RTOL = 1e-5  # dp x tp: the updated parameters, of each leaf's largest
-SP_STEP_REPEATS = 5
+SP_STEP_REPEATS = 3
 # the TIMIT recipe's banded model (RECIPE_MODEL) at dropout 0, on a 2 x 2
 # ("data", "model") mesh, one step at batch 100
 TP_MESH = (2, 2)
@@ -6716,8 +7147,10 @@ def run_parallel(torch, device="cuda", narrow=None):
        steps each way and K1 en_layers x dev batches; ``dump_posteriors``
        on one card reads its checkpoint.
     5. dp x tp: the TIMIT banded model on a 2 x 2 mesh, one step at batch
-       100 against one rank: loss within STEP_LOSS_RTOL, the updated
-       parameters within PARAM_RTOL of each leaf's largest entry.
+       100 against one rank: loss within STEP_LOSS_RTOL, every gradient
+       within GRAD_ATOL of its leaf's largest entry, the updated parameters
+       within PARAM_RTOL of each leaf's largest entry or at most
+       F32_NOISE_RATIO times the one-rank step's one-ulp noise.
     6. The pipeline: a banded AM at TIMIT's encoder widths over 3 stages
        and 6 microbatches of a hybrid-corpus batch: the forward within
        PP_FWD_RTOL, the loss within STEP_LOSS_RTOL, every gradient within
@@ -6801,9 +7234,10 @@ def run_parallel(torch, device="cuda", narrow=None):
         fails.append(f"{res['sp_param_mismatches']} parameter words differ "
                      "across the ranks after the update")
     tp_row = res["tp"]
-    if tp_row["loss_rel"] > STEP_LOSS_RTOL or any(
-            r > F32_NOISE_RATIO for r in
-            tp_row["over_limit_noise_ratios"].values()):
+    if tp_row["loss_rel"] > STEP_LOSS_RTOL \
+            or tp_row["grad_rel_max"] > GRAD_ATOL or any(
+                r > F32_NOISE_RATIO for r in
+                tp_row["over_limit_noise_ratios"].values()):
         fails.append(f"dp x tp {tp_row}")
     for s, row in enumerate(res["pp"]["stages"]):
         if row["fwd_rel"] > PP_FWD_RTOL or row["loss_rel"] > STEP_LOSS_RTOL \
@@ -6946,6 +7380,7 @@ def main():
     search_only = sys.argv[1:2] == ["--device-search"]
     tools_only = sys.argv[1:2] == ["--tools"]
     parallel_only = sys.argv[1:2] == ["--parallel"]
+    native_host_only = sys.argv[1:2] == ["--native-host"]
     if sys.argv[1:2] == ["--k3-plain"]:  # the CPU alone: nothing to build
         sys.path.insert(0, str(REPO))
         print(f"card: {card_line()}")
@@ -6988,7 +7423,7 @@ def main():
     full_run = not (sources or noisy_leaf or bf16_gates or bf16_compute_gates
                     or step_only or recipe_only or hybrid_only or serve_only
                     or lattice_only or search_only or tools_only
-                    or parallel_only)
+                    or parallel_only or native_host_only)
     # the training paths' CPU reference steps use the CPU while nvcc builds
     prefetch = (threading.Thread(target=prefetch_cpu_steps, args=(torch,),
                                  daemon=True) if full_run else None)
@@ -7037,7 +7472,8 @@ def main():
         return 0
 
     if not (recipe_only or hybrid_only or serve_only or lattice_only
-            or search_only or tools_only or parallel_only):
+            or search_only or tools_only or parallel_only
+            or native_host_only):
         kp = kernel_phase(torch)
         print(f"kernel phase done at {time.perf_counter() - t_start:.1f} s")
 
@@ -7163,7 +7599,7 @@ def main():
         and the device list over the hybrid phase's posteriors and graphs
         A and B (``run_tools``)."""
         before = time.perf_counter() - t_start
-        phase = run_tools(torch, WORK / "hybrid")
+        phase = run_tools(torch, WORK / "hybrid", WORK / "recipe")
         phase["card"] = card
         d = phase["decodes"]
         for g in ("A", "B"):
@@ -7173,9 +7609,19 @@ def main():
                       f"per s of audio, Python "
                       f"{d[f'python_{g}_{p}']['s_per_audio_s']:.6f} "
                       f"({d[f'check_{g}_{p}']['speedup']:.1f} x); {card}")
+        host = phase["native_host"]
+        print(f"native host core: {host['library']['file']} (built by this "
+              f"run: {host['library']['built_here']}), "
+              f"{host['clis']['tools']['dir']}/"
+              f"{{{','.join(host['clis']['tools']['files'])}}} (built by "
+              f"this run: {host['clis']['tools']['built_here']}); "
+              f"{host['phase_s']:.1f} s of the phase, the side thread's "
+              f"CLIs waited on {host['side_wait_s']:.1f} s; {card}")
         n = phase["launches"]
         print(f"tools phase: {phase['phase_s']:.1f} s (K1 "
-              f"{n['banded_attention']}, K3 {n['fused_dropout_forward']} + "
+              f"{n['banded_attention']}, K2a-c {n['banded_attention_fwd']}, "
+              f"{n['banded_attention_dq']}, {n['banded_attention_dkv']}, K3 "
+              f"{n['fused_dropout_forward']} + "
               f"{n['fused_dropout_backward']} launches); the run "
               f"{before:.1f} s before it, "
               f"{time.perf_counter() - t_start:.1f} s after; {card}")
@@ -7213,7 +7659,8 @@ def main():
               f"dump_posteriors {phase['seconds']['dump']:.1f} s); SP "
               f"forward {phase['sp_fwd_rel']:.3g}, step loss "
               f"{sp['loss_rel']:.3g}, gradients {sp['grad_rel_max']:.3g}; "
-              f"dp x tp loss {phase['tp']['loss_rel']:.3g}, parameters "
+              f"dp x tp loss {phase['tp']['loss_rel']:.3g}, gradients "
+              f"{phase['tp']['grad_rel_max']:.3g}, parameters "
               f"{phase['tp']['param_rel_max']:.3g}; the SP step "
               f"{phase['sp_step_ms_8_ranks']:.1f} ms on {PARALLEL_RANKS} "
               f"ranks sharing the card, {phase['sp_step_ms_1_rank']:.1f} ms "
@@ -7227,6 +7674,7 @@ def main():
         return 0
     if recipe_only:
         recipe_phase()
+        join_side_checks(torch)
         return 0
     if hybrid_only:
         hybrid_phase(kernels=True)
@@ -7237,9 +7685,17 @@ def main():
         print(f"whole run {time.perf_counter() - t_start:.1f} s")
         return 0
     if tools_only:
+        run_recipe(torch)
         hybrid_phase(kernels=True)
         build_graph_b(WORK / "hybrid", WORK / "device_search" / "graph_b")
         tools_phase()
+        print(f"whole run {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if native_host_only:
+        run_recipe(torch)
+        print(f"recipe done at {time.perf_counter() - t_start:.1f} s")
+        host = run_native_host(torch, WORK / "recipe")
+        print("native host: " + json.dumps(host, default=str))
         print(f"whole run {time.perf_counter() - t_start:.1f} s")
         return 0
     if search_only:
@@ -7253,6 +7709,7 @@ def main():
         train_path(TIMIT)
         print("fbank: " + json.dumps(run_fbank(torch)))
         hybrid_phase(kernels=False)
+        join_side_checks(torch)
         print(f"before the serve phase: {time.perf_counter() - t_start:.1f}"
               f" s")
         serve_phase()

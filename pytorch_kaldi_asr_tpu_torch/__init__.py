@@ -14,8 +14,12 @@ stages 0-4, in ``recipes/longform-conformer-cuda/``:
 
 - ``utils``   constants, logging, metrics logging, a small msgpack codec for
               flax checkpoints.
-- ``io``      Kaldi ark/scp reading (plain, text and CM/CM2/CM3 compressed),
+- ``io``      Kaldi ark/scp reading (plain, text and CM/CM2/CM3 compressed;
+              a plain file's binary matrices through the native core),
               binary and text ark writing, the table specifiers.
+- ``native``  the host's C++ core, built at first use: the latgen token
+              passer, the ark reader, the edit distance, CMVN, and the
+              ``pka-feat-to-len``/``pka-compute-wer`` binaries.
 - ``data``    vocab building and text handling, the bucketed batch loader
               and the ``.npz`` batch archives.
 - ``models``  the transformer with every encoder family (``tdnn``,
@@ -45,7 +49,9 @@ stages 0-4, in ``recipes/longform-conformer-cuda/``:
               WER, best WER), fbank/MFCC with the spectra on the device,
               WAV I/O, the synthetic corpora and the fusion weight sweep;
               the lattice tools (lattice_copy, lattice_rescore,
-              lattice_to_ctm, rover, kws, show_lattice, ctm).
+              lattice_to_ctm, rover, kws, show_lattice, ctm); golden arks
+              from a foreign Kaldi writer (record_foreign_goldens) and the
+              torch-0.4 shim for the reference's own code (torch04_compat).
 - ``recipes`` the ``prepare_vocab``, ``train_lm``, ``initialize_model``,
               ``generate_archive``, ``train``, ``combine``, ``decode``,
               ``train_nlm``, ``score_lm`` and ``rescore`` entry points; the

@@ -3,8 +3,14 @@ specifiers (``scp:``, ``ark:``, ``ark,t:``, ``ark,scp:``) of the Kaldi CLI
 contract the recipe's tools take.
 
 The port's own copy of ``pytorch_kaldi_asr_tpu.io.kaldi_io`` without the
-vectors (pure Python; the JAX package's ctypes parser in ``native/`` stays
-its own).
+vectors.  :func:`read_mat` and :func:`mat_num_rows` read a binary matrix
+of a plain file through the port's native core (``native/src/ark_io.cc``),
+chosen by peeking at the object's header: the ``\\0B`` marker and one of
+``FM``, ``DM``, ``CM``, ``CM2``, ``CM3``.  Text objects, pipes and ``-``
+take the Python readers, which stay the plain version the core is held
+against (:func:`read_mat_python`): the core gives their values bit for
+bit, float64 for a DM.  A binary matrix the core cannot read raises; it is
+never read again through Python.
 
 Supported object types
 ----------------------
@@ -29,6 +35,8 @@ import subprocess
 import sys
 
 import numpy as np
+
+from pytorch_kaldi_asr_tpu_torch import native
 
 _INT_SIZE = b"\x04"  # Kaldi writes a 1-byte size tag before each basic type
 
@@ -237,8 +245,56 @@ def _read_matrix_text(f, first_chunk=b""):
 # ---------------------------------------------------------------------------
 
 
+_NATIVE_TOKENS = (b"FM", b"DM", b"CM", b"CM2", b"CM3")
+
+
+def _peek_native(rxfilename):
+    """(an open descriptor, the offset) of a plain file (not ``-``, not a
+    ``...|`` pipe) whose object at ``rxfilename`` starts with the
+    ``\\0B`` marker and one of the native core's matrix tokens; else
+    None.  The caller closes the descriptor."""
+    if rxfilename == "-" or rxfilename.endswith("|"):
+        return None
+    path, offset = _split_offset(rxfilename)
+    fd, native_reads = os.open(path, os.O_RDONLY), False
+    try:
+        head = os.pread(fd, 6, offset or 0)  # the marker and "CM2 "
+        token, space, _ = head[2:].partition(b" ")
+        native_reads = (head[:2] == b"\x00B" and bool(space)
+                        and token in _NATIVE_TOKENS)
+        return (fd, offset or 0) if native_reads else None
+    finally:
+        if not native_reads:
+            os.close(fd)
+
+
+def native_object(rxfilename):
+    """Whether the object at ``rxfilename`` is one the native core reads:
+    a plain file's binary FM, DM, CM, CM2 or CM3 matrix."""
+    peeked = _peek_native(rxfilename)
+    if peeked is not None:
+        os.close(peeked[0])
+    return peeked is not None
+
+
 def read_mat(rxfilename):
-    """Read a single matrix from an extended filename."""
+    """Read a single matrix from an extended filename: through the native
+    core where the object's header says it reads it (the file opened once
+    for the peek and the read), else :func:`read_mat_python`; the same
+    values either way."""
+    peeked = _peek_native(rxfilename)
+    if peeked is None:
+        return read_mat_python(rxfilename)
+    fd, offset = peeked
+    try:
+        return native.read_mat_fd(fd, offset, rxfilename)
+    finally:
+        os.close(fd)
+
+
+def read_mat_python(rxfilename):
+    """:func:`read_mat` through the Python readers alone (the plain
+    version of the native core's read)."""
     f = open_rx(rxfilename)
     try:
         is_binary, peeked = _expect_binary(f)
@@ -251,7 +307,15 @@ def read_mat(rxfilename):
 
 def mat_num_rows(rxfilename):
     """Number of rows (frames) of a matrix, without decoding the data
-    (the per-utterance work of Kaldi's ``feat-to-len``)."""
+    (the per-utterance work of Kaldi's ``feat-to-len``): from the native
+    core's header read where the object's header says it reads it."""
+    peeked = _peek_native(rxfilename)
+    if peeked is not None:
+        fd, offset = peeked
+        try:
+            return native.mat_header_fd(fd, offset, rxfilename)[1]
+        finally:
+            os.close(fd)
     f = open_rx(rxfilename)
     try:
         is_binary, peeked = _expect_binary(f)

@@ -1,5 +1,7 @@
 """Word error rate: the in-framework replacement for Kaldi's ``compute-wer``
-(run with ``--mode=present`` by the recipe's stage 5).
+(run with ``--mode=present`` by the recipe's stage 5).  The edit distance
+runs in the port's native core; ``pka-compute-wer`` (native/) prints the
+same report byte for byte.
 
 Output format mirrors compute-wer so downstream ``best_wer`` parsing carries
 over::
@@ -13,9 +15,25 @@ from __future__ import annotations
 
 import numpy as np
 
+from pytorch_kaldi_asr_tpu_torch import native
+
 
 def levenshtein_alignment(ref, hyp):
-    """Edit distance with unit costs; returns (errors, ins, dels, subs)."""
+    """Edit distance with unit costs; returns (errors, ins, dels, subs).
+
+    Computed by the native core (native/src/edit_distance.cc) over word ids
+    given in order of first sight, as the JAX package does when its core
+    is built; :func:`levenshtein_alignment_python` is the plain version,
+    with the same tie order, so all four counts are equal."""
+    ids = {}
+    return native.edit_distance(
+        *(np.array([ids.setdefault(w, len(ids)) for w in words], np.int32)
+          for words in (ref, hyp)))
+
+
+def levenshtein_alignment_python(ref, hyp):
+    """The numpy DP: diagonal, then up (deletion), then left (insertion)
+    on ties."""
     r, h = len(ref), len(hyp)
     if r == 0:
         return h, h, 0, 0

@@ -5,12 +5,29 @@ Usage (the Kaldi binary's CLI contract)::
     python3 -m pytorch_kaldi_asr_tpu_torch.tools.feat_to_len \
         scp:data/train/feats.scp ark,t:data/train/feats.length
 
-Through an scp only matrix headers are decoded."""
+Only matrix headers are read, by the native core (native/src/ark_io.cc):
+an ``scp:`` table's matrices one by one (``kaldi_io.mat_num_rows``), an
+``ark:`` archive in one scan of the file (``native.scan_ark``).  An archive
+whose first object is not a binary matrix (a text archive), a pipe and
+``-`` are read through the Python readers.  ``pka-feat-to-len`` (native/,
+scp input only) writes the same file byte for byte."""
 
 import sys
 
+from pytorch_kaldi_asr_tpu_torch import native
 from pytorch_kaldi_asr_tpu_torch.io import kaldi_io
 from pytorch_kaldi_asr_tpu_torch.utils.logging import log_startup
+
+
+def _binary_ark(path):
+    """Whether ``path`` is a plain file whose first object is a binary
+    matrix of the native core's (its first key, then the header)."""
+    if path == "-" or path.endswith("|"):
+        return False
+    with open(path, "rb") as f:
+        key = kaldi_io._read_key(f)
+        offset = f.tell()
+    return key is not None and kaldi_io.native_object(f"{path}:{offset}")
 
 
 def feat_to_len(rspecifier, wspecifier=None):
@@ -20,6 +37,8 @@ def feat_to_len(rspecifier, wspecifier=None):
             key: kaldi_io.mat_num_rows(rx)
             for key, rx in kaldi_io.scp_entries(path)
         }
+    elif _binary_ark(path):
+        lengths = {key: rows for key, rows, _cols in native.scan_ark(path)}
     else:
         lengths = {key: mat.shape[0]
                    for key, mat in kaldi_io.read_mat_ark(path)}

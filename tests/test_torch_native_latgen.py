@@ -378,6 +378,8 @@ def test_failed_build_raises_and_nothing_falls_back(graphs, tmp_path,
     src = tmp_path / "src"
     src.mkdir()
     (src / "latgen.cc").write_text("this is not C++\n")
+    for name in native.SOURCES[1:]:  # the host core's sources, sound
+        (src / name).write_bytes((native.SRC / name).read_bytes())
     monkeypatch.setattr(native, "SRC", src)
     monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(native, "_lib", None)
@@ -401,6 +403,8 @@ def test_library_is_named_by_source_and_flags(tmp_path, monkeypatch):
     src.mkdir()
     (src / "latgen.cc").write_bytes(
         (native.SRC / "latgen.cc").read_bytes() + b"\n")
+    for name in native.SOURCES[1:]:
+        (src / name).write_bytes((native.SRC / name).read_bytes())
     monkeypatch.setattr(native, "SRC", src)
     assert native.library_path() != first
     monkeypatch.undo()

@@ -4,7 +4,8 @@
   package's decode CLI and the port's (``-device cpu``) write decode.txt
   files with the same keys and words line by line, scores within 1e-4.
 - With the imports of jax, flax, optax, msgpack and the JAX package blocked,
-  every port module (the training slice's train/, recipes.train and
+  and the Python readers' binary decoding made to raise (every feature is
+  read by the native core, native/src/ark_io.cc), every port module (the training slice's train/, recipes.train and
   recipes.combine, the fused dropout, the archives, the reference-checkpoint
   import and the Lattice oracle included) and chip_smoke.py import, and the
   port's own initialize_model + decode run end to end on the CPU, for the
@@ -103,6 +104,23 @@ _NO_JAX = textwrap.dedent("""
     sys.meta_path.insert(0, Block())
     import numpy as np
     import pytorch_kaldi_asr_tpu_torch as pkg
+    from pytorch_kaldi_asr_tpu_torch import native
+    from pytorch_kaldi_asr_tpu_torch.io import kaldi_io
+
+    # every binary matrix of the run is read by the native core: the
+    # Python readers' binary decoders raise, and the core's reads count
+    def _python_binary(f):
+        raise AssertionError("a binary matrix read by the Python readers")
+
+    kaldi_io._read_matrix_binary = _python_binary
+    native_reads = []
+    _native_read_mat = native.read_mat_fd
+
+    def _counted_read_mat(fd, offset, rx=None):
+        native_reads.append(rx)
+        return _native_read_mat(fd, offset, rx)
+
+    native.read_mat_fd = _counted_read_mat
 
     names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                    pkg.__name__ + ".")]
@@ -145,7 +163,8 @@ _NO_JAX = textwrap.dedent("""
                  "tools.copy_feats", "tools.data_dir",
                  "tools.divide_train_valid", "tools.perturb_speed",
                  "tools.segmentation", "tools.summarize_logs",
-                 "tools.tokenize_text", "score.details"):
+                 "tools.tokenize_text", "score.details",
+                 "tools.record_foreign_goldens", "tools.torch04_compat"):
         assert pkg.__name__ + "." + name in names, name
     importlib.import_module("chip_smoke")
 
@@ -416,6 +435,8 @@ _NO_JAX = textwrap.dedent("""
                            device="cpu").recognize(test_feats, nbest=2)
     assert hyb[0] and 0 < hyb[1] <= test_feats.shape[0]
     assert not BLOCKED & set(m.split(".")[0] for m in sys.modules)
+    # the decodes', trainings', servers' and hybrid tools' features
+    assert len(native_reads) >= 50, len(native_reads)
     print("modules", len(names), "lines",
           len((work / "decode.txt").read_text().splitlines()),
           "conformer", len((work / "c.txt").read_text().splitlines()),
