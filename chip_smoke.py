@@ -7,7 +7,9 @@ CUDA card: ``python3 chip_smoke.py`` from the root of a checkout.
    sums in bfloat16 GEMMs.
 2. Builds every CUDA kernel of the port from ``ops/csrc`` (one nvcc per
    translation unit, all started together: the attention source as one
-   unit per element type) and prints what ptxas reports.  Meanwhile a
+   unit per element type, the bfloat16 backward's source as one) and
+   prints what ptxas reports; the bfloat16 backward's kernels must not
+   spill and must run wgmma (HGMMA in their SASS, ``check_sm90_build``).  Meanwhile a
    thread takes the CPU reference steps of the TIMIT and conformer
    training paths (``prefetch_cpu_steps``), which those paths then find in
    ``cpu_step``'s cache (keyed by a hash of the weights and the batch).
@@ -30,11 +32,13 @@ CUDA card: ``python3 chip_smoke.py`` from the root of a checkout.
    plain version bit for bit (0 mask mismatches) at the conformer's [51200,
    1024] and [51200, 256] for both thresholds at rates 0.1 and 0.35, and at
    edge cases (a tail, a non-contiguous and a misaligned input).  The
-   bfloat16 instantiations of K1 and K2a-c are held against their plain
-   versions on bfloat16 in bfloat16 ulps (``bf16_ulps``, BF16_KERNEL_ULPS)
-   at the same shapes (d 24 for d 12), with the same one-launch checks, and
-   timed beside SDPA on bfloat16 (bounds at 989 TFLOP/s); the bfloat16 mma
-   probe reads the tensor core's rounding (``mma_bf16_probe``).
+   bfloat16 kernels (K1 and K2a as instantiations of the same templates,
+   K2b and K2c from ``banded_attention_bwd_sm90.cu``) are held against
+   their plain versions on bfloat16 in bfloat16 ulps (``bf16_ulps``,
+   BF16_KERNEL_ULPS) at the same shapes (d 24 for d 12), a second backward
+   bit-equal to the first, with the same one-launch checks, and timed
+   beside SDPA on bfloat16 (bounds at 989 TFLOP/s); the bfloat16 mma probe
+   reads the tensor core's rounding (``mma_bf16_probe``).
 4. TIMIT decode (stage 5): a seeded TIMIT-shaped data dir (16 utterances of
    40-dim features, 150-500 frames, a 52-entry phone vocabulary), the
    port's ``initialize_model`` at the recipe's widths with ``-encoder_type
@@ -307,13 +311,17 @@ sound and with each fault of BF16_FAULTS planted on the card
 (``bf16_gate_readings``); the limits are set between the two.
 
 ``python3 chip_smoke.py --k2-sources A.cu [B.cu ...]`` compares versions
-of ``ops/csrc/banded_attention_train.cu`` (a parent's, or an edited copy;
-a parent's ``banded_attention.cu`` for its K1) in
-one process: each is built with the port's nvcc flags (ptxas's registers
-and spills for each kernel printed), and each kernel a build has is timed
-in turns with the other builds', three rounds, and held against the first
-build's outputs: K2a, K2b and K2c at both train timing shapes, K1 at both
-decode shapes; one ``K2_SOURCES`` JSON line per shape.
+of the attention sources, ``ops/csrc/banded_attention_train.cu`` and
+``ops/csrc/banded_attention_bwd_sm90.cu`` (a parent's, or an edited copy;
+a parent's ``banded_attention.cu`` for its K1) in one process: each is
+built with the port's nvcc flags (ptxas's registers and spills for each
+kernel printed; for a ``banded_attention_bwd_sm90`` source its kernels'
+wgmma counts, ``check_sm90_build``), and each kernel a build has, on
+float32 and on bfloat16, is timed in turns with the other builds', three
+rounds, and held against the outputs of the first build that has it: K2a,
+K2b and K2c at the three train timing shapes, K1 at both decode shapes;
+one ``K2_SOURCES`` JSON line per shape and dtype, with the train shapes'
+bounds and SDPA's backward.
 
 Everything it writes goes under ``build/chip_smoke/`` in the checkout.
 """
@@ -528,14 +536,15 @@ WORD_GAP = 1e-3  # words must agree where scores are this far apart
 BF16_KERNEL_ULPS = 3.0
 
 # kernel names in a torch.profiler trace (all in anonymous namespaces; the
-# attention kernels are templates over the element type)
+# attention kernels of banded_attention_train.cu are templates over the
+# element type, the bfloat16 backward's over its 64-column blocks)
 PROFILE_NAMES = {
     "K1": "::banded_attention_kernel<float", "K2a": "::fwd_kernel<float",
     "K2b": "::dq_kernel<float", "K2c": "::dkv_kernel<float",
     "K1_bf16": "::banded_attention_kernel<__nv_bfloat16",
     "K2a_bf16": "::fwd_kernel<__nv_bfloat16",
-    "K2b_bf16": "::dq_kernel<__nv_bfloat16",
-    "K2c_bf16": "::dkv_kernel<__nv_bfloat16",
+    "K2b_bf16": "::dq_sm90_kernel<",
+    "K2c_bf16": "::dkv_sm90_kernel<",
     "K3": "::fused_dropout_kernel", "K3_bf16": "::fused_dropout_bf16_kernel",
 }
 # the launch_counts() entries that count each PROFILE_NAMES kernel
@@ -994,7 +1003,8 @@ def check_trainable_attention_bf16(torch, ba):
     the TIMIT train shape, the conformer's (8 utterances) and the tile-skip
     cases: out, dq, dk, dv within BF16_KERNEL_ULPS, lse within KERNEL_ATOL
     and delta within GRAD_ATOL (float32), the same exact zeros as on
-    float32.  Returns {kernel: (max abs error, largest ulps)}."""
+    float32, and a second backward (K2b, then K2c on its delta) bit-equal to
+    the first.  Returns {kernel: (max abs error, largest ulps)}."""
     scale = 1.0 / math.sqrt(256.0)
     bh, s, d, (start, end), corpus, n, heads = ATTN_SHAPES["conformer_train"]
     cases = [
@@ -1022,6 +1032,16 @@ def check_trainable_attention_bf16(torch, ba):
                                                lse, 4321, **kw)
             dk, dv_ = ba.banded_attention_dkv(q, k, v, valid, dout, lse,
                                               delta, 4321, **kw)
+            again = ba.banded_attention_dq(q, k, v, valid, dout, out, lse,
+                                           4321, **kw)
+            again += ba.banded_attention_dkv(q, k, v, valid, dout, lse,
+                                             again[1], 4321, **kw)
+            if not all(torch.equal(a, b) for a, b in zip(
+                    again, (dq, delta, dk, dv_))):
+                raise AssertionError(f"trainable bf16 {name} rate={rate}: a "
+                                     f"second backward differs from the "
+                                     f"first")
+            del again
             out_w, lse_w = ba.banded_attention_trainable_reference(
                 q, k, v, valid, *band)
             dq_w, delta_w = ba.banded_attention_dq_reference(
@@ -1297,6 +1317,42 @@ def train_timing_inputs(torch, ba, shape, dtype=None):
     return q, k, v, valid, dout, out, lse, seed, kw
 
 
+def train_bounds(torch, q, valid, start, end):
+    """{K2a "fwd", K2b "dq", K2c "dkv", the pair "backward": (bound_ms,
+    bound_by)} at q's shape [BH, S, d] (d = dv) and dtype, its in-band
+    pairs counted from ``valid``; and the pairs."""
+    bh, s, d = q.shape
+    pairs = int(_allowed(torch, s, start, end, valid).sum())
+    vec = q.element_size() * bh * s * d  # bytes of one [BH, S, d] tensor
+    row = 4 * bh * s  # bytes of one [BH, S] int32/float32 tensor
+    tc = dict(tensor_cores=True, bf16=q.dtype == torch.bfloat16)
+    return {  # (bytes: inputs once, outputs once; flops per in-band pair)
+        "fwd": _bound(4 * vec + 2 * row, pairs * 4 * d, **tc),
+        "dq": _bound(6 * vec + 3 * row, pairs * 6 * d + 2 * bh * s * d, **tc),
+        "dkv": _bound(6 * vec + 3 * row, pairs * 8 * d, **tc),
+        # the pair's function: q, k, v, dout, out, lse, key_valid in; dq,
+        # dk, dv out; five products per pair (S, dP, dV, dK, dQ) and delta.
+        # K2b's recomputation of S and dP is a cost of the two-kernel design
+        "backward": _bound(8 * vec + 2 * row, pairs * 10 * d + 2 * bh * s * d,
+                           **tc),
+    }, pairs
+
+
+def sdpa_backward_ms(torch, q, k, v, valid, dout, start, end, scale,
+                     **timed):
+    """SDPA's backward (dq, dk and dv together) at dropout 0 with the boolean
+    band mask, on q's dtype: the library call the backward pair is held
+    against."""
+    import torch.nn.functional as F
+
+    allowed = _allowed(torch, q.shape[1], start, end, valid)
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=allowed,
+                                         scale=scale)
+    return time_ms(torch, lambda: torch.autograd.grad(
+        out, (qg, kg, vg), dout, retain_graph=True), **timed)
+
+
 def time_trainable_attention(torch, ba, shape, dtype=None):
     """K2a, K2b and K2c, their plain versions and the library call at
     ``shape`` (TRAIN_TIMING_SHAPES) on ``dtype`` (float32 by default); and
@@ -1311,27 +1367,13 @@ def time_trainable_attention(torch, ba, shape, dtype=None):
     q, k, v, valid, dout, out, lse, seed, kw = train_timing_inputs(
         torch, ba, shape, dtype)
     s = q.shape[1]  # padded to the tile
-    bf16 = q.dtype == torch.bfloat16
     scale = kw["scale"]
     dq_args = (q, k, v, valid, dout, out, lse, seed)
     _, delta = ba.banded_attention_dq(*dq_args, **kw)
     dkv_args = (q, k, v, valid, dout, lse, delta, seed)
 
     allowed = _allowed(torch, s, start, end, valid)
-    pairs = int(allowed.sum())
-    vec = q.element_size() * bh * s * d  # bytes of one [BH, S, 64] tensor
-    row = 4 * bh * s  # bytes of one [BH, S] int32/float32 tensor
-    tc = dict(tensor_cores=True, bf16=bf16)
-    bounds = {  # (bytes: inputs once, outputs once; flops per in-band pair)
-        "fwd": _bound(4 * vec + 2 * row, pairs * 4 * d, **tc),
-        "dq": _bound(6 * vec + 3 * row, pairs * 6 * d + 2 * bh * s * d, **tc),
-        "dkv": _bound(6 * vec + 3 * row, pairs * 8 * d, **tc),
-        # the pair's function: q, k, v, dout, out, lse, key_valid in; dq,
-        # dk, dv out; five products per pair (S, dP, dV, dK, dQ) and delta.
-        # K2b's recomputation of S and dP is a cost of the two-kernel design
-        "backward": _bound(8 * vec + 2 * row, pairs * 10 * d + 2 * bh * s * d,
-                           **tc),
-    }
+    bounds, pairs = train_bounds(torch, q, valid, start, end)
     timed = dict(iters=20, warmup=3)
     kernel_ms = {
         "fwd": time_ms(torch, lambda: ba.banded_attention_fwd(
@@ -1364,12 +1406,8 @@ def time_trainable_attention(torch, ba, shape, dtype=None):
         }
     sdpa_fwd_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=allowed, scale=scale), **timed)
-    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
-    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=allowed,
-                                              scale=scale)
-    sdpa_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
-        sdpa_out, (qg, kg, vg), dout, retain_graph=True), **timed)
-    del sdpa_out, qg, kg, vg
+    sdpa_bwd_ms = sdpa_backward_ms(torch, q, k, v, valid, dout, start, end,
+                                   scale, **timed)
     library_ms = {"fwd": sdpa_fwd_ms, "dq": sdpa_bwd_ms, "dkv": sdpa_bwd_ms}
 
     # forward + backward as the model runs it: the autograd function (K2a,
@@ -1400,9 +1438,10 @@ def time_trainable_attention(torch, ba, shape, dtype=None):
 
 
 def start_k2_builds(sources):
-    """Start one nvcc per version of banded_attention_train.cu in
-    ``sources``, with the port's flags, into build/chip_smoke/k2_sources/;
-    returns {source: (process, library path)}."""
+    """Start one nvcc per version of an attention source in ``sources``
+    (banded_attention_train.cu, banded_attention_bwd_sm90.cu), with the
+    port's flags, into build/chip_smoke/k2_sources/; returns {source:
+    (process, library path)}."""
     from pytorch_kaldi_asr_tpu_torch.ops import _build
 
     out_dir = WORK / "k2_sources"
@@ -1419,28 +1458,85 @@ def start_k2_builds(sources):
 def ptxas_summary(log):
     """ptxas's registers and spills for each attention kernel in an nvcc
     log, as "kernel<type, MAXD8>: ..." lines (a source from before the
-    kernels took an element type: "kernel<MAXD8>")."""
-    import re
-
+    kernels took an element type: "kernel<MAXD8>"; the bfloat16 backward:
+    "kernel<bf16, CB>", CB its 64-column blocks), and ptxas's warnings
+    (a wgmma it serialized, for one)."""
     out, entry = [], None
     for line in log.splitlines():
         found = re.search(r"(banded_attention_kernel|fwd_kernel|dq_kernel"
                           r"|dkv_kernel)I(f|13__nv_bfloat16)?Li(\d+)E", line)
+        sm90 = re.search(r"(dq_sm90_kernel|dkv_sm90_kernel)ILi(\d+)E", line)
         if "Compiling entry function" in line:
             entry = None
             if found:
                 dtype = {"f": "float, ", "13__nv_bfloat16": "bf16, "}.get(
                     found[2], "")
                 entry = f"{found[1]}<{dtype}{found[3]}>"
+            elif sm90:
+                entry = f"{sm90[1]}<bf16, {sm90[2]}>"
         elif entry and ("Used" in line or "spill" in line):
             out.append(f"{entry}: "
                        f"{line.split('ptxas info', 1)[-1].strip(' :')}")
+        if "Performance Loss" in line or "ptxas warning" in line:
+            out.append(f"{entry or 'ptxas'}: {line.strip()}")
     return out
+
+
+def wgmma_counts(lib, src):
+    """{kernel: wgmma instructions} of library ``lib`` built from ``src``:
+    HGMMA in its SASS (cuobjdump -sass), or where the toolkit has no
+    cuobjdump, wgmma.mma_async in the PTX of ``src`` (nvcc -ptx)."""
+    from pytorch_kaldi_asr_tpu_torch.ops import _build
+
+    nvcc = Path(_build._nvcc())
+    cuobjdump = nvcc.with_name("cuobjdump")
+    if cuobjdump.exists():
+        text = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True,
+                              capture_output=True, text=True).stdout
+        head, count = r"Function : (\S+)", "HGMMA"
+    else:
+        ptx = WORK / f"{Path(lib).stem}.ptx"
+        subprocess.run([str(nvcc), "-arch=sm_90a", "-std=c++17", "-O3", "-ptx",
+                        "-o", str(ptx), str(src)], check=True,
+                       capture_output=True)
+        text, head, count = ptx.read_text(), r"\.entry (\w+)", "wgmma.mma_async"
+    counts, fn = {}, None
+    for line in text.splitlines():
+        found = re.search(head, line)
+        if found:
+            fn = found[1]
+            counts[fn] = 0
+        elif fn and count in line:
+            counts[fn] += 1
+    return counts
+
+
+SM90_SOURCE = "banded_attention_bwd_sm90"
+
+
+def check_sm90_build(log, lib, src):
+    """The bfloat16 backward's kernels as built: ptxas reports no spill
+    bytes (where ``log`` holds its compile) and each runs wgmma
+    (``wgmma_counts``).  Prints both; raises if a kernel spills or has no
+    wgmma."""
+    for line in ptxas_summary(log or ""):
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", line)
+        if "_sm90_kernel" in line and spills and spills.group(1, 2) != (
+                "0", "0"):
+            raise AssertionError(f"{src.name}: {line}")
+    counts = wgmma_counts(lib, src)
+    print(f"  {src.name} wgmma per kernel: " + json.dumps(counts))
+    kernels = [n for k, n in counts.items() if "_sm90_kernel" in k]
+    if len(kernels) != 4 or not all(kernels):
+        raise AssertionError(f"{src.name}: kernels without wgmma: {counts}")
 
 
 def finish_k2_builds(procs):
     """{source: ctypes library} of start_k2_builds' processes; prints
-    ptxas's registers and spills for each attention kernel."""
+    ptxas's registers and spills for each attention kernel, and for a
+    version of the bfloat16 backward its kernels' wgmma counts
+    (``check_sm90_build``)."""
     import ctypes
 
     libs = {}
@@ -1450,80 +1546,101 @@ def finish_k2_builds(procs):
             raise RuntimeError(f"nvcc failed for {src}:\n{log}")
         for line in ptxas_summary(log):
             print(f"  {src.name} {line}")
+        if SM90_SOURCE in src.name:
+            check_sm90_build(log, lib, src)
         libs[src] = ctypes.CDLL(str(lib))
     return libs
 
 
-def _source_calls(torch, ba, shape):
+def _source_calls(torch, ba, shape, dtype):
     """{kernel: (pointer arguments, scalar arguments, outputs)} of the
-    kernels --k2-sources times at ``shape``: K2a, K2b and K2c at a
-    TRAIN_TIMING_SHAPES shape (K2a into outputs of its own, so that K2b and
-    K2c read the same out and lse in every build), K1 at a decode shape."""
+    kernels --k2-sources times at ``shape`` on ``dtype``: K2a, K2b and K2c
+    at a TRAIN_TIMING_SHAPES shape (K2a into outputs of its own, so that K2b
+    and K2c read the same out and lse in every build), K1 at a decode
+    shape; and the train shape's bounds and SDPA's backward there."""
     if shape not in TRAIN_TIMING_SHAPES:
-        q, k, v, valid, start, end, scale = decode_timing_inputs(torch, ba,
-                                                                 shape)
+        q, k, v, valid, start, end, scale = decode_timing_inputs(
+            torch, ba, shape, dtype)
         out = torch.empty_like(v)
         return {"k1": ((q, k, v, valid, out),
-                       (*q.shape, v.shape[-1], start, end, scale), (out,))}
+                       (*q.shape, v.shape[-1], start, end, scale), (out,))}, {}
     q, k, v, valid, dout, out, lse, seed, kw = train_timing_inputs(
-        torch, ba, shape)
+        torch, ba, shape, dtype)
     scalars = (*q.shape, v.shape[-1], kw["start"], kw["end"], kw["scale"],
                *ba._dropout_args(seed, kw["dropout_rate"]))
     out_f, lse_f, dq, dk, dv = (torch.empty_like(x)
                                 for x in (out, lse, q, k, v))
     delta = torch.empty_like(lse)
+    bounds, _ = train_bounds(torch, q, valid, kw["start"], kw["end"])
+    library = {"bounds_ms": {n: b[0] for n, b in bounds.items()},
+               "sdpa_bwd_ms": sdpa_backward_ms(
+                   torch, q, k, v, valid, dout, kw["start"], kw["end"],
+                   kw["scale"], iters=20, warmup=3)}
     return {"fwd": ((q, k, v, valid, out_f, lse_f), scalars, (out_f, lse_f)),
             "dq": ((q, k, v, dout, out, lse, valid, dq, delta), scalars,
                    (dq, delta)),
             "dkv": ((q, k, v, dout, lse, delta, valid, dk, dv), scalars,
-                    (dk, dv))}
+                    (dk, dv))}, library
 
 
 def compare_k2_sources(torch, ba, libs, rounds=3):
     """Each attention kernel of each build in ``libs`` ({source: ctypes
-    library}) that has its entry point, on the same inputs: K2a, K2b (dq
-    with delta) and K2c at each TRAIN_TIMING_SHAPES shape at the path's
-    rate, K1 at both decode shapes.  CUDA-event times in ``rounds`` rounds
-    that take the builds in turns, and each build's largest difference from
-    the first build's outputs (0 where both are -inf)."""
+    library}) that has its entry point, on float32 and on bfloat16, on the
+    same inputs: K2a, K2b (dq with delta) and K2c at each
+    TRAIN_TIMING_SHAPES shape at the path's rate, K1 at both decode shapes.
+    CUDA-event times in ``rounds`` rounds that take the builds in turns, and
+    each build's largest difference from the outputs of the first build
+    that has the kernel (0 where both are -inf); at the train shapes the
+    bounds and SDPA's backward.  Returns {"shape dtype": row}."""
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     fns = {src: {} for src in libs}
     for src, lib in libs.items():
-        for which in ("k1", "fwd", "dq", "dkv"):
-            try:
-                fns[src][which] = ba.kernel_entry(lib, which)
-            except AttributeError:  # a source without this kernel
-                pass
+        for dname, dtype in dtypes.items():
+            for which in ("k1", "fwd", "dq", "dkv"):
+                try:
+                    fns[src][dname, which] = ba.kernel_entry(lib, which,
+                                                             dtype)
+                except AttributeError:  # a source without this kernel
+                    pass
     results = {}
-    for shape in (*TRAIN_TIMING_SHAPES, "timit_decode", "conformer_decode"):
-        calls = _source_calls(torch, ba, shape)
+    for dname, dtype in dtypes.items():
+        for shape in (*TRAIN_TIMING_SHAPES, "timit_decode",
+                      "conformer_decode"):
+            calls, library = _source_calls(torch, ba, shape, dtype)
+            has = {src: [w for w in calls if (dname, w) in fns[src]]
+                   for src in libs}
+            if not any(has.values()):
+                continue
 
-        def launch(src, which):
-            tensors, scalars, _ = calls[which]
-            ptrs = [t.data_ptr() for t in tensors]
-            return lambda: ba._run(f"{src.name} {which}", fns[src][which],
-                                   tensors[0].device, *ptrs, *scalars)
+            def launch(src, which):
+                tensors, scalars, _ = calls[which]
+                ptrs = [t.data_ptr() for t in tensors]
+                return lambda: ba._run(f"{src.name} {which}",
+                                       fns[src][dname, which],
+                                       tensors[0].device, *ptrs, *scalars)
 
-        first, diff = {}, {src: {} for src in libs}
-        for src in libs:
-            for which in calls:  # in order: K2c reads K2b's delta
-                if which not in fns[src]:
-                    continue
-                launch(src, which)()
-                got = [x.clone() for x in calls[which][2]]
-                first.setdefault(which, got)
-                diff[src][which] = max(
-                    float(torch.nan_to_num((a - b).abs(), nan=0.0).max())
-                    for a, b in zip(got, first[which]))
-        times = {src: {w: [] for w in calls if w in fns[src]} for src in libs}
-        for _ in range(rounds):
+            first, diff = {}, {src: {} for src in libs}
             for src in libs:
-                for which in times[src]:
-                    times[src][which].append(time_ms(
-                        torch, launch(src, which), iters=20, warmup=3))
-        results[shape] = {
-            str(src): {**{f"{w}_ms": t for w, t in times[src].items()},
-                       "max_diff_from_first": diff[src]}
-            for src in libs}
+                for which in has[src]:  # in order: K2c reads K2b's delta
+                    launch(src, which)()
+                    got = [x.clone() for x in calls[which][2]]
+                    first.setdefault(which, got)
+                    diff[src][which] = max(
+                        float(torch.nan_to_num((a.float() - b.float()).abs(),
+                                               nan=0.0).max())
+                        for a, b in zip(got, first[which]))
+            times = {src: {w: [] for w in has[src]} for src in libs}
+            for _ in range(rounds):
+                for src in libs:
+                    for which in times[src]:
+                        times[src][which].append(time_ms(
+                            torch, launch(src, which), iters=20, warmup=3))
+            results[f"{shape} {dname}"] = {
+                **library,
+                "builds": {str(src): {
+                    **{f"{w}_ms": t for w, t in times[src].items()},
+                    "max_diff_from_first": diff[src]}
+                    for src in libs if has[src]}}
     return results
 
 
@@ -7444,13 +7561,17 @@ def main():
         for line in summary or [x.strip() for x in log.splitlines()
                                 if "ptxas" in x or "spill" in x]:
             print(f"  {name}: {line}")
+    if not sources:
+        check_sm90_build(logs.get(SM90_SOURCE),
+                         _build.library_path(SM90_SOURCE),
+                         _build.CSRC / f"{SM90_SOURCE}.cu")
     if sources:
         from pytorch_kaldi_asr_tpu_torch.ops import banded_attention as ba
 
         compared = compare_k2_sources(torch, ba, finish_k2_builds(procs))
         for shape, row in compared.items():
             print("K2_SOURCES " + json.dumps(
-                {"card": card, "shape": shape, "builds": row}))
+                {"card": card, "shape": shape, **row}))
         return 0
     if noisy_leaf:
         print("NOISY_LEAF " + json.dumps(
@@ -7783,6 +7904,7 @@ def main():
              parallel]
     jax_file = "pytorch_kaldi_asr_tpu/ops/banded_attention.py"
     source = "pytorch_kaldi_asr_tpu_torch/ops/csrc/banded_attention_train.cu"
+    sm90 = f"pytorch_kaldi_asr_tpu_torch/ops/csrc/{SM90_SOURCE}.cu"
     kernels = []
     for sfx in ("", "_bf16"):
         err = kp[f"err{sfx}"]
@@ -7796,7 +7918,8 @@ def main():
             err = kp[f"train_errs{sfx}"][name]
             kernels.append(dict(
                 name=f"banded_attention_{name}{sfx}", route="cuda",
-                source=source, replaces=f"{jax_file}:{line}",
+                source=sm90 if sfx and name != "fwd" else source,
+                replaces=f"{jax_file}:{line}",
                 launches=total(f"banded_attention_{name}{sfx}", paths),
                 max_abs_err=err[0] if sfx else err,
                 **kp[f"train_timing{sfx}"]["conformer_train"][name]))

@@ -20,9 +20,11 @@ plus attention-probability dropout, differentiable through one
 ``torch.autograd.Function`` whose forward runs :func:`banded_attention_fwd`
 (K2a) and whose backward runs :func:`banded_attention_dq` (K2b, which
 also computes delta = rowsum(dout * out)) and :func:`banded_attention_dkv`
-(K2c), the kernels of ``csrc/banded_attention_train.cu``.  Each of the
-three sends a CUDA tensor to its kernel and a CPU tensor to its banded
-plain version, and counts its kernel launches in ``.launches``.
+(K2c), the kernels of ``csrc/banded_attention_train.cu`` (on bfloat16,
+K2b and K2c of ``csrc/banded_attention_bwd_sm90.cu``, written for Hopper's
+wgmma, TMA and mbarriers).  Each of the three sends a CUDA tensor to its
+kernel and a CPU tensor to its banded plain version, and counts its kernel
+launches in ``.launches``.
 
 K2a-c have two plain versions each.  The full ones
 (``banded_attention_*_reference``) build the [BH, S, S] scores; they are
@@ -127,9 +129,9 @@ def _kernel_operands(name, vectors, rows=(), ints=()):
     """Checks shared by every kernel wrapper: one device; ``vectors`` (q, k,
     v, dout, out) all float32 or all bfloat16, with head dims the kernels
     take (multiples of 4, or of 8 on bfloat16: 16 bytes a load); ``rows``
-    (lse, delta) float32.  Then contiguous copies, the floating ones 16-byte
-    aligned (the kernels read rows 16 bytes at a time).  Returns (vectors,
-    rows, ints)."""
+    (lse, delta) float32.  Then contiguous copies, 16-byte aligned (the
+    kernels read rows 16 bytes at a time, the bfloat16 backward's copy
+    engine 16-byte aligned blocks).  Returns (vectors, rows, ints)."""
     tensors = (*vectors, *rows, *ints)
     if any(t.device != tensors[0].device for t in tensors):
         raise ValueError(f"{name}: inputs on different devices")
@@ -146,11 +148,10 @@ def _kernel_operands(name, vectors, rows=(), ints=()):
     if any(x % step or x > MAX_HEAD_DIM for x in dims):
         raise ValueError(f"{name} kernel needs d, dv multiples of {step} and "
                          f"<= {MAX_HEAD_DIM} on {dtype}, got {sorted(dims)}")
-    vectors, rows = ([t.contiguous() for t in ts] for ts in (vectors, rows))
-    floats = [t if t.data_ptr() % 16 == 0 else t.clone()
-              for t in (*vectors, *rows)]
-    return floats[:len(vectors)], floats[len(vectors):], [
-        t.contiguous() for t in ints]
+    aligned = [t if t.data_ptr() % 16 == 0 else t.clone()
+               for t in (x.contiguous() for x in (*vectors, *rows, *ints))]
+    n_vec, n_rows = len(vectors), len(vectors) + len(rows)
+    return aligned[:n_vec], aligned[n_vec:n_rows], aligned[n_rows:]
 
 
 def _count(wrapper, dtype):
@@ -193,21 +194,26 @@ def _launch(q, k, v, key_valid, start, end, scale):
 
 @functools.lru_cache(maxsize=None)
 def _kernel_fn(which, dtype=torch.float32):
-    """:func:`kernel_entry` ``which`` on ``dtype`` of
-    csrc/banded_attention_train.cu, built at first use (the unit of
-    ``dtype``: ops/_build.py compiles one per element type)."""
+    """:func:`kernel_entry` ``which`` on ``dtype``, built at first use: the
+    bfloat16 K2b and K2c from csrc/banded_attention_bwd_sm90.cu, every other
+    kernel from csrc/banded_attention_train.cu (the unit of ``dtype``:
+    ops/_build.py compiles one per element type)."""
     from pytorch_kaldi_asr_tpu_torch.ops import _build
 
-    unit = "bf16" if dtype == torch.bfloat16 else "f32"
-    return kernel_entry(_build.load("banded_attention_train", unit), which,
-                        dtype)
+    if dtype == torch.bfloat16 and which in ("dq", "dkv"):
+        library = _build.load("banded_attention_bwd_sm90")
+    else:
+        library = _build.load("banded_attention_train",
+                              "bf16" if dtype == torch.bfloat16 else "f32")
+    return kernel_entry(library, which, dtype)
 
 
 def kernel_entry(library, which, dtype=torch.float32):
     """The C entry point of K1 (``which`` "k1": ``banded_attention_f32``)
     or of K2a/K2b/K2c ("fwd", "dq", "dkv": ``banded_attention_{which}_f32``)
     on float32, or its ``_bf16`` twin on bfloat16, of a ``ctypes.CDLL``
-    built from csrc/banded_attention_train.cu (or a version of it),
+    built from csrc/banded_attention_train.cu or, for the bfloat16 K2b and
+    K2c, csrc/banded_attention_bwd_sm90.cu (or a version of either),
     signature set: pointers, then (bh, s, d, dv, start, end) ints, scale,
     then for K2 the dropout (seed, threshold as uint32, keep probability,
     on), and the stream."""

@@ -1,7 +1,9 @@
 // Banded (time-restricted) attention, float32 and bfloat16, for Hopper
 // (sm_90a): the inference forward, the trainable forward with its
 // log-sum-exp and attention-probability dropout, and the two backward
-// kernels.
+// kernels on float32.  The bfloat16 backward moved to
+// banded_attention_bwd_sm90.cu, a design of its own on wgmma, TMA and
+// mbarriers; the bfloat16 instantiations here are K1's and K2a's.
 //
 // Replaces the TPU kernels K1, K2a, K2b and K2c of the JAX package:
 //   pytorch_kaldi_asr_tpu/ops/banded_attention.py
@@ -32,8 +34,9 @@
 // (float32) or of 8 (bfloat16), at most 128.
 //
 // Each kernel is one template over the element type T of q, k, v, dout and
-// the outputs (float or __nv_bfloat16); lse, delta, the scores, the softmax
-// statistics and every sum stay float32.  On bfloat16 the kernels compute
+// the outputs (float or __nv_bfloat16; the backward's float only); lse,
+// delta, the scores, the softmax statistics and every sum stay float32.  On
+// bfloat16 the kernels compute
 // the Pallas kernels' function on bfloat16 inputs: products of bfloat16
 // operands summed in float32 (mma.sync m16n8k16, one mma per 16-deep step),
 // and the second product's A operand rounded to bfloat16 where the Pallas
@@ -97,9 +100,8 @@
 //   K1 at the conformer decode shape (BH 32, S 1600, 19e6 pairs): 0.030 ms by
 //   operations; at TIMIT's (BH 16, S 504, padded to 512): 0.0025 ms by bytes,
 //   one wave of 128 CTAs, so its launch and latency set its time.
-// On bfloat16 (989 TFLOP/s dense, half the bytes) all four are bound by
-// their bytes at these shapes: the conformer's K2a 0.032 ms, K2b and K2c
-// 0.048 ms, K1 0.0079 ms.
+// On bfloat16 (989 TFLOP/s dense, half the bytes) K1 and K2a are bound by
+// their bytes at these shapes: the conformer's K2a 0.032 ms, K1 0.0079 ms.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -268,9 +270,8 @@ __device__ __forceinline__ void mma_bwd(float (&c)[M][4], const Frag& a, const f
 // (g, 2t..2t+1), c2, c3 = (g + 8, 2t..2t+1).  So the accumulators of two
 // adjacent 8-wide chunks of S, rounded in pairs, are the A operand of the
 // 16-deep product that follows, with no permutation of k: chunk j gives a0
-// and a1, chunk j + 1 a2 and a3.  The first products' B (rows of k, v, q or
-// dout) is one 32-bit load per register; the second's (columns of v, k,
-// dout or q) two 16-bit loads.  The products chain on their accumulators
+// and a1, chunk j + 1 a2 and a3.  The first product's B (rows of k) is one
+// 32-bit load per register; the second's (columns of v) two 16-bit loads.  The products chain on their accumulators
 // (one mma per 16 products; their drift under cuda_emu.h's model of the
 // tensor core's rounding is in PERF.md).
 
@@ -332,10 +333,6 @@ __device__ __forceinline__ void store_pair(float* p, float a, float b) {
 __device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
 }
-
-// a register's two bfloat16 as floats (exact)
-__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xFFFF0000u); }
 
 // c[n] += a.B_n for n < M where live(n), B_n's rows read along the
 // streamed tile's rows: `b` is element (g, 16 ks + 2t) of row 8n's block,
@@ -767,7 +764,8 @@ banded_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------------------------------------------------------------------
 
 // One CTA per (bh, 64-query tile); MAXD8 bounds the 8-column chunks of d
-// and dv.  Registers are capped for 3 CTAs per SM up to d = 64.
+// and dv.  Registers are capped for 3 CTAs per SM up to d = 64.  Float32
+// only: the bfloat16 K2b is banded_attention_bwd_sm90.cu's.
 template <class T, int MAXD8>
 __global__ void __launch_bounds__(kThreads, MAXD8 > 8 ? 1 : 3)
 dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -775,16 +773,16 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
           const float* __restrict__ lse, const int* __restrict__ key_valid,
           T* __restrict__ dq, float* __restrict__ delta, int s, int d, int dv, int start,
           int end, float scale, Dropout dr, int stages) {
-  constexpr bool kF32 = std::is_same<T, float>::value;
+  static_assert(std::is_same<T, float>::value, "the bfloat16 K2b is in its own source");
   constexpr int kK = Elem<T>::kK;
   constexpr int kMaxK = (8 * MAXD8 + kK - 1) / kK;  // bounds the mma steps over d, dv
   using Own = typename Elem<T>::Own;
   extern __shared__ float4 smem[];
   const RingSmem lay(d, dv, 1, true, kK, sizeof(T));
-  // d8, dv8: the steps of the products over d and dv (8 columns on
-  // float32, 16 on bfloat16); dq8: the 8-column chunks of dq
+  // d8, dv8: the 8-column steps of the products over d and dv; dq8: the
+  // 8-column chunks of dq
   const int d8 = lay.dk, dv8 = lay.dvk, ldk = lay.ldk, ldv = lay.ldv;
-  const int dq8 = kF32 ? d8 : (d + 7) / 8;
+  const int dq8 = d8;
   Own* own_q = reinterpret_cast<Own*>(smem);
   Own* own_do = own_q + kBlock * 2 * d8;  // 64 x kK * d8 elements
   float* ring = reinterpret_cast<float*>(smem) + lay.owned();
@@ -807,28 +805,14 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   float row_delta[2] = {0.f, 0.f};
   for (int ks = 0; ks < dv8; ++ks) {
     const Own f = own_do[(warp * dv8 + ks) * 32 + lane];
-    if constexpr (kF32) {
-      const int c0 = ks * 8 + t, c1 = c0 + 4;
-      if (c0 < dv) {
-        row_delta[0] = fmaf(f.x, out[row0 * dv + c0], row_delta[0]);
-        row_delta[1] = fmaf(f.y, out[row1 * dv + c0], row_delta[1]);
-      }
-      if (c1 < dv) {
-        row_delta[0] = fmaf(f.z, out[row0 * dv + c1], row_delta[0]);
-        row_delta[1] = fmaf(f.w, out[row1 * dv + c1], row_delta[1]);
-      }
-    } else {  // columns 2t, 2t + 1 and 2t + 8, 2t + 9 of the step
-      const int c0 = ks * 16 + 2 * t, c1 = c0 + 8;
-      const uint32_t dof[4] = {f.x, f.y, f.z, f.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int c = i < 2 ? c0 : c1, h = i & 1;
-        if (c < dv) {
-          const uint32_t o = word_bf16(out + (h ? row1 : row0) * dv + c);
-          row_delta[h] = fmaf(bf16_lo(dof[i]), bf16_lo(o), row_delta[h]);
-          row_delta[h] = fmaf(bf16_hi(dof[i]), bf16_hi(o), row_delta[h]);
-        }
-      }
+    const int c0 = ks * 8 + t, c1 = c0 + 4;
+    if (c0 < dv) {
+      row_delta[0] = fmaf(f.x, out[row0 * dv + c0], row_delta[0]);
+      row_delta[1] = fmaf(f.y, out[row1 * dv + c0], row_delta[1]);
+    }
+    if (c1 < dv) {
+      row_delta[0] = fmaf(f.z, out[row0 * dv + c1], row_delta[0]);
+      row_delta[1] = fmaf(f.w, out[row1 * dv + c1], row_delta[1]);
     }
   }
 #pragma unroll
@@ -918,24 +902,15 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
         // S = q k^T and dP = dout v^T, 16 queries x 32 keys per warp
 #pragma unroll
         for (int ks = 0; ks < kMaxK; ++ks) {
-          if constexpr (kF32) {
-            if (ks < d8) {
-              const float4 a = own_q[(warp * d8 + ks) * 32 + lane];
-              mma_bwd(sc, split_frag(a.x, a.y, a.z, a.w),
-                      kt + (8 * n0 + g) * ldk + 8 * ks + t, 8 * ldk, 4, chunk_live);
-            }
-            if (ks < dv8) {
-              const float4 a = own_do[(warp * dv8 + ks) * 32 + lane];
-              mma_bwd(dp, split_frag(a.x, a.y, a.z, a.w),
-                      vt + (8 * n0 + g) * ldv + 8 * ks + t, 8 * ldv, 4, chunk_live);
-            }
-          } else {
-            if (ks < d8)
-              mma_bf16_rows(sc, own_q[(warp * d8 + ks) * 32 + lane],
-                            kt + (8 * n0 + g) * ldk + 16 * ks + 2 * t, ldk, chunk_live);
-            if (ks < dv8)
-              mma_bf16_rows(dp, own_do[(warp * dv8 + ks) * 32 + lane],
-                            vt + (8 * n0 + g) * ldv + 16 * ks + 2 * t, ldv, chunk_live);
+          if (ks < d8) {
+            const float4 a = own_q[(warp * d8 + ks) * 32 + lane];
+            mma_bwd(sc, split_frag(a.x, a.y, a.z, a.w),
+                    kt + (8 * n0 + g) * ldk + 8 * ks + t, 8 * ldk, 4, chunk_live);
+          }
+          if (ks < dv8) {
+            const float4 a = own_do[(warp * dv8 + ks) * 32 + lane];
+            mma_bwd(dp, split_frag(a.x, a.y, a.z, a.w),
+                    vt + (8 * n0 + g) * ldv + 8 * ks + t, 8 * ldv, 4, chunk_live);
           }
         }
         // dS = a (drop(dP) - delta) in the accumulator layout: element e of
@@ -964,22 +939,12 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
         // the order (0, 2, 4, 6, 1, 3, 5, 7), so dS's accumulator registers
         // are its A registers: a0 = (g, 2t), a1 = (g + 8, 2t), a2 = (g, 2t
         // + 1), a3 = (g + 8, 2t + 1); b0 and b1 read keys 2t and 2t + 1.
-        // (bfloat16: dS rounded, two chunks per 16-deep step)
-        if constexpr (kF32) {
 #pragma unroll
-          for (int j = 0; j < kPass; ++j) {
-            if (!c_live[j]) continue;
-            mma_bwd(acc, split_frag(sc[j][0], sc[j][2], sc[j][1], sc[j][3]),
-                    kt + (8 * (n0 + j) + 2 * t) * ldk + g, 8, ldk,
-                    [&](int n) { return n < dq8; });
-          }
-        } else {
-#pragma unroll
-          for (int j = 0; j < kPass; j += 2) {
-            if (!c_live[j] && !c_live[j + 1]) continue;
-            mma_bf16_cols(acc, sc[j], sc[j + 1], kt + (8 * (n0 + j) + 2 * t) * ldk + g, ldk,
-                          [&](int n) { return n < dq8; });
-          }
+        for (int j = 0; j < kPass; ++j) {
+          if (!c_live[j]) continue;
+          mma_bwd(acc, split_frag(sc[j][0], sc[j][2], sc[j][1], sc[j][3]),
+                  kt + (8 * (n0 + j) + 2 * t) * ldk + g, 8, ldk,
+                  [&](int n) { return n < dq8; });
         }
       }
     }
@@ -1011,7 +976,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 // of d and dv, with registers capped for 3 CTAs per SM up to d = 64.  There
 // the float32 fresh sums spill (about 0.5 KB a thread), and still run faster
 // than spill-free at 2 CTAs (PERF.md); above d = 64 they spill at one CTA
-// too (untimed).
+// too (untimed).  Float32 only: the bfloat16 K2c is
+// banded_attention_bwd_sm90.cu's.
 template <class T, int MAXD8>
 __global__ void __launch_bounds__(kThreads, MAXD8 > 8 ? 1 : 3)
 dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -1019,16 +985,16 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
            const float* __restrict__ delta, const int* __restrict__ key_valid,
            T* __restrict__ dk, T* __restrict__ dv_out, int s, int d, int dv, int start,
            int end, float scale, Dropout dr, int stages) {
-  constexpr bool kF32 = std::is_same<T, float>::value;
+  static_assert(std::is_same<T, float>::value, "the bfloat16 K2c is in its own source");
   constexpr int kK = Elem<T>::kK;
   constexpr int kMaxK = (8 * MAXD8 + kK - 1) / kK;  // bounds the mma steps over d, dv
   using Own = typename Elem<T>::Own;
   extern __shared__ float4 smem[];
   const RingSmem lay(d, dv, 2, true, kK, sizeof(T));
-  // d8, dv8: the steps of the products over d and dv (8 columns on
-  // float32, 16 on bfloat16); dk8, dv8c: the 8-column chunks of dk and dv
+  // d8, dv8: the 8-column steps of the products over d and dv; dk8, dv8c:
+  // the 8-column chunks of dk and dv
   const int d8 = lay.dk, dv8 = lay.dvk, ldk = lay.ldk, ldv = lay.ldv;
-  const int dk8 = kF32 ? d8 : (d + 7) / 8, dv8c = kF32 ? dv8 : (dv + 7) / 8;
+  const int dk8 = d8, dv8c = dv8;
   Own* own_k = reinterpret_cast<Own*>(smem);
   Own* own_v = own_k + kBlock * 2 * d8;
   float* ring = reinterpret_cast<float*>(smem) + lay.owned();
@@ -1126,24 +1092,15 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
         // S^T = k q^T and dP^T = v dout^T, 16 keys x 32 queries per warp
 #pragma unroll
         for (int ks = 0; ks < kMaxK; ++ks) {
-          if constexpr (kF32) {
-            if (ks < d8) {
-              const float4 a = own_k[(warp * d8 + ks) * 32 + lane];
-              mma_bwd(sc, split_frag(a.x, a.y, a.z, a.w),
-                      qt + (8 * n0 + g) * ldk + 8 * ks + t, 8 * ldk, 4, chunk_live);
-            }
-            if (ks < dv8) {
-              const float4 a = own_v[(warp * dv8 + ks) * 32 + lane];
-              mma_bwd(pa, split_frag(a.x, a.y, a.z, a.w),
-                      dot + (8 * n0 + g) * ldv + 8 * ks + t, 8 * ldv, 4, chunk_live);
-            }
-          } else {
-            if (ks < d8)
-              mma_bf16_rows(sc, own_k[(warp * d8 + ks) * 32 + lane],
-                            qt + (8 * n0 + g) * ldk + 16 * ks + 2 * t, ldk, chunk_live);
-            if (ks < dv8)
-              mma_bf16_rows(pa, own_v[(warp * dv8 + ks) * 32 + lane],
-                            dot + (8 * n0 + g) * ldv + 16 * ks + 2 * t, ldv, chunk_live);
+          if (ks < d8) {
+            const float4 a = own_k[(warp * d8 + ks) * 32 + lane];
+            mma_bwd(sc, split_frag(a.x, a.y, a.z, a.w),
+                    qt + (8 * n0 + g) * ldk + 8 * ks + t, 8 * ldk, 4, chunk_live);
+          }
+          if (ks < dv8) {
+            const float4 a = own_v[(warp * dv8 + ks) * 32 + lane];
+            mma_bwd(pa, split_frag(a.x, a.y, a.z, a.w),
+                    dot + (8 * n0 + g) * ldv + 8 * ks + t, 8 * ldv, 4, chunk_live);
           }
         }
         // element e of chunk n is (key own0 + g + 8 (e / 2), query
@@ -1174,27 +1131,14 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
           }
         }
         // dv += drop(P)^T dout and dk += dS^T q, with K2b's permuted k index
-        // (bfloat16: drop(P)^T and dS^T rounded, two chunks per 16-deep step)
-        if constexpr (kF32) {
 #pragma unroll
-          for (int j = 0; j < kPass; ++j) {
-            if (!c_live[j]) continue;
-            const int r = 8 * (n0 + j) + 2 * t;
-            mma_bwd(dv_acc, split_frag(pa[j][0], pa[j][2], pa[j][1], pa[j][3]),
-                    dot + r * ldv + g, 8, ldv, [&](int n) { return n < dv8c; });
-            mma_bwd(dk_acc, split_frag(sc[j][0], sc[j][2], sc[j][1], sc[j][3]),
-                    qt + r * ldk + g, 8, ldk, [&](int n) { return n < dk8; });
-          }
-        } else {
-#pragma unroll
-          for (int j = 0; j < kPass; j += 2) {
-            if (!c_live[j] && !c_live[j + 1]) continue;
-            const int r = 8 * (n0 + j) + 2 * t;
-            mma_bf16_cols(dv_acc, pa[j], pa[j + 1], dot + r * ldv + g, ldv,
-                          [&](int n) { return n < dv8c; });
-            mma_bf16_cols(dk_acc, sc[j], sc[j + 1], qt + r * ldk + g, ldk,
-                          [&](int n) { return n < dk8; });
-          }
+        for (int j = 0; j < kPass; ++j) {
+          if (!c_live[j]) continue;
+          const int r = 8 * (n0 + j) + 2 * t;
+          mma_bwd(dv_acc, split_frag(pa[j][0], pa[j][2], pa[j][1], pa[j][3]),
+                  dot + r * ldv + g, 8, ldv, [&](int n) { return n < dv8c; });
+          mma_bwd(dk_acc, split_frag(sc[j][0], sc[j][2], sc[j][1], sc[j][3]),
+                  qt + r * ldk + g, 8, ldk, [&](int n) { return n < dk8; });
         }
       }
     }
@@ -1441,7 +1385,7 @@ __global__ void mma_bf16_probe_kernel(const __nv_bfloat16* __restrict__ a,
 
 // The source builds whole, or as one translation unit per element type,
 // which ops/_build.py compiles at once: -DBA_UNIT_F32 keeps the float32
-// entry points, -DBA_UNIT_BF16 the bfloat16 ones and the probe.  Each
+// entry points, -DBA_UNIT_BF16 the bfloat16 ones (K1, K2a) and the probe.  Each
 // kernel is compiled from the same template either way.
 #ifndef BA_UNIT_BF16
 
@@ -1488,7 +1432,8 @@ extern "C" int banded_attention_dkv_f32(const void* q, const void* k, const void
 
 #ifndef BA_UNIT_F32
 
-// bfloat16 twins of the entry points above.
+// bfloat16 twins of K1's and K2a's entry points above (the bfloat16 K2b
+// and K2c: banded_attention_bwd_sm90.cu).
 extern "C" int banded_attention_bf16(const void* q, const void* k, const void* v,
                                      const void* key_valid, void* out, int bh, int s, int d,
                                      int dv, int start, int end, float scale, void* stream) {
@@ -1503,29 +1448,6 @@ extern "C" int banded_attention_fwd_bf16(const void* q, const void* k, const voi
                                          float keep_prob, int dropout_on, void* stream) {
   return fwd_entry<__nv_bfloat16>(q, k, v, key_valid, out, lse, bh, s, d, dv, start, end,
                                   scale, seed, thresh, keep_prob, dropout_on, stream);
-}
-
-extern "C" int banded_attention_dq_bf16(const void* q, const void* k, const void* v,
-                                        const void* dout, const void* out, const void* lse,
-                                        const void* key_valid, void* dq, void* delta, int bh,
-                                        int s, int d, int dv, int start, int end, float scale,
-                                        unsigned seed, unsigned thresh, float keep_prob,
-                                        int dropout_on, void* stream) {
-  return dq_entry<__nv_bfloat16>(q, k, v, dout, out, lse, key_valid, dq, delta, bh, s, d, dv,
-                                 start, end, scale, seed, thresh, keep_prob, dropout_on,
-                                 stream);
-}
-
-extern "C" int banded_attention_dkv_bf16(const void* q, const void* k, const void* v,
-                                         const void* dout, const void* lse,
-                                         const void* delta, const void* key_valid, void* dk,
-                                         void* dv_out, int bh, int s, int d, int dv,
-                                         int start, int end, float scale, unsigned seed,
-                                         unsigned thresh, float keep_prob, int dropout_on,
-                                         void* stream) {
-  return dkv_entry<__nv_bfloat16>(q, k, v, dout, lse, delta, key_valid, dk, dv_out, bh, s, d,
-                                  dv, start, end, scale, seed, thresh, keep_prob, dropout_on,
-                                  stream);
 }
 
 // The bfloat16 mma probe: `n` problems (see mma_bf16_probe_kernel).

@@ -483,6 +483,62 @@ def test_bf16_trainable_kernels_match_plain_versions(cuda_device, rate, s, d,
     assert (dk[valid == 0] == 0).all() and (dv_[valid == 0] == 0).all()
 
 
+# (bh, s, d, dv, start, end) of the bfloat16 backward pair
+# (csrc/banded_attention_bwd_sm90.cu) at the shapes its design meets: the
+# conformer's train shape, d and dv ending inside a 16-deep step, two
+# 64-column blocks, the long-form recipe's S (3,504, padded to 3,520)
+BWD_PAIR_SHAPES = {
+    "conformer train": (128, 1600, 64, 64, -256, 256),
+    "d 24, dv 8": (4, 256, 24, 8, -40, 8),
+    "d 128": (4, 256, 128, 128, -100, 20),
+    "S 3504": (8, 3504, 64, 64, -100, 50),
+}
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.35])
+@pytest.mark.parametrize("case", list(BWD_PAIR_SHAPES))
+def test_bf16_backward_pair_matches_plain_versions(cuda_device, rate, case):
+    """K2b and K2c on bfloat16 against their plain versions on the same
+    inputs (the kernel forward's out and lse, K2c on K2b's delta), rows of
+    random lengths, one of them empty: within BF16_ULPS, delta within
+    GRAD_ATOL, exact zeros for dead rows and invalid keys, and a second run
+    bit-equal to the first."""
+    bh, s, d, dv, start, end = BWD_PAIR_SHAPES[case]
+    lengths = torch.randint(s // 4, s + 1, (bh,),
+                            generator=torch.Generator().manual_seed(bh))
+    lengths[-1] = 0
+    q, k, v, valid = _inputs(cuda_device, bh, s, d, dv, lengths, seed=s + d)
+    dout = torch.randn(v.shape, generator=torch.Generator().manual_seed(2))
+    q, k, v, dout = (x.to(cuda_device, BF16) for x in (q, k, v, dout))
+    q, k, v, valid = ba._check_and_pad(q, k, v, valid, start, end)
+    dout = ba._pad_seq(dout, q.shape[1])
+    kw = dict(start=start, end=end, scale=0.125, dropout_rate=rate)
+    out, lse = ba.banded_attention_fwd(q, k, v, valid, 99, **kw)
+    runs = []
+    for _ in range(2):
+        dq, delta = ba.banded_attention_dq(q, k, v, valid, dout, out, lse, 99,
+                                           **kw)
+        runs.append((dq, delta, *ba.banded_attention_dkv(
+            q, k, v, valid, dout, lse, delta, 99, **kw)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    dq, delta, dk, dv_ = runs[0]
+    band = (99, start, end, 0.125, rate)
+    dq_w, delta_w = ba.banded_attention_dq_reference(q, k, v, valid, dout,
+                                                     out, lse, *band)
+    dk_w, dv_w = ba.banded_attention_dkv_reference(q, k, v, valid, dout, lse,
+                                                   delta, *band)
+    np.testing.assert_allclose(delta.cpu().numpy(), delta_w.cpu().numpy(),
+                               atol=GRAD_ATOL)
+    for name, got, want in (("dq", dq, dq_w), ("dk", dk, dk_w),
+                            ("dv", dv_, dv_w)):
+        assert got.dtype == BF16, name
+        assert float(ba.bf16_ulps(got, want).max()) <= BF16_ULPS, name
+    dead = ~torch.isfinite(lse)
+    assert dead.any() and (dq[dead] == 0).all()
+    assert (dk[valid == 0] == 0).all() and (dv_[valid == 0] == 0).all()
+
+
 def test_bf16_compute_train_step_on_the_card_matches_the_cpu(cuda_device):
     """One train step of a banded model in bfloat16 compute, dropout on:
     the card (the bfloat16 K2a/K2b/K2c, once per encoder layer, and no

@@ -1,7 +1,8 @@
 """The banded-attention kernels as written for the card (K1, K2a, K2b and
-K2c in pytorch_kaldi_asr_tpu_torch/ops/csrc/banded_attention_train.cu),
-compiled on the CPU with g++ against tests/cuda_emu.h and held against the
-port's plain versions (themselves held against the JAX package in
+K2c in pytorch_kaldi_asr_tpu_torch/ops/csrc/banded_attention_train.cu; the
+bfloat16 K2b and K2c in ops/csrc/banded_attention_bwd_sm90.cu), compiled on
+the CPU with g++ against tests/cuda_emu.h and held against the port's plain
+versions (themselves held against the JAX package in
 tests/test_torch_banded_attention.py and tests/test_torch_train_kernels.py)
 at the card tests' tolerances.
 
@@ -11,9 +12,11 @@ products, the tile and sub-tile skips, the band and validity masks, the
 forward's online softmax across passes and tiles, the dropout hash and
 delta.  The emulated mma multiplies the operands' tf32
 bits exactly as the tensor core does, so the 3xTF32 split is checked too.
-The bfloat16 instantiations (m16n8k16, bfloat16 tiles) are held against the
-plain versions on bfloat16 in bfloat16 ulps (``ba.bf16_ulps``).  Skips where
-there is no g++.
+The bfloat16 kernels (K1 and K2a on m16n8k16; K2b and K2c on wgmma fed by
+TMA through mbarriers, which cuda_emu.h emulates down to the matrix
+descriptors and the 128-byte swizzle) are held against the plain versions
+on bfloat16 in bfloat16 ulps (``ba.bf16_ulps``).  Skips where there is no
+g++.
 """
 
 import re
@@ -29,6 +32,7 @@ from pytorch_kaldi_asr_tpu_torch.ops import banded_attention as ba
 
 SOURCE = (Path(ba.__file__).resolve().parent / "csrc"
           / "banded_attention_train.cu")
+SM90_SOURCE = SOURCE.with_name("banded_attention_bwd_sm90.cu")
 OUT_ATOL = 2e-5  # out and lse, as tests/test_torch_cuda.py
 GRAD_ATOL = 1e-4  # dq, dk, dv and delta
 
@@ -56,22 +60,99 @@ def _emulated_source(src):
     return src
 
 
-@pytest.fixture(scope="module")
-def emulated_library(tmp_path_factory):
-    """The emulated build as a ``ctypes.CDLL``."""
+# the bodies of banded_attention_bwd_sm90.cu's one-instruction helpers,
+# emulated
+SM90_HELPERS = {
+    "exp2_approx": "return emu_ex2_ftz(x);",
+    "mbar_init": "emu_mbar_init(bar, count);",
+    "fence_mbar_init": "",
+    "mbar_expect_tx": "emu_mbar_expect_tx(bar, bytes);",
+    "mbar_arrive": "emu_mbar_arrive(bar);",
+    "mbar_try_wait": "return emu_mbar_try_wait(bar, parity);",
+    "tma_load_3d": "emu_tma_load_3d(dst, map, bar, c0, c1, c2);",
+    "bulk_load": "emu_bulk_load(dst, src, bytes, bar);",
+    "wgmma_fence": "",
+    "wgmma_commit": "emu_wgmma_commit();",
+    "wgmma_wait": "emu_wgmma_wait(N);",
+    "pin": "",
+    # the shape and the transpose flags are read off the PTX (_wgmma_body)
+    "wgmma_ss": "emu_wgmma(d, {n}, da, db, nullptr, scale_d, {trans_a}, {trans_b});",
+    "wgmma_rs": ("const uint32_t a[4] = {{a0, a1, a2, a3}}; "
+                 "emu_wgmma(d, {n}, 0, db, a, 1, false, {trans_b});"),
+}
+
+
+def _wgmma_body(name, ptx):
+    """The emulated body of wgmma helper ``name`` whose asm is ``ptx``: its
+    N and transpose flags as the PTX states them (bfloat16 operands,
+    float32 sums, unit scales of A and B)."""
+    ptx = re.sub(r'"\s*"', "", ptx)  # the asm's string literals joined
+    shape = re.search(r"wgmma\.mma_async\.sync\.aligned\.m64n(\d+)k16"
+                      r"\.f32\.bf16\.bf16", ptx)
+    flags = re.search(r"p, 1, 1, ([01]), ([01]);" if name == "wgmma_ss"
+                      else r"p, 1, 1, ([01]);", ptx)
+    assert shape and flags, name
+    trans = {"0": "false", "1": "true"}
+    return SM90_HELPERS[name].format(
+        n=shape[1], trans_a=trans[flags[1]] if name == "wgmma_ss" else "",
+        trans_b=trans[flags[flags.lastindex]])
+
+
+def _emulated_sm90_source(src):
+    """banded_attention_bwd_sm90.cu with its PTX helpers, shared memory and
+    launches routed to cuda_emu.h."""
+    src = src.replace("#include <cuda.h>\n", "")
+    src = src.replace("#include <cuda_bf16.h>\n", "")
+    src = src.replace("#include <cuda_runtime.h>", '#include "cuda_emu.h"')
+    src, n = re.subn(r"extern __shared__ __align__\(1024\) uint8_t smem_raw\[\];",
+                     "uint8_t* smem_raw = reinterpret_cast<uint8_t*>(emu_smem());",
+                     src)
+    assert n == 2, n
+    for name, body in SM90_HELPERS.items():
+        src, n = re.subn(
+            rf"(__device__ __forceinline__ [^\n(]*\b{name}\(.*?\)) \{{\n(.*?)\n\}}\n",
+            lambda m: "{} {{ {} }}\n".format(
+                m[1], _wgmma_body(name, m[2]) if name.startswith("wgmma_")
+                and name not in ("wgmma_fence", "wgmma_commit",
+                                 "wgmma_wait") else body),
+            src, flags=re.S)
+        assert n == 1, (name, n)
+    src, n = re.subn(r"(\w+)<<<([^>]*)>>>\((.*?)\);",
+                     lambda m: f"emu_launch({m[2]}, [&] {{ {m[1]}({m[3]}); }});",
+                     src, flags=re.S)
+    assert n == 2, n
+    return src
+
+
+def _compile(tmp_path_factory, name, source):
+    """``source`` built with g++ against cuda_emu.h as a ``ctypes.CDLL``."""
     import ctypes
 
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("needs g++")
-    work = tmp_path_factory.mktemp("k2_emulated")
-    cpp = work / "banded_attention_train_emu.cpp"
-    cpp.write_text(_emulated_source(SOURCE.read_text()))
-    lib = work / "libk2_emu.so"
+    work = tmp_path_factory.mktemp(name)
+    cpp = work / f"{name}.cpp"
+    cpp.write_text(source)
+    lib = work / f"lib{name}.so"
     subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
                     f"-I{Path(__file__).resolve().parent}", "-o", str(lib),
                     str(cpp)], check=True, capture_output=True)
     return ctypes.CDLL(str(lib))
+
+
+@pytest.fixture(scope="module")
+def emulated_library(tmp_path_factory):
+    """The emulated build of banded_attention_train.cu."""
+    return _compile(tmp_path_factory, "k2_emu",
+                    _emulated_source(SOURCE.read_text()))
+
+
+@pytest.fixture(scope="module")
+def emulated_sm90_library(tmp_path_factory):
+    """The emulated build of banded_attention_bwd_sm90.cu."""
+    return _compile(tmp_path_factory, "k2_sm90_emu",
+                    _emulated_sm90_source(SM90_SOURCE.read_text()))
 
 
 @pytest.fixture(scope="module")
@@ -83,9 +164,11 @@ def emulated(emulated_library):
 
 
 @pytest.fixture(scope="module")
-def emulated_bf16(emulated_library):
-    """The same on bfloat16."""
-    return {w: ba.kernel_entry(emulated_library, w, torch.bfloat16)
+def emulated_bf16(emulated_library, emulated_sm90_library):
+    """The same on bfloat16: K1 and K2a of banded_attention_train.cu, K2b
+    and K2c of banded_attention_bwd_sm90.cu, as the wrappers load them."""
+    return {w: ba.kernel_entry(emulated_sm90_library if w in ("dq", "dkv")
+                               else emulated_library, w, torch.bfloat16)
             for w in ("k1", "fwd", "dq", "dkv")}
 
 
@@ -364,15 +447,53 @@ def test_emulated_bf16_kernels_match_plain_version(emulated_bf16, case,
         assert (k1[empty] == 0).all()
 
 
+# cases whose CTAs stream more tiles than the bfloat16 backward's ring has
+# stages (3 at d, dv <= 64; 2 above)
+RING_CASES = {
+    "band (-256,256) S 640": BF16_CASES["band (-256,256) S 640"],
+    "d 128, band (-256,64) S 384": (384, 128, 128, _prefix(384, [384, 200]),
+                                    -256, 64),
+}
+
+
+@pytest.mark.parametrize("case", list(RING_CASES))
+def test_emulated_bf16_backward_with_copies_landing_at_once(
+        emulated_sm90_library, emulated_bf16, case):
+    """cuda_emu.h lands a TMA or bulk copy when a thread waits on its
+    mbarrier for a phase not yet complete, so a wait on the wrong phase
+    reads a stage's old tile; here each copy lands as it is issued, so a
+    stage handed back for its next tile before the products reading it
+    are complete is overwritten under them.  K2b and K2c on bfloat16 at cases
+    that wrap the ring, against the plain versions at rate 0.35."""
+    s, d, dv, _, start, end = RING_CASES[case]
+    q, k, v, dout, valid = _bf16_inputs(RING_CASES[case])
+    emulated_sm90_library.emu_lazy_copies(0)
+    try:
+        out, lse, dq, delta, dk, dv_out = _run(emulated_bf16, q, k, v, valid,
+                                               dout, 77, start, end, 0.125,
+                                               0.35)
+    finally:
+        emulated_sm90_library.emu_lazy_copies(1)
+    band = (77, start, end, 0.125, 0.35)
+    dq_ref, _ = ba.banded_attention_dq_reference(q, k, v, valid, dout, out,
+                                                 lse, *band)
+    dk_ref, dv_ref = ba.banded_attention_dkv_reference(
+        q, k, v, valid, dout, lse, delta, *band)
+    for name, got, want in (("dq", dq, dq_ref), ("dk", dk, dk_ref),
+                            ("dv", dv_out, dv_ref)):
+        assert float(ba.bf16_ulps(got, want).max()) <= BF16_ULPS, name
+
+
 def _drift(got, ref):
     """The mean error along ``ref``'s sign over its mean size."""
     got, ref = got.double(), ref.double()
     return float(((got - ref) * ref.sign()).mean() / ref.abs().mean())
 
 
-def test_emulated_bf16_does_not_drift(emulated_library, emulated_bf16):
+def test_emulated_bf16_does_not_drift(emulated_library, emulated_sm90_library,
+                                      emulated_bf16):
     """The bfloat16 kernels chain their products on one accumulator (one
-    mma per 16 products).  Under cuda_emu.h's model of the tensor core's
+    mma or wgmma per 16 products).  Under cuda_emu.h's model of the tensor core's
     rounding (its addends cut toward zero at 26 bits below the largest,
     the sum rounded toward zero: what chip_smoke.py's probe reads on the
     H100), at TIMIT's band and head dim, out, dq, dk and dv sit along their
@@ -393,13 +514,16 @@ def test_emulated_bf16_does_not_drift(emulated_library, emulated_bf16):
         np.float32)).to(BF16) for _ in range(4))
     valid = torch.ones((bh, s), dtype=torch.int32)
     runs = {}
+    libraries = (emulated_library, emulated_sm90_library)
     for nearest in (0, 1):
-        emulated_library.emu_round_nearest(nearest)
+        for lib in libraries:
+            lib.emu_round_nearest(nearest)
         try:
             runs[nearest] = _run(emulated_bf16, q, k, v, valid, dout, 7,
                                  start, end, scale, 0.0)
         finally:
-            emulated_library.emu_round_nearest(0)
+            for lib in libraries:
+                lib.emu_round_nearest(0)
     out, lse, dq, delta, dk, dv = runs[0]
     out_ref, _ = ba.banded_attention_trainable_reference(q, k, v, valid, 7,
                                                          start, end, scale)

@@ -16,8 +16,10 @@ from pytorch_kaldi_asr_tpu_torch.ops.launches import launch_counts  # noqa: E402
 # kernel names as torch.profiler gives them on the card
 FWD_BF16 = ("void (anonymous namespace)::fwd_kernel<__nv_bfloat16, 8>"
             "(__nv_bfloat16 const*, int)")
-DQ_BF16 = "void (anonymous namespace)::dq_kernel<__nv_bfloat16, 8>(int)"
-DKV_BF16 = "void (anonymous namespace)::dkv_kernel<__nv_bfloat16, 8>(int)"
+DQ_BF16 = ("void (anonymous namespace)::dq_sm90_kernel<1>(CUtensorMap_st, "
+           "CUtensorMap_st, int)")
+DKV_BF16 = ("void (anonymous namespace)::dkv_sm90_kernel<1>(CUtensorMap_st, "
+            "CUtensorMap_st, int)")
 FWD_F32 = "void (anonymous namespace)::fwd_kernel<float, 8>(float const*)"
 K1_F32 = ("void (anonymous namespace)::banded_attention_kernel<float, 8>"
           "(float const*)")
