@@ -6,10 +6,10 @@ CUDA card: ``python3 chip_smoke.py`` from the root of a checkout.
    turns TF32 off for matmuls and cuDNN, and cuBLAS's reduced-precision
    sums in bfloat16 GEMMs.
 2. Builds every CUDA kernel of the port from ``ops/csrc`` (one nvcc per
-   translation unit, all started together: the attention source as one
-   unit per element type, the bfloat16 backward's source as one) and
-   prints what ptxas reports; the bfloat16 backward's kernels must not
-   spill and must run wgmma (HGMMA in their SASS, ``check_sm90_build``).  Meanwhile a
+   source, all started together: the float32 attention source, the
+   bfloat16 attention source and K3's) and prints what ptxas reports; the
+   bfloat16 attention kernels must not spill and must run wgmma (HGMMA in
+   their SASS, ``check_sm90_build``).  Meanwhile a
    thread takes the CPU reference steps of the TIMIT and conformer
    training paths (``prefetch_cpu_steps``), which those paths then find in
    ``cpu_step``'s cache (keyed by a hash of the weights and the batch).
@@ -32,8 +32,8 @@ CUDA card: ``python3 chip_smoke.py`` from the root of a checkout.
    plain version bit for bit (0 mask mismatches) at the conformer's [51200,
    1024] and [51200, 256] for both thresholds at rates 0.1 and 0.35, and at
    edge cases (a tail, a non-contiguous and a misaligned input).  The
-   bfloat16 kernels (K1 and K2a as instantiations of the same templates,
-   K2b and K2c from ``banded_attention_bwd_sm90.cu``) are held against
+   bfloat16 kernels (all four from ``banded_attention_sm90.cu``, on wgmma,
+   TMA and mbarriers) are held against
    their plain versions on bfloat16 in bfloat16 ulps (``bf16_ulps``,
    BF16_KERNEL_ULPS) at the same shapes (d 24 for d 12), a second backward
    bit-equal to the first, with the same one-launch checks, and timed
@@ -312,11 +312,12 @@ sound and with each fault of BF16_FAULTS planted on the card
 
 ``python3 chip_smoke.py --k2-sources A.cu [B.cu ...]`` compares versions
 of the attention sources, ``ops/csrc/banded_attention_train.cu`` and
-``ops/csrc/banded_attention_bwd_sm90.cu`` (a parent's, or an edited copy;
-a parent's ``banded_attention.cu`` for its K1) in one process: each is
-built with the port's nvcc flags (ptxas's registers and spills for each
-kernel printed; for a ``banded_attention_bwd_sm90`` source its kernels'
-wgmma counts, ``check_sm90_build``), and each kernel a build has, on
+``ops/csrc/banded_attention_sm90.cu`` (a parent's, or an edited copy; a
+parent's ``banded_attention_bwd_sm90.cu`` for its bfloat16 backward, or
+``banded_attention.cu`` for its K1) in one process: each is built with the
+port's nvcc flags (ptxas's registers and spills for each kernel printed;
+for a ``banded_attention_sm90`` or ``banded_attention_bwd_sm90`` source its
+kernels' wgmma counts, ``check_sm90_build``), and each kernel a build has, on
 float32 and on bfloat16, is timed in turns with the other builds', three
 rounds, and held against the outputs of the first build that has it: K2a,
 K2b and K2c at the three train timing shapes, K1 at both decode shapes;
@@ -537,12 +538,13 @@ BF16_KERNEL_ULPS = 3.0
 
 # kernel names in a torch.profiler trace (all in anonymous namespaces; the
 # attention kernels of banded_attention_train.cu are templates over the
-# element type, the bfloat16 backward's over its 64-column blocks)
+# element type, those of banded_attention_sm90.cu over their 64-column
+# blocks)
 PROFILE_NAMES = {
     "K1": "::banded_attention_kernel<float", "K2a": "::fwd_kernel<float",
     "K2b": "::dq_kernel<float", "K2c": "::dkv_kernel<float",
-    "K1_bf16": "::banded_attention_kernel<__nv_bfloat16",
-    "K2a_bf16": "::fwd_kernel<__nv_bfloat16",
+    "K1_bf16": "::banded_attention_sm90_kernel<",
+    "K2a_bf16": "::fwd_sm90_kernel<",
     "K2b_bf16": "::dq_sm90_kernel<",
     "K2c_bf16": "::dkv_sm90_kernel<",
     "K3": "::fused_dropout_kernel", "K3_bf16": "::fused_dropout_bf16_kernel",
@@ -1096,7 +1098,7 @@ def mma_bf16_probe(torch, n=4096):
     from pytorch_kaldi_asr_tpu_torch.ops import _build
     from pytorch_kaldi_asr_tpu_torch.ops import banded_attention as ba
 
-    fn = _build.load("banded_attention_train", "bf16").mma_bf16_probe
+    fn = _build.load("banded_attention_train").mma_bf16_probe
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     g = torch.Generator(device="cuda").manual_seed(11)
@@ -1244,7 +1246,7 @@ def check_forward_launches(torch, ba, dtype=None):
     """One trainable forward on the card is exactly one K2a launch and one
     inference call exactly one K1 launch, with no other device work;
     counted by the wrappers and by torch.profiler at the conformer's band.
-    On bfloat16 (``dtype``) the bfloat16 instantiations, counted apart."""
+    On bfloat16 (``dtype``) the bfloat16 kernels, counted apart."""
     bf16 = dtype == torch.bfloat16
     sfx, attr = ("_bf16", "launches_bf16") if bf16 else ("", "launches")
     q, k, v, valid = _launch_check_inputs(torch, dtype)
@@ -1264,7 +1266,7 @@ def check_backward_launches(torch, ba, dtype=None):
     """One backward of the trainable attention on the card is exactly two
     kernels, K2b (with delta) then K2c, and no other device work; counted
     by the wrappers and by torch.profiler at the conformer's band.  On
-    bfloat16 (``dtype``) the bfloat16 instantiations."""
+    bfloat16 (``dtype``) the bfloat16 kernels."""
     bf16 = dtype == torch.bfloat16
     sfx, attr = ("_bf16", "launches_bf16") if bf16 else ("", "launches")
     q, k, v, valid = _launch_check_inputs(torch, dtype)
@@ -1439,7 +1441,7 @@ def time_trainable_attention(torch, ba, shape, dtype=None):
 
 def start_k2_builds(sources):
     """Start one nvcc per version of an attention source in ``sources``
-    (banded_attention_train.cu, banded_attention_bwd_sm90.cu), with the
+    (banded_attention_train.cu, banded_attention_sm90.cu), with the
     port's flags, into build/chip_smoke/k2_sources/; returns {source:
     (process, library path)}."""
     from pytorch_kaldi_asr_tpu_torch.ops import _build
@@ -1458,14 +1460,15 @@ def start_k2_builds(sources):
 def ptxas_summary(log):
     """ptxas's registers and spills for each attention kernel in an nvcc
     log, as "kernel<type, MAXD8>: ..." lines (a source from before the
-    kernels took an element type: "kernel<MAXD8>"; the bfloat16 backward:
-    "kernel<bf16, CB>", CB its 64-column blocks), and ptxas's warnings
-    (a wgmma it serialized, for one)."""
+    kernels took an element type: "kernel<MAXD8>"; the bfloat16 kernels
+    on wgmma: "kernel<bf16, CB>", CB their 64-column blocks), and ptxas's
+    warnings (a wgmma it serialized, for one)."""
     out, entry = [], None
     for line in log.splitlines():
         found = re.search(r"(banded_attention_kernel|fwd_kernel|dq_kernel"
                           r"|dkv_kernel)I(f|13__nv_bfloat16)?Li(\d+)E", line)
-        sm90 = re.search(r"(dq_sm90_kernel|dkv_sm90_kernel)ILi(\d+)E", line)
+        sm90 = re.search(r"(banded_attention_sm90_kernel|fwd_sm90_kernel"
+                         r"|dq_sm90_kernel|dkv_sm90_kernel)ILi(\d+)E", line)
         if "Compiling entry function" in line:
             entry = None
             if found:
@@ -1511,14 +1514,17 @@ def wgmma_counts(lib, src):
     return counts
 
 
-SM90_SOURCE = "banded_attention_bwd_sm90"
+SM90_SOURCE = "banded_attention_sm90"
+# {wgmma source: its kernels}: the current one (K1, K2a, K2b, K2c at one
+# and two 64-column blocks), and a parent's that held the backward alone
+SM90_KERNELS = {SM90_SOURCE: 8, "banded_attention_bwd_sm90": 4}
 
 
 def check_sm90_build(log, lib, src):
-    """The bfloat16 backward's kernels as built: ptxas reports no spill
-    bytes (where ``log`` holds its compile) and each runs wgmma
-    (``wgmma_counts``).  Prints both; raises if a kernel spills or has no
-    wgmma."""
+    """The bfloat16 kernels on wgmma as built from ``src`` (an
+    SM90_KERNELS source): ptxas reports no spill bytes (where ``log``
+    holds its compile) and each of them runs wgmma (``wgmma_counts``).
+    Prints both; raises if a kernel spills or has no wgmma."""
     for line in ptxas_summary(log or ""):
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                            r"loads", line)
@@ -1528,14 +1534,14 @@ def check_sm90_build(log, lib, src):
     counts = wgmma_counts(lib, src)
     print(f"  {src.name} wgmma per kernel: " + json.dumps(counts))
     kernels = [n for k, n in counts.items() if "_sm90_kernel" in k]
-    if len(kernels) != 4 or not all(kernels):
+    if len(kernels) != SM90_KERNELS[src.stem] or not all(kernels):
         raise AssertionError(f"{src.name}: kernels without wgmma: {counts}")
 
 
 def finish_k2_builds(procs):
     """{source: ctypes library} of start_k2_builds' processes; prints
     ptxas's registers and spills for each attention kernel, and for a
-    version of the bfloat16 backward its kernels' wgmma counts
+    version of the bfloat16 wgmma source its kernels' wgmma counts
     (``check_sm90_build``)."""
     import ctypes
 
@@ -1546,7 +1552,7 @@ def finish_k2_builds(procs):
             raise RuntimeError(f"nvcc failed for {src}:\n{log}")
         for line in ptxas_summary(log):
             print(f"  {src.name} {line}")
-        if SM90_SOURCE in src.name:
+        if src.stem in SM90_KERNELS:
             check_sm90_build(log, lib, src)
         libs[src] = ctypes.CDLL(str(lib))
     return libs
@@ -7548,7 +7554,8 @@ def main():
         prefetch.start()
     t0 = time.perf_counter()
     procs = start_k2_builds(sources) if sources else None
-    logs = _build.build(["banded_attention_train"] if sources else None)
+    logs = _build.build(["banded_attention_train", SM90_SOURCE]
+                        if sources else None)
     print(f"built {sorted(logs) or 'nothing (cached)'} in "
           f"{time.perf_counter() - t0:.1f} s")
     if prefetch is not None:
@@ -7909,7 +7916,8 @@ def main():
     for sfx in ("", "_bf16"):
         err = kp[f"err{sfx}"]
         kernels.append(dict(
-            name=f"banded_attention{sfx}", route="cuda", source=source,
+            name=f"banded_attention{sfx}", route="cuda",
+            source=sm90 if sfx else source,
             replaces=f"{jax_file}:140",
             launches=total(f"banded_attention{sfx}", paths),
             max_abs_err=err[0] if sfx else err,
@@ -7918,7 +7926,7 @@ def main():
             err = kp[f"train_errs{sfx}"][name]
             kernels.append(dict(
                 name=f"banded_attention_{name}{sfx}", route="cuda",
-                source=sm90 if sfx and name != "fwd" else source,
+                source=sm90 if sfx else source,
                 replaces=f"{jax_file}:{line}",
                 launches=total(f"banded_attention_{name}{sfx}", paths),
                 max_abs_err=err[0] if sfx else err,

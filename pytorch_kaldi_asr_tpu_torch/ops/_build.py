@@ -5,11 +5,7 @@ its own by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``build/torch_kernels/`` at the root of the checkout.  The library's file
 name carries a hash of the source and the flags, so an edited source is
 rebuilt and never confused with an old build.  :func:`build` starts one
-``nvcc`` per translation unit, all at once, and waits for them together.
-A source listed in ``UNITS`` compiles as several units, each with its own
-defines and library (the attention source as one unit per element type,
-whose float32 and bfloat16 instantiations then build side by side); every
-other source is one unit.
+``nvcc`` per source, all at once, and waits for them together.
 """
 
 from __future__ import annotations
@@ -26,9 +22,6 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# {source: {unit: the unit's extra nvcc flags}}
-UNITS = {"banded_attention_train": {"f32": ("-DBA_UNIT_F32",),
-                                    "bf16": ("-DBA_UNIT_BF16",)}}
 
 
 def kernel_names():
@@ -48,41 +41,29 @@ def _nvcc():
     return found
 
 
-def units(name):
-    """{unit: extra flags} of source ``name`` (one unit, None, unless
-    ``UNITS`` splits it)."""
-    return UNITS.get(name, {None: ()})
-
-
-def library_path(name, unit=None):
-    flags = (*NVCC_FLAGS, *units(name)[unit])
+def library_path(name):
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()
-    stem = name if unit is None else f"{name}.{unit}"
-    return BUILD_DIR / f"{stem}-{digest[:16]}.so"
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
 def build(names=None):
-    """Compile every unit of the kernels in ``names`` (default: all) that
-    has no current library yet, all ``nvcc`` processes in parallel.
-    Returns ``{name or name.unit: compiler output}`` for the units compiled
-    by this call (``-Xptxas -v`` prints registers, shared memory and
-    spills)."""
+    """Compile every kernel in ``names`` (default: all) that has no current
+    library yet, all ``nvcc`` processes in parallel.  Returns ``{name:
+    compiler output}`` for the kernels compiled by this call (``-Xptxas
+    -v`` prints registers, shared memory and spills)."""
     names = kernel_names() if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
-        for unit, flags in units(name).items():
-            out = library_path(name, unit)
-            if out.exists():
-                continue
-            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp),
-                   str(CSRC / f"{name}.cu")]
-            key = name if unit is None else f"{name}.{unit}"
-            procs[key] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                           stderr=subprocess.STDOUT,
-                                           text=True), tmp, out)
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
     logs, failed = {}, []
     for name, (proc, tmp, out) in procs.items():
         logs[name] = proc.communicate()[0]
@@ -97,8 +78,8 @@ def build(names=None):
 
 
 @functools.lru_cache(maxsize=None)
-def load(name, unit=None):
-    """The library of unit ``unit`` of kernel ``name`` as a
-    ``ctypes.CDLL``, built (every unit of ``name``) if needed."""
+def load(name):
+    """The library of kernel ``name`` as a ``ctypes.CDLL``, built if
+    needed."""
     build([name])
-    return ctypes.CDLL(str(library_path(name, unit)))
+    return ctypes.CDLL(str(library_path(name)))

@@ -11,8 +11,9 @@ key_valid ``[BH, S]``, out ``[BH, S, Dv]``.
 kernel's tile (padded keys invalid), then sends a CPU tensor to
 :func:`banded_attention_reference` and a CUDA tensor to the kernel K1
 (``banded_attention_kernel`` in ``csrc/banded_attention_train.cu``, K2a's
-routine without lse and dropout), and slices the padding off.  There is no
-length threshold and no fall back: a CUDA tensor the kernel cannot take
+routine without lse and dropout; on bfloat16 ``banded_attention_sm90_kernel``
+in ``csrc/banded_attention_sm90.cu``), and slices the padding off.  There is
+no length threshold and no fall back: a CUDA tensor the kernel cannot take
 raises.  ``banded_attention.launches`` counts kernel launches.
 
 :func:`banded_attention_trainable` is the training path: the same function
@@ -20,11 +21,12 @@ plus attention-probability dropout, differentiable through one
 ``torch.autograd.Function`` whose forward runs :func:`banded_attention_fwd`
 (K2a) and whose backward runs :func:`banded_attention_dq` (K2b, which
 also computes delta = rowsum(dout * out)) and :func:`banded_attention_dkv`
-(K2c), the kernels of ``csrc/banded_attention_train.cu`` (on bfloat16,
-K2b and K2c of ``csrc/banded_attention_bwd_sm90.cu``, written for Hopper's
-wgmma, TMA and mbarriers).  Each of the three sends a CUDA tensor to its
-kernel and a CPU tensor to its banded plain version, and counts its kernel
-launches in ``.launches``.
+(K2c).  On float32 the kernels are those of
+``csrc/banded_attention_train.cu`` (mma.sync in 3xTF32); on bfloat16 those
+of ``csrc/banded_attention_sm90.cu``, written for Hopper's wgmma, TMA and
+mbarriers, which holds all four bfloat16 kernels.  Each of the three sends
+a CUDA tensor to its kernel and a CPU tensor to its banded plain version,
+and counts its kernel launches in ``.launches``.
 
 K2a-c have two plain versions each.  The full ones
 (``banded_attention_*_reference``) build the [BH, S, S] scores; they are
@@ -47,8 +49,13 @@ plain versions compute the JAX package's Pallas kernels' function on
 bfloat16 inputs: scores, softmax statistics and sums in float32, the
 second product's operand (the dropped probabilities, dS) rounded to
 bfloat16 where the Pallas kernels round it, the outputs rounded once to
-bfloat16.  A bfloat16 CUDA tensor runs the kernels' bfloat16
-instantiations (``launches_bf16`` counts them), never the float32 ones.
+bfloat16.  A bfloat16 CUDA tensor runs the bfloat16 kernels
+(``launches_bf16`` counts them), never the float32 ones.  The bfloat16
+forward rounds its unnormalised probabilities against the running max of
+each 64-key tile, the plain versions against the row's max (the Pallas
+kernel against its 128-key block's), so the two differ by about an ulp of
+bfloat16 in out (``bf16_ulps``); the bfloat16 kernels take a positive
+scale only.
 """
 
 from __future__ import annotations
@@ -194,17 +201,13 @@ def _launch(q, k, v, key_valid, start, end, scale):
 
 @functools.lru_cache(maxsize=None)
 def _kernel_fn(which, dtype=torch.float32):
-    """:func:`kernel_entry` ``which`` on ``dtype``, built at first use: the
-    bfloat16 K2b and K2c from csrc/banded_attention_bwd_sm90.cu, every other
-    kernel from csrc/banded_attention_train.cu (the unit of ``dtype``:
-    ops/_build.py compiles one per element type)."""
+    """:func:`kernel_entry` ``which`` on ``dtype``, built at first use: on
+    bfloat16 from csrc/banded_attention_sm90.cu, on float32 from
+    csrc/banded_attention_train.cu."""
     from pytorch_kaldi_asr_tpu_torch.ops import _build
 
-    if dtype == torch.bfloat16 and which in ("dq", "dkv"):
-        library = _build.load("banded_attention_bwd_sm90")
-    else:
-        library = _build.load("banded_attention_train",
-                              "bf16" if dtype == torch.bfloat16 else "f32")
+    library = _build.load("banded_attention_sm90" if dtype == torch.bfloat16
+                          else "banded_attention_train")
     return kernel_entry(library, which, dtype)
 
 
@@ -212,8 +215,8 @@ def kernel_entry(library, which, dtype=torch.float32):
     """The C entry point of K1 (``which`` "k1": ``banded_attention_f32``)
     or of K2a/K2b/K2c ("fwd", "dq", "dkv": ``banded_attention_{which}_f32``)
     on float32, or its ``_bf16`` twin on bfloat16, of a ``ctypes.CDLL``
-    built from csrc/banded_attention_train.cu or, for the bfloat16 K2b and
-    K2c, csrc/banded_attention_bwd_sm90.cu (or a version of either),
+    built from csrc/banded_attention_train.cu (float32) or
+    csrc/banded_attention_sm90.cu (bfloat16), or from a version of either,
     signature set: pointers, then (bh, s, d, dv, start, end) ints, scale,
     then for K2 the dropout (seed, threshold as uint32, keep probability,
     on), and the stream."""

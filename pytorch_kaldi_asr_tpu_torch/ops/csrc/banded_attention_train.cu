@@ -1,9 +1,8 @@
-// Banded (time-restricted) attention, float32 and bfloat16, for Hopper
-// (sm_90a): the inference forward, the trainable forward with its
-// log-sum-exp and attention-probability dropout, and the two backward
-// kernels on float32.  The bfloat16 backward moved to
-// banded_attention_bwd_sm90.cu, a design of its own on wgmma, TMA and
-// mbarriers; the bfloat16 instantiations here are K1's and K2a's.
+// Banded (time-restricted) attention on float32 for Hopper (sm_90a): the
+// inference forward, the trainable forward with its log-sum-exp and
+// attention-probability dropout, and the two backward kernels.  The
+// bfloat16 kernels are banded_attention_sm90.cu's, a design of their own on
+// wgmma, TMA and mbarriers; here only the bfloat16 mma probe stays.
 //
 // Replaces the TPU kernels K1, K2a, K2b and K2c of the JAX package:
 //   pytorch_kaldi_asr_tpu/ops/banded_attention.py
@@ -30,22 +29,12 @@
 //
 // Layout: q, k, dq, dk [BH, S, D]; v, out, dout, dv [BH, S, Dv]; key_valid
 // [BH, S] int32; lse, delta [BH, S] float32; all contiguous.  S is a multiple
-// of 64 (the wrapper pads with invalid keys); D and Dv are multiples of 4
-// (float32) or of 8 (bfloat16), at most 128.
+// of 64 (the wrapper pads with invalid keys); D and Dv are multiples of 4,
+// at most 128.
 //
-// Each kernel is one template over the element type T of q, k, v, dout and
-// the outputs (float or __nv_bfloat16; the backward's float only); lse,
-// delta, the scores, the softmax statistics and every sum stay float32.  On
-// bfloat16 the kernels compute
-// the Pallas kernels' function on bfloat16 inputs: products of bfloat16
-// operands summed in float32 (mma.sync m16n8k16, one mma per 16-deep step),
-// and the second product's A operand rounded to bfloat16 where the Pallas
-// kernels round it (`p.astype(v.dtype)`, `ds.astype(k.dtype)`,
-// `a_drop.astype(do.dtype)`, `ds.astype(q.dtype)`), nowhere else; the
-// outputs are rounded once to bfloat16.  The float32 path is described
-// first; the bfloat16 machinery follows it below.
-//
-// On float32 all four kernels run their tile products on the tensor cores
+// Each kernel is a template over the element type T of q, k, v, dout and
+// the outputs, instantiated on float alone (its name in a profile reads
+// `<float, ...>`).  All four run their tile products on the tensor cores
 // at float32 accuracy: mma.sync m16n8k8 in TF32 with the 3xTF32 split (x =
 // big + small, a.b ~ big.big + big.small + small.big).  A CTA of 4 warps
 // owns a 64-row tile, 16 rows per warp (the mma's m): K1, K2a and K2b a
@@ -100,8 +89,6 @@
 //   K1 at the conformer decode shape (BH 32, S 1600, 19e6 pairs): 0.030 ms by
 //   operations; at TIMIT's (BH 16, S 504, padded to 512): 0.0025 ms by bytes,
 //   one wave of 128 CTAs, so its launch and latency set its time.
-// On bfloat16 (989 TFLOP/s dense, half the bytes) K1 and K2a are bound by
-// their bytes at these shapes: the conformer's K2a 0.032 ms, K1 0.0079 ms.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -258,23 +245,6 @@ __device__ __forceinline__ void mma_bwd(float (&c)[M][4], const Frag& a, const f
   mma_3xtf32<M, true, (M < kBwdGroup ? M : kBwdGroup)>(c, a, b, step, off, live);
 }
 
-// ---------------------------------------------------------------------------
-// the bfloat16 tile machinery (mma.sync m16n8k16: bf16 operands, f32 sums)
-// ---------------------------------------------------------------------------
-//
-// One mma per 16-deep step, where float32 takes three per 8-deep step.
-// Register layouts (lane = 4g + t; each register holds two bfloat16, the
-// lower index in its low half): A (16 x 16) a0 = (g, 2t..2t+1), a1 = (g + 8,
-// 2t..2t+1), a2 = (g, 2t+8..2t+9), a3 = (g + 8, 2t+8..2t+9); B (16 x 8, k x
-// n) b0 = (2t..2t+1, g), b1 = (2t+8..2t+9, g); C as m16n8k8's: c0, c1 =
-// (g, 2t..2t+1), c2, c3 = (g + 8, 2t..2t+1).  So the accumulators of two
-// adjacent 8-wide chunks of S, rounded in pairs, are the A operand of the
-// 16-deep product that follows, with no permutation of k: chunk j gives a0
-// and a1, chunk j + 1 a2 and a3.  The first product's B (rows of k) is one
-// 32-bit load per register; the second's (columns of v) two 16-bit loads.  The products chain on their accumulators
-// (one mma per 16 products; their drift under cuda_emu.h's model of the
-// tensor core's rounding is in PERF.md).
-
 // element traits: the mma's depth per step, and an owned A fragment (16
 // bytes a lane per step)
 template <class T>
@@ -284,22 +254,17 @@ struct Elem<float> {
   static constexpr int kK = 8;
   using Own = float4;
 };
-template <>
-struct Elem<__nv_bfloat16> {
-  static constexpr int kK = 16;
-  using Own = uint4;
-};
 
-template <class T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
+// ---------------------------------------------------------------------------
+// the bfloat16 mma probe's product (mma.sync m16n8k16: bf16 operands, f32
+// sums), kept so chip_smoke.py can read the tensor core's rounding
+// ---------------------------------------------------------------------------
+//
+// Register layouts (lane = 4g + t; each register holds two bfloat16, the
+// lower index in its low half): A (16 x 16) a0 = (g, 2t..2t+1), a1 = (g + 8,
+// 2t..2t+1), a2 = (g, 2t+8..2t+9), a3 = (g + 8, 2t+8..2t+9); B (16 x 8, k x
+// n) b0 = (2t..2t+1, g), b1 = (2t+8..2t+9, g); C as m16n8k8's: c0, c1 =
+// (g, 2t..2t+1), c2, c3 = (g + 8, 2t..2t+1).
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
@@ -307,12 +272,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats as one register's bfloat16 pair, each rounded to nearest even
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
 }
 
 // two consecutive bfloat16 (4-byte aligned) as one register
@@ -326,46 +285,9 @@ __device__ __forceinline__ uint32_t pair_bf16(const __nv_bfloat16* lo, const __n
          (static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(hi)) << 16);
 }
 
-// two adjacent outputs, rounded once to bfloat16 where they are bfloat16
+// two adjacent outputs
 __device__ __forceinline__ void store_pair(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
-}
-
-// c[n] += a.B_n for n < M where live(n), B_n's rows read along the
-// streamed tile's rows: `b` is element (g, 16 ks + 2t) of row 8n's block,
-// rows `ld` apart (the first products: S, dP and their transposes)
-template <int M, class Live>
-__device__ __forceinline__ void mma_bf16_rows(float (&c)[M][4], const uint4& a,
-                                              const __nv_bfloat16* b, int ld, Live live) {
-  const uint32_t af[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-  for (int n = 0; n < M; ++n) {
-    if (!live(n)) continue;
-    const __nv_bfloat16* r = b + 8 * n * ld;
-    mma_bf16(c[n], af, word_bf16(r), word_bf16(r + 8));
-  }
-}
-
-// c[n] += A.B_n for n < M where live(n), A the bfloat16 rounding of the
-// accumulators `lo` and `hi` of two adjacent 8-wide chunks, B_n read down
-// the streamed tile's columns: `b` is element (2t, g) of the 16 rows, rows
-// `ld` apart, column 8n + g (the second products: P.V, dS.K, P^T.dO,
-// dS^T.Q)
-template <int M, class Live>
-__device__ __forceinline__ void mma_bf16_cols(float (&c)[M][4], const float (&lo)[4],
-                                              const float (&hi)[4], const __nv_bfloat16* b,
-                                              int ld, Live live) {
-  const uint32_t a[4] = {pack_bf16(lo[0], lo[1]), pack_bf16(lo[2], lo[3]),
-                         pack_bf16(hi[0], hi[1]), pack_bf16(hi[2], hi[3])};
-#pragma unroll
-  for (int n = 0; n < M; ++n) {
-    if (!live(n)) continue;
-    const __nv_bfloat16* p = b + 8 * n;
-    mma_bf16(c[n], a, pair_bf16(p, p + ld), pair_bf16(p + 8 * ld, p + 9 * ld));
-  }
 }
 
 constexpr float kLog2e = 1.4426950408889634f;
@@ -422,28 +344,11 @@ __device__ void stage_owned(float4* dst, const float* x, int w, int w8, float mu
   }
 }
 
-// The same on bfloat16 (w % 8 == 0): uint4 (a0, a1, a2, a3) of (warp, step,
-// lane) at (warp * w16 + step) * 32 + lane, per 16-column step; columns from
-// w up to 16 * w16 are zero.  No scaling: a bfloat16 operand is used as it
-// is given.
-__device__ void stage_owned(uint4* dst, const __nv_bfloat16* x, int w, int w16) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const __nv_bfloat16* r0 = x + static_cast<size_t>(warp * 16 + g) * w;
-  const __nv_bfloat16* r1 = r0 + 8 * w;
-  for (int ks = 0; ks < w16; ++ks) {
-    const int c0 = ks * 16 + 2 * t, c1 = c0 + 8;
-    dst[(warp * w16 + ks) * 32 + lane] =
-        make_uint4(c0 < w ? word_bf16(r0 + c0) : 0u, c0 < w ? word_bf16(r1 + c0) : 0u,
-                   c1 < w ? word_bf16(r0 + c1) : 0u, c1 < w ? word_bf16(r1 + c1) : 0u);
-  }
-}
-
 // columns [w, wp) of a 64-row tile whose rows are `ld` apart
 template <class T>
 __device__ void zero_columns(T* tile, int ld, int w, int wp) {
   for (int i = threadIdx.x; i < kBlock * (wp - w); i += kThreads)
-    tile[(i / (wp - w)) * ld + w + i % (wp - w)] = from_float<T>(0.f);
+    tile[(i / (wp - w)) * ld + w + i % (wp - w)] = T(0.f);
 }
 
 // Zero-fill rows [row0, row0 + 64) of x ([.., w], 16 bytes a multiple of w).
@@ -455,23 +360,19 @@ __device__ void zero_rows(T* x, size_t row0, int w) {
     p[i] = zero4();
 }
 
-// Shared memory of every kernel, in 4-byte words, for elements of `esize`
-// bytes and mma steps `kk` deep: the owned rows' fragments (64 x kk * dk
-// elements, and 64 x kk * dvk more where a kernel owns a second operand:
-// the backward), then `stages` ring stages of two tiles (rows padded by 16
-// bytes to ldk and ldv elements, which spreads a fragment's reads over all
-// 32 banks) and `extra_rows` 64-value rows, then one int per candidate
-// tile.  dk and dvk count the mma steps over d and dv (8 columns on
-// float32, 16 on bfloat16).  On float32 one stage is 68 KB in the backward
-// at d = dv = 64 (three CTAs share an SM), 51 KB in the forward; on
-// bfloat16 about half.
+// Shared memory of every kernel, in 4-byte words: the owned rows' fragments
+// (64 x 8 * dk floats, and 64 x 8 * dvk more where a kernel owns a second
+// operand: the backward), then `stages` ring stages of two tiles (rows
+// padded by 16 bytes to ldk and ldv floats, which spreads a fragment's
+// reads over all 32 banks) and `extra_rows` 64-value rows, then one int per
+// candidate tile.  dk and dvk count the 8-column mma steps over d and dv.
+// One stage is 68 KB in the backward at d = dv = 64 (three CTAs share an
+// SM), 51 KB in the forward.
 struct RingSmem {
   int dk, dvk, ldk, ldv, own8, stage;
-  __host__ __device__ RingSmem(int d, int dv, int extra_rows, bool own_dv, int kk = 8,
-                               int esize = 4)
-      : dk((d + kk - 1) / kk), dvk((dv + kk - 1) / kk), ldk(dk * kk + 16 / esize),
-        ldv(dvk * kk + 16 / esize), own8(own_dv ? dk + dvk : dk),
-        stage(kBlock * ((ldk + ldv) * esize / 4 + extra_rows)) {}
+  __host__ __device__ RingSmem(int d, int dv, int extra_rows, bool own_dv)
+      : dk((d + 7) / 8), dvk((dv + 7) / 8), ldk(dk * 8 + 4), ldv(dvk * 8 + 4),
+        own8(own_dv ? dk + dvk : dk), stage(kBlock * (ldk + ldv + extra_rows)) {}
   __host__ __device__ int owned() const { return kBlock * 8 * own8; }
   __host__ __device__ size_t bytes(int stages, int n_tiles) const {
     return sizeof(float) * (static_cast<size_t>(owned()) + static_cast<size_t>(stages) * stage) +
@@ -504,9 +405,8 @@ __device__ __forceinline__ int next_live(const int* flags, int n, int i) {
 
 // One CTA per (bh, 64-query tile); MAXD8 bounds d8 and dv8 (the 8-column
 // chunks of d and dv).  kTrain (K2a) adds the lse and the dropout; K1 leaves
-// `lse` and `dr` unread.  On bfloat16 q is staged as it is and the scores
-// are scaled after the product, in float32 (the Pallas kernel's `s =
-// dot(q, k) * scale`).
+// `lse` and `dr` unread.  Float32 only: the bfloat16 K1 and K2a are
+// banded_attention_sm90.cu's.
 template <class T, int MAXD8, bool kTrain>
 __device__ __forceinline__ void forward(const T* __restrict__ q, const T* __restrict__ k,
                                         const T* __restrict__ v,
@@ -514,14 +414,14 @@ __device__ __forceinline__ void forward(const T* __restrict__ q, const T* __rest
                                         T* __restrict__ out, float* __restrict__ lse, int s,
                                         int d, int dv, int start, int end, float scale,
                                         Dropout dr, int stages) {
-  constexpr bool kF32 = std::is_same<T, float>::value;
+  static_assert(std::is_same<T, float>::value, "the bfloat16 forward is in its own source");
   constexpr int kK = Elem<T>::kK;
   constexpr int kMaxK = (8 * MAXD8 + kK - 1) / kK;  // bounds the mma steps over d
   using Own = typename Elem<T>::Own;
   extern __shared__ float4 smem[];
-  const RingSmem lay(d, dv, 1, false, kK, sizeof(T));
-  // d8: the steps of the products over d (8 columns on float32, 16 on
-  // bfloat16); dv8: the 8-column chunks of the output
+  const RingSmem lay(d, dv, 1, false);
+  // d8: the 8-column steps of the products over d; dv8: the 8-column
+  // chunks of the output
   const int d8 = lay.dk, dv8 = (dv + 7) / 8, ldk = lay.ldk, ldv = lay.ldv;
   Own* own_q = reinterpret_cast<Own*>(smem);
   float* ring = reinterpret_cast<float*>(smem) + lay.owned();
@@ -536,12 +436,8 @@ __device__ __forceinline__ void forward(const T* __restrict__ q, const T* __rest
   const int own0 = q0 + warp * 16;  // this warp's first query
   const size_t row0 = base + own0 + g, row1 = row0 + 8;
 
-  // q scale log2(e): S = q k^T comes out in the exp2 domain (on bfloat16
-  // the scores are scaled instead)
-  if constexpr (kF32)
-    stage_owned(own_q, q + (base + q0) * d, d, d8, scale * kLog2e);
-  else
-    stage_owned(own_q, q + (base + q0) * d, d, d8);
+  // q scale log2(e): S = q k^T comes out in the exp2 domain
+  stage_owned(own_q, q + (base + q0) * d, d, d8, scale * kLog2e);
   // the hash's batch-head part (its row and column parts are rebuilt per
   // element: registers are what this loop is short of); dropout's 1 / (1 -
   // rate)
@@ -614,22 +510,10 @@ __device__ __forceinline__ void forward(const T* __restrict__ q, const T* __rest
 #pragma unroll
       for (int ks = 0; ks < kMaxK; ++ks) {
         if (ks < d8) {
-          if constexpr (kF32) {
-            const float4 a = own_q[(warp * d8 + ks) * 32 + lane];
-            mma_3xtf32<kPass, true>(sc, split_frag(a.x, a.y, a.z, a.w),
-                                    kt + (8 * n0 + g) * ldk + 8 * ks + t, 8 * ldk, 4,
-                                    chunk_live);
-          } else {
-            mma_bf16_rows(sc, own_q[(warp * d8 + ks) * 32 + lane],
-                          kt + (8 * n0 + g) * ldk + 16 * ks + 2 * t, ldk, chunk_live);
-          }
+          const float4 a = own_q[(warp * d8 + ks) * 32 + lane];
+          mma_3xtf32<kPass, true>(sc, split_frag(a.x, a.y, a.z, a.w),
+                                  kt + (8 * n0 + g) * ldk + 8 * ks + t, 8 * ldk, 4, chunk_live);
         }
-      }
-      if constexpr (!kF32) {  // into the exp2 domain
-#pragma unroll
-        for (int n = 0; n < kPass; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) sc[n][e] *= scale * kLog2e;
       }
       // band and validity in the accumulator layout: element e of chunk n
       // is (query own0 + g + 8 (e / 2), key t0 + 8 (n0 + n) + 2 t + e % 2);
@@ -687,22 +571,12 @@ __device__ __forceinline__ void forward(const T* __restrict__ q, const T* __rest
       }
       // O += drop(P) v, with K2b's permuted k index: drop(P)'s accumulator
       // registers are its A registers, b0 and b1 read keys 2t and 2t + 1
-      // (bfloat16: drop(P) rounded, two chunks per 16-deep step)
-      if constexpr (kF32) {
 #pragma unroll
-        for (int j = 0; j < kPass; ++j) {
-          if (!c_live[j]) continue;
-          mma_3xtf32<MAXD8, true>(acc, split_frag(sc[j][0], sc[j][2], sc[j][1], sc[j][3]),
-                                  vt + (8 * (n0 + j) + 2 * t) * ldv + g, 8, ldv,
-                                  [&](int n) { return n < dv8; });
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < kPass; j += 2) {
-          if (!c_live[j] && !c_live[j + 1]) continue;
-          mma_bf16_cols(acc, sc[j], sc[j + 1], vt + (8 * (n0 + j) + 2 * t) * ldv + g, ldv,
-                        [&](int n) { return n < dv8; });
-        }
+      for (int j = 0; j < kPass; ++j) {
+        if (!c_live[j]) continue;
+        mma_3xtf32<MAXD8, true>(acc, split_frag(sc[j][0], sc[j][2], sc[j][1], sc[j][3]),
+                                vt + (8 * (n0 + j) + 2 * t) * ldv + g, 8, ldv,
+                                [&](int n) { return n < dv8; });
       }
     }
     __syncthreads();  // the stage is consumed
@@ -765,7 +639,7 @@ banded_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // One CTA per (bh, 64-query tile); MAXD8 bounds the 8-column chunks of d
 // and dv.  Registers are capped for 3 CTAs per SM up to d = 64.  Float32
-// only: the bfloat16 K2b is banded_attention_bwd_sm90.cu's.
+// only: the bfloat16 K2b is banded_attention_sm90.cu's.
 template <class T, int MAXD8>
 __global__ void __launch_bounds__(kThreads, MAXD8 > 8 ? 1 : 3)
 dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -778,7 +652,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   constexpr int kMaxK = (8 * MAXD8 + kK - 1) / kK;  // bounds the mma steps over d, dv
   using Own = typename Elem<T>::Own;
   extern __shared__ float4 smem[];
-  const RingSmem lay(d, dv, 1, true, kK, sizeof(T));
+  const RingSmem lay(d, dv, 1, true);
   // d8, dv8: the 8-column steps of the products over d and dv; dq8: the
   // 8-column chunks of dq
   const int d8 = lay.dk, dv8 = lay.dvk, ldk = lay.ldk, ldv = lay.ldv;
@@ -977,7 +851,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 // the float32 fresh sums spill (about 0.5 KB a thread), and still run faster
 // than spill-free at 2 CTAs (PERF.md); above d = 64 they spill at one CTA
 // too (untimed).  Float32 only: the bfloat16 K2c is
-// banded_attention_bwd_sm90.cu's.
+// banded_attention_sm90.cu's.
 template <class T, int MAXD8>
 __global__ void __launch_bounds__(kThreads, MAXD8 > 8 ? 1 : 3)
 dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -990,7 +864,7 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   constexpr int kMaxK = (8 * MAXD8 + kK - 1) / kK;  // bounds the mma steps over d, dv
   using Own = typename Elem<T>::Own;
   extern __shared__ float4 smem[];
-  const RingSmem lay(d, dv, 2, true, kK, sizeof(T));
+  const RingSmem lay(d, dv, 2, true);
   // d8, dv8: the 8-column steps of the products over d and dv; dk8, dv8c:
   // the 8-column chunks of dk and dv
   const int d8 = lay.dk, dv8 = lay.dvk, ldk = lay.ldk, ldv = lay.ldv;
@@ -1179,8 +1053,7 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-// the shapes the kernels take: d and dv multiples of 16 bytes' worth of
-// elements / 4 (float32: 4; bfloat16, whose rows load 8 at a time: 8)
+// the shapes the kernels take: d and dv multiples of 4 (16 bytes a load)
 bool bad_shape(int bh, int s, int d, int dv, int start, int end, int vec) {
   return bh <= 0 || s <= 0 || s % kBlock != 0 || d <= 0 || dv <= 0 || d % vec != 0 ||
          dv % vec != 0 || d > kMaxHeadDim || dv > kMaxHeadDim || start > 0 || end < 0;
@@ -1230,7 +1103,7 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* 
   int stages = 0;
   size_t smem = 0;
   const cudaError_t err = ring_stages(
-      kernel, RingSmem(d, dv, 1, false, Elem<T>::kK, sizeof(T)), s, stages, smem);
+      kernel, RingSmem(d, dv, 1, false), s, stages, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(bh) * static_cast<unsigned>(s / kBlock));
   kernel<<<grid, kThreads, smem, stream>>>(
@@ -1248,7 +1121,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
   int stages = 0;
   size_t smem = 0;
   const cudaError_t err = ring_stages(
-      dq_kernel<T, MAXD8>, RingSmem(d, dv, 1, true, Elem<T>::kK, sizeof(T)), s, stages, smem);
+      dq_kernel<T, MAXD8>, RingSmem(d, dv, 1, true), s, stages, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(bh) * static_cast<unsigned>(s / kBlock));
   dq_kernel<T, MAXD8><<<grid, kThreads, smem, stream>>>(
@@ -1267,8 +1140,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   int stages = 0;
   size_t smem = 0;
   const cudaError_t err = ring_stages(
-      dkv_kernel<T, MAXD8>, RingSmem(d, dv, 2, true, Elem<T>::kK, sizeof(T)), s, stages,
-      smem);
+      dkv_kernel<T, MAXD8>, RingSmem(d, dv, 2, true), s, stages, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(bh) * static_cast<unsigned>(s / kBlock));
   dkv_kernel<T, MAXD8><<<grid, kThreads, smem, stream>>>(
@@ -1346,7 +1218,6 @@ int dkv_entry(const void* q, const void* k, const void* v, const void* dout, con
   }
 }
 
-#ifndef BA_UNIT_F32
 // One m16n8k16 bfloat16 mma per CTA of one warp, problem p = blockIdx.x:
 // d = a.b + c with a [16, 16] and b [16, 8] bfloat16, c and d [16, 8]
 // float32, row-major and packed one problem after another.  mma_bf16 as
@@ -1372,22 +1243,14 @@ __global__ void mma_bf16_probe_kernel(const __nv_bfloat16* __restrict__ a,
   D[(g + 8) * 8 + 2 * t] = acc[2];
   D[(g + 8) * 8 + 2 * t + 1] = acc[3];
 }
-#endif  // BA_UNIT_F32
 
 }  // namespace
 
 // Plain C entry points (loaded with ctypes).  Each launches on `stream`
 // without synchronising and returns the launch's cudaError_t (0 on success).
 // `seed`, `thresh`, `keep_prob` and `dropout_on` describe the dropout mask;
-// with dropout_on == 0 they are ignored.  The _f32 entry points take float32
-// q, k, v, dout and outputs, the _bf16 ones bfloat16; lse and delta are
-// float32 in both.
-
-// The source builds whole, or as one translation unit per element type,
-// which ops/_build.py compiles at once: -DBA_UNIT_F32 keeps the float32
-// entry points, -DBA_UNIT_BF16 the bfloat16 ones (K1, K2a) and the probe.  Each
-// kernel is compiled from the same template either way.
-#ifndef BA_UNIT_BF16
+// with dropout_on == 0 they are ignored.  q, k, v, dout, the outputs, lse and
+// delta are float32.
 
 // K1: out [BH, S, Dv].
 extern "C" int banded_attention_f32(const void* q, const void* k, const void* v,
@@ -1428,27 +1291,6 @@ extern "C" int banded_attention_dkv_f32(const void* q, const void* k, const void
   return dkv_entry<float>(q, k, v, dout, lse, delta, key_valid, dk, dv_out, bh, s, d, dv,
                           start, end, scale, seed, thresh, keep_prob, dropout_on, stream);
 }
-#endif  // BA_UNIT_BF16
-
-#ifndef BA_UNIT_F32
-
-// bfloat16 twins of K1's and K2a's entry points above (the bfloat16 K2b
-// and K2c: banded_attention_bwd_sm90.cu).
-extern "C" int banded_attention_bf16(const void* q, const void* k, const void* v,
-                                     const void* key_valid, void* out, int bh, int s, int d,
-                                     int dv, int start, int end, float scale, void* stream) {
-  return k1_entry<__nv_bfloat16>(q, k, v, key_valid, out, bh, s, d, dv, start, end, scale,
-                                 stream);
-}
-
-extern "C" int banded_attention_fwd_bf16(const void* q, const void* k, const void* v,
-                                         const void* key_valid, void* out, void* lse,
-                                         int bh, int s, int d, int dv, int start, int end,
-                                         float scale, unsigned seed, unsigned thresh,
-                                         float keep_prob, int dropout_on, void* stream) {
-  return fwd_entry<__nv_bfloat16>(q, k, v, key_valid, out, lse, bh, s, d, dv, start, end,
-                                  scale, seed, thresh, keep_prob, dropout_on, stream);
-}
 
 // The bfloat16 mma probe: `n` problems (see mma_bf16_probe_kernel).
 extern "C" int mma_bf16_probe(const void* a, const void* b, const void* c, void* d, int n,
@@ -1461,4 +1303,3 @@ extern "C" int mma_bf16_probe(const void* a, const void* b, const void* c, void*
       static_cast<const float*>(c), static_cast<float*>(d));
   return static_cast<int>(cudaGetLastError());
 }
-#endif  // BA_UNIT_F32

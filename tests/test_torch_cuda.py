@@ -397,7 +397,7 @@ def test_bf16_conformer_train_step_matches_the_cpu(cuda_device):
 
 
 # ---------------------------------------------------------------------------
-# bfloat16: the kernels' bfloat16 instantiations and bfloat16 compute
+# bfloat16: the bfloat16 kernels and bfloat16 compute
 # ---------------------------------------------------------------------------
 
 BF16 = torch.bfloat16
@@ -416,8 +416,8 @@ BF16_SHAPES = [(512, 64, 64, -100, 0, "lengths"),
 @pytest.mark.parametrize("s,d,dv,start,end,keys", BF16_SHAPES)
 def test_bf16_kernel_matches_plain_version(cuda_device, s, d, dv, start, end,
                                            keys):
-    """K1 on bfloat16 (one launch of its bfloat16 instantiation, counted
-    apart from the float32 one) against its plain version on bfloat16."""
+    """K1 on bfloat16 (one launch of its bfloat16 kernel, counted apart
+    from the float32 one) against its plain version on bfloat16."""
     q, k, v, valid = _inputs(cuda_device, 4, s, d, dv, _key_mask(s, keys),
                              seed=s)
     q, k, v = (x.to(BF16) for x in (q, k, v))
@@ -484,7 +484,7 @@ def test_bf16_trainable_kernels_match_plain_versions(cuda_device, rate, s, d,
 
 
 # (bh, s, d, dv, start, end) of the bfloat16 backward pair
-# (csrc/banded_attention_bwd_sm90.cu) at the shapes its design meets: the
+# (csrc/banded_attention_sm90.cu) at the shapes its design meets: the
 # conformer's train shape, d and dv ending inside a 16-deep step, two
 # 64-column blocks, the long-form recipe's S (3,504, padded to 3,520)
 BWD_PAIR_SHAPES = {
@@ -537,6 +537,72 @@ def test_bf16_backward_pair_matches_plain_versions(cuda_device, rate, case):
     dead = ~torch.isfinite(lse)
     assert dead.any() and (dq[dead] == 0).all()
     assert (dk[valid == 0] == 0).all() and (dv_[valid == 0] == 0).all()
+
+
+# (bh, s, d, dv, start, end) of the bfloat16 forward (K2a and K1 of
+# csrc/banded_attention_sm90.cu) at the shapes its design meets: the
+# conformer's train and decode shapes (its ring wraps), TIMIT's decode
+# shape (S 504, one wave of CTAs), d and dv ending inside a 16-deep step,
+# two 64-column blocks, the long-form recipe's S (3,504, padded to 3,520)
+FWD_SHAPES = {
+    "conformer train": (128, 1600, 64, 64, -256, 256),
+    "conformer decode": (32, 1600, 64, 64, -256, 256),
+    "timit decode": (16, 504, 64, 64, -100, 0),
+    "d 24, dv 8": (4, 256, 24, 8, -40, 8),
+    "d 128": (4, 256, 128, 128, -100, 20),
+    "S 3504": (8, 3504, 64, 64, -100, 50),
+}
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.35])
+@pytest.mark.parametrize("case", list(FWD_SHAPES))
+def test_bf16_forward_matches_plain_versions(cuda_device, rate, case):
+    """K2a on bfloat16 against its plain version on the same inputs, rows
+    of random lengths, one of them empty: out within BF16_ULPS, lse within
+    ATOL and -inf on the same rows, exact zeros on rows with no key, a
+    second run bit-equal to the first; K1 within BF16_ULPS of its plain
+    version and, at rate 0, bit-equal to K2a's out (one routine)."""
+    bh, s, d, dv, start, end = FWD_SHAPES[case]
+    lengths = torch.randint(s // 4, s + 1, (bh,),
+                            generator=torch.Generator().manual_seed(bh))
+    lengths[-1] = 0
+    q, k, v, valid = _inputs(cuda_device, bh, s, d, dv, lengths, seed=s + d)
+    q, k, v = (x.to(BF16) for x in (q, k, v))
+    q, k, v, valid = ba._check_and_pad(q, k, v, valid, start, end)
+    kw = dict(start=start, end=end, scale=0.125, dropout_rate=rate)
+    runs = [ba.banded_attention_fwd(q, k, v, valid, 99, **kw)
+            for _ in range(2)]
+    k1 = ba.banded_attention(q, k, v, valid, start=start, end=end,
+                             scale=0.125)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    out, lse = runs[0]
+    out_w, lse_w = ba.banded_attention_trainable_reference(
+        q, k, v, valid, 99, start, end, 0.125, rate)
+    finite = torch.isfinite(lse_w)
+    assert torch.equal(torch.isfinite(lse), finite) and (~finite).any()
+    np.testing.assert_allclose(lse[finite].cpu().numpy(),
+                               lse_w[finite].cpu().numpy(), atol=ATOL)
+    assert out.dtype == k1.dtype == BF16
+    assert float(ba.bf16_ulps(out, out_w).max()) <= BF16_ULPS
+    assert (out[~finite] == 0).all() and (k1[~finite] == 0).all()
+    want = ba.banded_attention_reference(q, k, v, valid, start, end, 0.125)
+    assert float(ba.bf16_ulps(k1, want).max()) <= BF16_ULPS
+    if rate == 0.0:
+        assert torch.equal(k1, out)
+
+
+def test_bf16_forward_refuses_a_scale_it_cannot_take(cuda_device):
+    """The bfloat16 forward folds the scale into its running max, which
+    needs scale > 0: K1 and K2a refuse 0 and a negative scale."""
+    q, k, v, valid = _inputs(cuda_device, 2, 64, 8, 8, [64, 64])
+    q, k, v = (x.to(BF16) for x in (q, k, v))
+    for scale in (0.0, -0.125):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ba.banded_attention(q, k, v, valid, start=-4, end=0, scale=scale)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ba.banded_attention_fwd(q, k, v, valid, 1, start=-4, end=0,
+                                    scale=scale)
 
 
 def test_bf16_compute_train_step_on_the_card_matches_the_cpu(cuda_device):

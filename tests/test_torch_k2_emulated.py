@@ -1,8 +1,7 @@
 """The banded-attention kernels as written for the card (K1, K2a, K2b and
-K2c in pytorch_kaldi_asr_tpu_torch/ops/csrc/banded_attention_train.cu; the
-bfloat16 K2b and K2c in ops/csrc/banded_attention_bwd_sm90.cu), compiled on
-the CPU with g++ against tests/cuda_emu.h and held against the port's plain
-versions (themselves held against the JAX package in
+K2c on float32 in pytorch_kaldi_asr_tpu_torch/ops/csrc/banded_attention_train.cu;
+on bfloat16 in ops/csrc/banded_attention_sm90.cu), compiled on the CPU with
+g++ against tests/cuda_emu.h and held against the port's plain versions (themselves held against the JAX package in
 tests/test_torch_banded_attention.py and tests/test_torch_train_kernels.py)
 at the card tests' tolerances.
 
@@ -12,11 +11,10 @@ products, the tile and sub-tile skips, the band and validity masks, the
 forward's online softmax across passes and tiles, the dropout hash and
 delta.  The emulated mma multiplies the operands' tf32
 bits exactly as the tensor core does, so the 3xTF32 split is checked too.
-The bfloat16 kernels (K1 and K2a on m16n8k16; K2b and K2c on wgmma fed by
-TMA through mbarriers, which cuda_emu.h emulates down to the matrix
-descriptors and the 128-byte swizzle) are held against the plain versions
-on bfloat16 in bfloat16 ulps (``ba.bf16_ulps``).  Skips where there is no
-g++.
+The bfloat16 kernels (on wgmma fed by TMA through mbarriers, which
+cuda_emu.h emulates down to the matrix descriptors and the 128-byte
+swizzle) are held against the plain versions on bfloat16 in bfloat16 ulps
+(``ba.bf16_ulps``).  Skips where there is no g++.
 """
 
 import re
@@ -32,7 +30,7 @@ from pytorch_kaldi_asr_tpu_torch.ops import banded_attention as ba
 
 SOURCE = (Path(ba.__file__).resolve().parent / "csrc"
           / "banded_attention_train.cu")
-SM90_SOURCE = SOURCE.with_name("banded_attention_bwd_sm90.cu")
+SM90_SOURCE = SOURCE.with_name("banded_attention_sm90.cu")
 OUT_ATOL = 2e-5  # out and lse, as tests/test_torch_cuda.py
 GRAD_ATOL = 1e-4  # dq, dk, dv and delta
 
@@ -60,7 +58,7 @@ def _emulated_source(src):
     return src
 
 
-# the bodies of banded_attention_bwd_sm90.cu's one-instruction helpers,
+# the bodies of banded_attention_sm90.cu's one-instruction helpers,
 # emulated
 SM90_HELPERS = {
     "exp2_approx": "return emu_ex2_ftz(x);",
@@ -99,7 +97,7 @@ def _wgmma_body(name, ptx):
 
 
 def _emulated_sm90_source(src):
-    """banded_attention_bwd_sm90.cu with its PTX helpers, shared memory and
+    """banded_attention_sm90.cu with its PTX helpers, shared memory and
     launches routed to cuda_emu.h."""
     src = src.replace("#include <cuda.h>\n", "")
     src = src.replace("#include <cuda_bf16.h>\n", "")
@@ -107,7 +105,7 @@ def _emulated_sm90_source(src):
     src, n = re.subn(r"extern __shared__ __align__\(1024\) uint8_t smem_raw\[\];",
                      "uint8_t* smem_raw = reinterpret_cast<uint8_t*>(emu_smem());",
                      src)
-    assert n == 2, n
+    assert n == 3, n  # the forward, K2b and K2c
     for name, body in SM90_HELPERS.items():
         src, n = re.subn(
             rf"(__device__ __forceinline__ [^\n(]*\b{name}\(.*?\)) \{{\n(.*?)\n\}}\n",
@@ -120,7 +118,7 @@ def _emulated_sm90_source(src):
     src, n = re.subn(r"(\w+)<<<([^>]*)>>>\((.*?)\);",
                      lambda m: f"emu_launch({m[2]}, [&] {{ {m[1]}({m[3]}); }});",
                      src, flags=re.S)
-    assert n == 2, n
+    assert n == 3, n  # launch_fwd, launch_dq and launch_dkv
     return src
 
 
@@ -150,7 +148,7 @@ def emulated_library(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def emulated_sm90_library(tmp_path_factory):
-    """The emulated build of banded_attention_bwd_sm90.cu."""
+    """The emulated build of banded_attention_sm90.cu."""
     return _compile(tmp_path_factory, "k2_sm90_emu",
                     _emulated_sm90_source(SM90_SOURCE.read_text()))
 
@@ -164,11 +162,10 @@ def emulated(emulated_library):
 
 
 @pytest.fixture(scope="module")
-def emulated_bf16(emulated_library, emulated_sm90_library):
-    """The same on bfloat16: K1 and K2a of banded_attention_train.cu, K2b
-    and K2c of banded_attention_bwd_sm90.cu, as the wrappers load them."""
-    return {w: ba.kernel_entry(emulated_sm90_library if w in ("dq", "dkv")
-                               else emulated_library, w, torch.bfloat16)
+def emulated_bf16(emulated_sm90_library):
+    """The same on bfloat16: the four kernels of banded_attention_sm90.cu,
+    as the wrappers load them."""
+    return {w: ba.kernel_entry(emulated_sm90_library, w, torch.bfloat16)
             for w in ("k1", "fwd", "dq", "dkv")}
 
 
@@ -378,11 +375,11 @@ def test_emulated_backward_does_not_drift(emulated):
 BF16 = torch.bfloat16
 # bfloat16 outputs, kernel against plain version, in bf16_ulps.  Measured
 # here: at most 1.0 over every case below.  The forward rounds its
-# unnormalised probabilities against the running max of each 32-key pass,
+# unnormalised probabilities against the running max of each 64-key tile,
 # the plain version against the row's max (the Pallas kernel against its
 # 128-key block's), so the two round p differently: out differs by one ulp
-# in 7-35 % of its entries, the gradients (whose probabilities come from the
-# final lse in both) in under 0.3 %.
+# in 3-32 % of its entries, the gradients (whose probabilities come from the
+# final lse in both) by at most one ulp.
 BF16_ULPS = 2.0
 
 
@@ -447,7 +444,7 @@ def test_emulated_bf16_kernels_match_plain_version(emulated_bf16, case,
         assert (k1[empty] == 0).all()
 
 
-# cases whose CTAs stream more tiles than the bfloat16 backward's ring has
+# cases whose CTAs stream more tiles than the bfloat16 kernels' ring has
 # stages (3 at d, dv <= 64; 2 above)
 RING_CASES = {
     "band (-256,256) S 640": BF16_CASES["band (-256,256) S 640"],
@@ -484,16 +481,78 @@ def test_emulated_bf16_backward_with_copies_landing_at_once(
         assert float(ba.bf16_ulps(got, want).max()) <= BF16_ULPS, name
 
 
+@pytest.mark.parametrize("case", list(RING_CASES))
+def test_emulated_bf16_forward_with_copies_landing_at_once(
+        emulated_sm90_library, emulated_bf16, case):
+    """The forward's twin of the test above: K2a on bfloat16 at rate 0.35
+    and K1 with each TMA and bulk copy landing as it is issued, at cases
+    that wrap the ring, against the plain versions; a stage handed back
+    before the products reading it are complete is overwritten under
+    them."""
+    s, d, dv, _, start, end = RING_CASES[case]
+    q, k, v, dout, valid = _bf16_inputs(RING_CASES[case])
+    emulated_sm90_library.emu_lazy_copies(0)
+    try:
+        out, lse, *_ = _run(emulated_bf16, q, k, v, valid, dout, 77, start,
+                            end, 0.125, 0.35, backward=False)
+        k1 = torch.full((q.shape[0], s, dv), float("nan")).to(BF16)
+        assert emulated_bf16["k1"](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                   valid.data_ptr(), k1.data_ptr(),
+                                   q.shape[0], s, d, dv, start, end, 0.125,
+                                   None) == 0
+    finally:
+        emulated_sm90_library.emu_lazy_copies(1)
+    out_ref, lse_ref = ba.banded_attention_trainable_reference(
+        q, k, v, valid, 77, start, end, 0.125, 0.35)
+    live = torch.isfinite(lse_ref)
+    assert torch.equal(torch.isfinite(lse), live)
+    np.testing.assert_allclose(lse[live].numpy(), lse_ref[live].numpy(),
+                               atol=OUT_ATOL)
+    assert float(ba.bf16_ulps(out, out_ref).max()) <= BF16_ULPS
+    want = ba.banded_attention_reference(q, k, v, valid, start, end, 0.125)
+    assert float(ba.bf16_ulps(k1, want).max()) <= BF16_ULPS
+
+
+def test_bf16_kernels_load_from_the_hopper_source(monkeypatch):
+    """_kernel_fn takes all four bfloat16 kernels from
+    banded_attention_sm90.cu's library and the float32 ones from
+    banded_attention_train.cu's (``_build.load`` patched: nothing
+    compiles)."""
+    import types
+
+    from pytorch_kaldi_asr_tpu_torch.ops import _build
+
+    loaded = []
+
+    def load(name):
+        loaded.append(name)
+        return types.SimpleNamespace(**{
+            f"banded_attention{w}_{sfx}": types.SimpleNamespace()
+            for w in ("", "_fwd", "_dq", "_dkv") for sfx in ("f32", "bf16")})
+
+    monkeypatch.setattr(_build, "load", load)
+    ba._kernel_fn.cache_clear()
+    try:
+        for dtype, source in ((torch.bfloat16, "banded_attention_sm90"),
+                              (torch.float32, "banded_attention_train")):
+            for which in ("k1", "fwd", "dq", "dkv"):
+                del loaded[:]
+                fn = ba._kernel_fn(which, dtype)
+                assert loaded == [source], (dtype, which, loaded)
+                assert fn.restype is not None and fn.argtypes
+    finally:
+        ba._kernel_fn.cache_clear()
+
+
 def _drift(got, ref):
     """The mean error along ``ref``'s sign over its mean size."""
     got, ref = got.double(), ref.double()
     return float(((got - ref) * ref.sign()).mean() / ref.abs().mean())
 
 
-def test_emulated_bf16_does_not_drift(emulated_library, emulated_sm90_library,
-                                      emulated_bf16):
+def test_emulated_bf16_does_not_drift(emulated_sm90_library, emulated_bf16):
     """The bfloat16 kernels chain their products on one accumulator (one
-    mma or wgmma per 16 products).  Under cuda_emu.h's model of the tensor core's
+    wgmma per 16 products).  Under cuda_emu.h's model of the tensor core's
     rounding (its addends cut toward zero at 26 bits below the largest,
     the sum rounded toward zero: what chip_smoke.py's probe reads on the
     H100), at TIMIT's band and head dim, out, dq, dk and dv sit along their
@@ -502,28 +561,25 @@ def test_emulated_bf16_does_not_drift(emulated_library, emulated_sm90_library,
     (2**-9); and the tensor core's rounding itself, the same kernels
     against a build whose mma rounds its exact sum to nearest, moves them
     by less than 1e-5 of their size.  Measured: against the plain version
-    out +3.9e-6 (the forward rounds p at other maxima, see BF16_ULPS), dq,
-    dk and dv -6e-8 to -1.4e-7; the tensor core's rounding against to
-    nearest -7e-8 (out), -7.2e-8, +8e-9 and -1.6e-7 (dq, dk, dv): four
-    orders of magnitude under bfloat16's 2**-9, so the products chain (the
-    float32 kernels cannot: there the drift was the size of their error
-    budget)."""
+    out +6.2e-6 (the forward rounds p at other maxima, see BF16_ULPS; O
+    chains over every tile of its band), dq, dk and dv -6e-8 to -4.3e-7;
+    the tensor core's rounding against to nearest -3.2e-7 (out), +6.5e-7,
+    +8.3e-7 and -1.6e-7 (dq, dk, dv): three orders of magnitude under
+    bfloat16's 2**-9, so the products chain (the float32 kernels cannot:
+    there the drift was the size of their error budget)."""
     bh, s, d, start, end, scale = 8, 256, 64, -100, 0, 0.125
     rng = np.random.default_rng(0)
     q, k, v, dout = (torch.from_numpy(rng.normal(size=(bh, s, d)).astype(
         np.float32)).to(BF16) for _ in range(4))
     valid = torch.ones((bh, s), dtype=torch.int32)
     runs = {}
-    libraries = (emulated_library, emulated_sm90_library)
     for nearest in (0, 1):
-        for lib in libraries:
-            lib.emu_round_nearest(nearest)
+        emulated_sm90_library.emu_round_nearest(nearest)
         try:
             runs[nearest] = _run(emulated_bf16, q, k, v, valid, dout, 7,
                                  start, end, scale, 0.0)
         finally:
-            for lib in libraries:
-                lib.emu_round_nearest(0)
+            emulated_sm90_library.emu_round_nearest(0)
     out, lse, dq, delta, dk, dv = runs[0]
     out_ref, _ = ba.banded_attention_trainable_reference(q, k, v, valid, 7,
                                                          start, end, scale)

@@ -14,8 +14,8 @@ import chip_smoke as cs  # noqa: E402
 from pytorch_kaldi_asr_tpu_torch.ops.launches import launch_counts  # noqa: E402
 
 # kernel names as torch.profiler gives them on the card
-FWD_BF16 = ("void (anonymous namespace)::fwd_kernel<__nv_bfloat16, 8>"
-            "(__nv_bfloat16 const*, int)")
+FWD_BF16 = ("void (anonymous namespace)::fwd_sm90_kernel<1>(CUtensorMap_st, "
+            "CUtensorMap_st, int)")
 DQ_BF16 = ("void (anonymous namespace)::dq_sm90_kernel<1>(CUtensorMap_st, "
            "CUtensorMap_st, int)")
 DKV_BF16 = ("void (anonymous namespace)::dkv_sm90_kernel<1>(CUtensorMap_st, "
